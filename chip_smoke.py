@@ -8,8 +8,8 @@ It imports nothing of JAX or ``singa_tpu``, and runs these phases; any
 failure exits nonzero:
 
 1. card: the card's name and power limit (``nvidia-smi``);
-2. build: every CUDA kernel of the serving path, from ``singa_tpu_torch/
-   csrc``, one ``nvcc`` per source, all started together;
+2. build: every CUDA kernel of the port, from ``singa_tpu_torch/csrc``,
+   one ``nvcc`` per source, all started together;
 3. kernels: each variant of kernel K2 (plain/residual x NCHW/NHWC) in f32
    and bf16 at ResNet-50 batch-32 shapes (the stem, 32x64x112x112, and the
    layer1 residual tail, 32x256x56x56), held bitwise against its plain
@@ -23,7 +23,34 @@ failure exits nonzero:
    under ``policy="bf16_mixed"``, and a 32-request NHWC run. Each run
    checks that every future resolved and that K2 launched 49 times per
    forward, with the launch counts zeroed just before the run and read
-   just after.
+   just after;
+5. kernels (optimizers): K1 (weight decay 1e-5, and again with nesterov),
+   K5, K6 and K7 at the largest ResNet-50 parameter (512x512x3x3) and a
+   64-element BN vector, each held bitwise against its plain version on
+   cloned inputs, with the version of every written tensor checked to go
+   up, and timed per call (CUDA events: what a caller pays, host work
+   included), on the device alone (``torch.profiler``, over copies that
+   exceed the L2 cache) and, for K1 and K5, beside
+   ``torch.optim.SGD/Adam(fused=True).step()`` on the same tensor; then
+   each timed over a whole ResNet-50 update (its 161 parameter tensors)
+   in the same four ways;
+6. train: ResNet-50, 224 px, batch 32, f32, TF32 off, NCHW, weights and BN
+   statistics from a numpy seed and one fixed synthetic batch, through
+   ``Model.compile(is_train=True)`` and ``model(x, y)`` with ``SGD(lr=0.1,
+   momentum=0.9, weight_decay=1e-5)``: once with ``fused=True`` (kernel
+   K1, 161 launches per step) and once with ``fused=False`` from the same
+   start, cuDNN deterministic, every parameter, momentum and running
+   statistic held bitwise after the steps; img/s and step p50/p99 from
+   CUDA events, the loss per step (finite, falling), peak device memory;
+7. eval after training: the fused-trained model (which served once
+   before training, so its BN folds were cached) serves one batch through
+   K2 (49 launches) and through the unfused path, and their logits agree;
+   then K1 updates only the BN scales and biases (106 launches, no
+   forward, so no running statistic moves) and the two paths must still
+   agree: a fold that K1's in-place writes did not invalidate would not;
+8. train (other optimizers): 3 steps each of ``Adam``, ``RMSProp`` and
+   ``AdaGrad``, fused against unfused from the same start, held bitwise,
+   161 launches of K5, K6 or K7 per step.
 
 Its last lines are the ``{"kernels": [...]}`` record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. The full record also
@@ -43,6 +70,7 @@ BATCH = 32
 N_REQUESTS = 96
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12         # H100 SXM data sheet, f32 outside tensor cores
+L2_FLUSH_BYTES = 2 * 50 * 2**20  # twice the H100's 50 MB L2
 TAILS_PER_FORWARD = {"affine_relu": 33, "affine_add_relu": 16}
 # logits of the fused path against the unfused path, as a fraction of the
 # largest |logit|: f32 differs only in the BN fold's rounding; bf16 rounds
@@ -55,6 +83,31 @@ REPLACES = {
     "affine_relu_nhwc": "singa_tpu/ops/fused_epilogue.py:80",
     "affine_add_relu_nchw": "singa_tpu/ops/fused_epilogue.py:101",
     "affine_add_relu_nhwc": "singa_tpu/ops/fused_epilogue.py:93",
+    "sgd": "singa_tpu/ops/fused_optim.py:155",
+    "adam": "singa_tpu/ops/fused_optim.py:206",
+    "rmsprop": "singa_tpu/ops/fused_optim.py:263",
+    "adagrad": "singa_tpu/ops/fused_optim.py:316",
+}
+TRAIN_STEPS = 12            # the fused and the unfused SGD run each
+TIMED_FROM = 2              # steps before this one warm cuDNN and the pool
+OTHER_STEPS = 3
+PARAMS_PER_STEP = 161       # ResNet-50: 53 convs, 53 BNs x 2, fc W and b
+# the optimizer settings of each kernel's phases: (the wrapper, its
+# keyword arguments, the number of states, bytes moved per f32 element,
+# f32 operations per element)
+KERNEL_NAME = {"sgd": "sgd_kernel", "sgd_nesterov": "sgd_kernel",
+               "adam": "adam_kernel", "rmsprop": "scaled_kernel",
+               "adagrad": "scaled_kernel"}
+OPTIM_CASES = {
+    "sgd": ("sgd_momentum_update",
+            dict(momentum=0.9, weight_decay=1e-5), 1, 20, 7),
+    "sgd_nesterov": ("sgd_momentum_update",
+                     dict(momentum=0.9, weight_decay=1e-5, nesterov=True),
+                     1, 20, 9),
+    "adam": ("adam_update", dict(beta_1=0.9, beta_2=0.999, epsilon=1e-8),
+             2, 28, 14),
+    "rmsprop": ("rmsprop_update", dict(rho=0.9, epsilon=1e-8), 1, 20, 8),
+    "adagrad": ("adagrad_update", dict(epsilon=1e-8), 1, 20, 6),
 }
 
 
@@ -89,6 +142,26 @@ def time_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, match, iters=20):
+    """Mean device time per call of ``fn``: the durations of the kernels
+    whose name contains ``match``, from ``torch.profiler``, over ``iters``
+    calls after a warm-up one. Host time between launches is not in it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and match in e.name]
+    check(bool(us), f"the profiler saw no {match} kernel")
+    return sum(us) / 1e3 / iters
 
 
 def bound(n, c, itemsize, residual):
@@ -160,6 +233,148 @@ def kernel_phase(dev):
                       flush=True)
                 del x, r
     return cases
+
+
+def optim_args(kind, shapes, gen, dev):
+    """Fresh (p, g, *states) per shape for one optimizer kernel, and the
+    device scalars it takes (lr, and Adam's bias corrections)."""
+    import torch
+    _, _, n_states, _, _ = OPTIM_CASES[kind]
+    positive = kind in ("rmsprop", "adagrad")
+    tensors = []
+    for shape in shapes:
+        def rand(pos=False):
+            t = torch.randn(shape, generator=gen, device=dev.torch_device)
+            return t.abs() if pos else t
+        states = [rand(pos=positive or i == 1) for i in range(n_states)]
+        tensors.append([rand(), rand() * 0.1] + states)
+    scalars = [torch.tensor(0.01, device=dev.torch_device)]
+    if kind == "adam":
+        scalars += [torch.tensor(1 - 0.9 ** 3, device=dev.torch_device),
+                    torch.tensor(1 - 0.999 ** 3, device=dev.torch_device)]
+    return tensors, scalars
+
+
+def optim_update(kind, tensors, scalars, plain=False):
+    from singa_tpu_torch.ops import fused_optim as fo
+    name, kw, _, _, _ = OPTIM_CASES[kind]
+    fn = getattr(fo, name + ("_reference" if plain else ""))
+    for p, g, *states in tensors:
+        fn(p, g, *states, *scalars, **kw)
+
+
+def optim_bound(kind, n):
+    _, _, _, nbytes, ops = OPTIM_CASES[kind]
+    t_bytes = n * nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n * ops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def library_step(kind, tensors):
+    """``torch.optim``'s fused step over the same tensors: the yardstick
+    for K1 and K5 (None for K6/K7: torch adds eps outside the square
+    root, so no PyTorch call computes their function). torch also starts
+    SGD's momentum at g on its first step; the timing runs later steps."""
+    import torch
+    params = [t[0].clone().requires_grad_(True) for t in tensors]
+    for p, t in zip(params, tensors):
+        p.grad = t[1].clone()
+    if kind == "sgd":
+        opt = torch.optim.SGD(params, lr=0.01, momentum=0.9,
+                              weight_decay=1e-5, fused=True)
+    elif kind == "adam":
+        opt = torch.optim.Adam(params, lr=0.01, fused=True)
+    else:
+        return None
+    return opt.step
+
+
+def optim_kernel_phase(dev, param_shapes):
+    """Each optimizer kernel against its plain version, bitwise, at the
+    largest ResNet-50 parameter and a BN vector; versions checked; then
+    timed over one whole ResNet-50 update. Returns (cases, per-kernel
+    step timings)."""
+    import torch
+    gen = torch.Generator(device=dev.torch_device)
+    gen.manual_seed(SEED)
+    cases = []
+    for kind in OPTIM_CASES:
+        for shape in ((512, 512, 3, 3), (64,)):
+            (mine,), scalars = optim_args(kind, [shape], gen, dev)
+            plain = [t.clone() for t in mine]
+            written = [mine[0]] + mine[2:]
+            versions = [t._version for t in written]
+            optim_update(kind, [mine], scalars)
+            optim_update(kind, [plain], scalars, plain=True)
+            torch.cuda.synchronize()
+            err = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(written, [plain[0]] + plain[2:]))
+            check(all(torch.equal(a, b) for a, b in
+                      zip(written, [plain[0]] + plain[2:])),
+                  f"{kind} {shape}: kernel differs from its plain version "
+                  f"(max abs err {err})")
+            check(all(t._version > v for t, v in zip(written, versions)),
+                  f"{kind} {shape}: a written tensor kept its version")
+            n = mine[0].numel()
+            bms, by = optim_bound(kind, n)
+            def kern():
+                optim_update(kind, [mine], scalars)
+            # device time over a ring of copies that together exceed the
+            # 50 MB L2 twice, so each launch finds its tensors in HBM, as
+            # a whole-model update does
+            per_set = sum(t.numel() * t.element_size() for t in mine)
+            ring = [[t.clone() for t in mine]
+                    for _ in range(min(8, -(-L2_FLUSH_BYTES // per_set)))]
+            turn = iter(range(1 << 30))
+
+            def kern_cold():
+                optim_update(kind, [ring[next(turn) % len(ring)]],
+                             scalars)
+            lib = library_step(kind, [mine])
+            if lib is not None:
+                lib()               # past torch's first-step momentum init
+            rec = {"name": kind, "shape": list(shape), "max_abs_err": err,
+                   "ms": time_ms(kern),
+                   "device_ms": device_ms(kern_cold, KERNEL_NAME[kind]),
+                   "plain_ms": time_ms(lambda: optim_update(
+                       kind, [plain], scalars, plain=True)),
+                   "bound_ms": bms, "bound_by": by,
+                   "library_ms": time_ms(lib) if lib else None}
+            cases.append(rec)
+            del ring
+            lib_s = f"{rec['library_ms']:.4f}" if lib else "null"
+            print(f"kernel {kind} {shape}: kernel_ms={rec['ms']:.4f} "
+                  f"(device {rec['device_ms']:.4f}) plain_ms="
+                  f"{rec['plain_ms']:.4f} bound_ms={bms:.5f} ({by}) "
+                  f"library_ms={lib_s} bitwise=True versions bumped",
+                  flush=True)
+    steps = {}
+    for kind in OPTIM_CASES:
+        tensors, scalars = optim_args(kind, param_shapes, gen, dev)
+        plain = [[t.clone() for t in ts] for ts in tensors]
+        n = sum(ts[0].numel() for ts in tensors)
+        bms, by = optim_bound(kind, n)
+        lib = library_step(kind, tensors)
+        if lib is not None:
+            lib()                   # past torch's first-step momentum init
+        def step():
+            optim_update(kind, tensors, scalars)
+        rec = {"name": kind, "tensors": len(tensors), "elements": n,
+               "ms": time_ms(step, iters=10),
+               "device_ms": device_ms(step, KERNEL_NAME[kind], iters=5),
+               "plain_ms": time_ms(lambda: optim_update(
+                   kind, plain, scalars, plain=True), iters=10),
+               "bound_ms": bms, "bound_by": by,
+               "library_ms": time_ms(lib, iters=10) if lib else None}
+        steps[kind] = rec
+        lib_s = f"{rec['library_ms']:.4f}" if lib else "null"
+        print(f"step {kind} over {len(tensors)} ResNet-50 tensors ({n} "
+              f"elements): kernel_ms={rec['ms']:.4f} (device "
+              f"{rec['device_ms']:.4f}) plain_ms="
+              f"{rec['plain_ms']:.4f} bound_ms={bms:.4f} ({by}) "
+              f"library_ms={lib_s}", flush=True)
+        del tensors, plain
+    return cases, steps
 
 
 def seeded_states(model, seed):
@@ -265,6 +480,212 @@ def serve_phase(dev, layout, policy, n_requests, seed=SEED, batch=BATCH):
     return rec
 
 
+def train_models(dev, seed=SEED):
+    """Two ResNet-50s (NCHW, 10 classes) from the same numpy-seeded start,
+    compiled for training on one fixed synthetic batch of 32; returns
+    them, the batch Tensors and the start."""
+    import numpy as np
+    from singa_tpu_torch.model import load_numpy_states
+    from singa_tpu_torch.models import resnet
+    from singa_tpu_torch.tensor import Tensor
+    rng = np.random.default_rng(seed + 2)
+    x = rng.standard_normal((BATCH,) + SHAPE, dtype=np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, BATCH)]
+    tx, ty = Tensor(data=x, device=dev), Tensor(data=y, device=dev)
+    models = []
+    for _ in range(2):
+        m = resnet.resnet50(num_classes=10)
+        m.compile([tx], is_train=True)
+        models.append(m)
+    start = seeded_states(models[0], seed)
+    return models, tx, ty, start
+
+
+def train_run(model, optimizer, start, tx, ty, steps, kernel):
+    """``steps`` train steps from ``start`` with ``optimizer``; the launch
+    counts are zeroed just before and read just after. Returns the loss
+    per step, the step times (CUDA events, one sync at the end), the
+    launches of ``kernel`` and of the other optimizer kernels."""
+    import torch
+    from singa_tpu_torch.model import load_numpy_states
+    from singa_tpu_torch.ops import fused_optim as fo
+    load_numpy_states(model, start)
+    model.set_optimizer(optimizer)
+    model.train()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(steps)]
+    losses = []
+    torch.cuda.synchronize()
+    fo.reset_counts()
+    for begin, end in events:
+        begin.record()
+        _, loss = model(tx, ty)
+        end.record()
+        losses.append(loss.data.detach())
+    counts = dict(fo.launches)
+    torch.cuda.synchronize()
+    losses = [float(v) for v in losses]
+    times = [b.elapsed_time(e) for b, e in events]
+    mine = counts.pop(kernel, 0)
+    return losses, times, mine, sum(counts.values())
+
+
+def held_equal(a, b, what):
+    """Every state of model a (and of its optimizer) equals b's bitwise."""
+    import torch
+    sa, sb = a.get_states(), b.get_states()
+    sa.update(a.optimizer.state_tensor_dict())
+    sb.update(b.optimizer.state_tensor_dict())
+    check(sorted(sa) == sorted(sb), f"{what}: state names differ")
+    diff = {k: (sa[k].data.float() - sb[k].data.float()).abs().max().item()
+            for k in sa if not torch.equal(sa[k].data, sb[k].data)}
+    check(not diff, f"{what}: fused and unfused runs differ in "
+          f"{len(diff)} of {len(sa)} states, e.g. "
+          f"{sorted(diff.items(), key=lambda kv: -kv[1])[:3]}")
+    return len(sa)
+
+
+def train_phase(dev, models, tx, ty, start):
+    """ResNet-50 b32 f32 SGD: fused (K1) against unfused, same start."""
+    import numpy as np
+    import torch
+    from singa_tpu_torch import opt
+    fused, plain = models
+    runs = {}
+    for name, m in (("fused", fused), ("unfused", plain)):
+        torch.cuda.reset_peak_memory_stats()
+        sgd = opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5,
+                      fused=name == "fused")
+        losses, times, k1, other = train_run(m, sgd, start, tx, ty,
+                                             TRAIN_STEPS, "sgd")
+        runs[name] = {"losses": losses, "step_ms": times, "k1": k1,
+                      "other_kernel_launches": other,
+                      "peak_bytes": torch.cuda.max_memory_allocated()}
+    f = runs["fused"]
+    check(f["k1"] == PARAMS_PER_STEP * TRAIN_STEPS and
+          f["other_kernel_launches"] == 0,
+          f"fused run: {f['k1']} K1 launches (expected "
+          f"{PARAMS_PER_STEP} x {TRAIN_STEPS}), "
+          f"{f['other_kernel_launches']} others")
+    check(runs["unfused"]["k1"] + runs["unfused"]["other_kernel_launches"]
+          == 0, "the unfused run launched an optimizer kernel")
+    check(all(np.isfinite(f["losses"])), f"loss not finite: {f['losses']}")
+    check(f["losses"][-1] < f["losses"][0],
+          f"loss did not fall on the fixed batch: {f['losses']}")
+    n_states = held_equal(fused, plain, "SGD")
+    rec = {"steps": TRAIN_STEPS, "batch": BATCH, "states_held": n_states,
+           "k1_launches": f["k1"], "k1_launches_per_step":
+           f["k1"] / TRAIN_STEPS, "losses": f["losses"],
+           "unfused_losses": runs["unfused"]["losses"]}
+    for name, r in runs.items():
+        t = np.asarray(r["step_ms"][TIMED_FROM:])
+        pre = "" if name == "fused" else "unfused_"
+        rec.update({f"{pre}img_per_s": BATCH * len(t) / (t.sum() / 1e3),
+                    f"{pre}step_p50_ms": float(np.percentile(t, 50)),
+                    f"{pre}step_p99_ms": float(np.percentile(t, 99)),
+                    f"{pre}step_ms": r["step_ms"],
+                    f"{pre}peak_device_bytes": r["peak_bytes"]})
+    print(f"train resnet50 NCHW f32 b{BATCH} SGD x{TRAIN_STEPS} (timed from "
+          f"step {TIMED_FROM}): img/s={rec['img_per_s']:.1f} (unfused "
+          f"{rec['unfused_img_per_s']:.1f}) step p50="
+          f"{rec['step_p50_ms']:.2f} ms p99={rec['step_p99_ms']:.2f} ms "
+          f"(unfused p50 {rec['unfused_step_p50_ms']:.2f} ms) K1 launches="
+          f"{f['k1']} ({rec['k1_launches_per_step']:.0f}/step) peak="
+          f"{rec['peak_device_bytes'] / 2**30:.2f} GiB; fused == unfused "
+          f"bitwise over {n_states} states", flush=True)
+    print("train losses: " + " ".join(f"{v:.6f}" for v in f["losses"]),
+          flush=True)
+    return rec
+
+
+def eval_after_training(dev, model, inputs):
+    """Serve the fused-trained model through K2 and through the unfused
+    path; logits must agree (a stale BN fold would not)."""
+    import numpy as np
+    model.eval()
+    ref, _, _, ref_launches, _ = serve(model, dev, inputs, None, False)
+    got, _, _, launches, tails = serve(model, dev, inputs, None, True)
+    check(sum(ref_launches.values()) == 0, "the unfused serve launched K2")
+    for kind, per in TAILS_PER_FORWARD.items():
+        n = launches[f"{kind}_nchw"]
+        check(n == per, f"{kind}_nchw: {n} launches after training, "
+              f"expected {per}")
+    scale = float(np.abs(ref).max())
+    err = float(np.abs(got - ref).max())
+    check(np.isfinite(got).all() and scale > 0 and
+          err <= REL_TOL["float32"] * scale,
+          f"after training, K2 logits differ from the unfused path by {err}"
+          f" (max |logit| {scale}): a stale BN fold?")
+    print(f"eval after training: 49 K2 launches, max_abs_err={err:.3g} "
+          f"(max |logit| {scale:.3g})", flush=True)
+    rec = {"launches": launches, "max_abs_err_vs_unfused": err,
+           "max_abs_logit": scale}
+
+    # one more fused update of the BN scales and biases alone, with no
+    # forward: the running statistics keep their versions, so only K1's
+    # in-place writes can invalidate the folds the serve above cached
+    import torch
+    from singa_tpu_torch.ops import fused_optim as fo
+    gen = torch.Generator(device=dev.torch_device)
+    gen.manual_seed(SEED)
+    bn = {k: t for k, t in model.get_params().items()
+          if k.rsplit(".", 1)[-1] in ("scale", "bias")}
+    fo.reset_counts()
+    for k, t in bn.items():
+        model.optimizer.apply(k, t, torch.randn(
+            t.shape, generator=gen, device=dev.torch_device) * 0.5)
+    n_bn = fo.launches["sgd"]
+    check(n_bn == len(bn) == 106, f"{n_bn} K1 launches for {len(bn)} BN "
+          "scales and biases, expected 106")
+    ref2, _, _, _, _ = serve(model, dev, inputs, None, False)
+    got2, _, _, _, _ = serve(model, dev, inputs, None, True)
+    moved = float(np.abs(ref2 - ref).max())
+    err2 = float(np.abs(got2 - ref2).max())
+    scale2 = float(np.abs(ref2).max())
+    check(moved > REL_TOL["float32"] * scale2 and
+          err2 <= REL_TOL["float32"] * scale2,
+          f"after a BN-only K1 update the unfused logits moved by {moved}; "
+          f"K2 logits differ from them by {err2} (max |logit| {scale2}): "
+          "a stale BN fold?")
+    print(f"eval after a BN-only K1 update ({n_bn} launches): logits moved "
+          f"by {moved:.3g}, K2 against unfused max_abs_err={err2:.3g}",
+          flush=True)
+    rec.update({"bn_only_k1_launches": n_bn, "bn_only_moved": moved,
+                "bn_only_max_abs_err_vs_unfused": err2})
+    return rec
+
+
+def other_optimizers_phase(models, tx, ty, start):
+    """Adam (K5), RMSProp (K6), AdaGrad (K7): 3 steps fused against
+    unfused from the same start."""
+    import numpy as np
+    from singa_tpu_torch import opt
+    makers = {"adam": lambda f: opt.Adam(lr=1e-3, fused=f),
+              "rmsprop": lambda f: opt.RMSProp(lr=1e-3, fused=f),
+              "adagrad": lambda f: opt.AdaGrad(lr=1e-2, fused=f)}
+    out = {}
+    for kind, make in makers.items():
+        res = {}
+        for m, fused in zip(models, (True, False)):
+            res[fused] = train_run(m, make(fused), start, tx, ty,
+                                   OTHER_STEPS, kind)
+        losses, times, n, other = res[True]
+        check(n == PARAMS_PER_STEP * OTHER_STEPS and other == 0,
+              f"{kind}: {n} launches (expected {PARAMS_PER_STEP} x "
+              f"{OTHER_STEPS}), {other} of other kernels")
+        check(res[False][2] + res[False][3] == 0,
+              f"{kind}: the unfused run launched a kernel")
+        check(all(np.isfinite(losses)), f"{kind}: loss not finite")
+        n_states = held_equal(models[0], models[1], kind)
+        out[kind] = {"launches": n, "losses": losses, "step_ms": times,
+                     "states_held": n_states}
+        print(f"train resnet50 {kind} x{OTHER_STEPS}: {n} launches, losses "
+              + " ".join(f"{v:.6f}" for v in losses)
+              + f"; fused == unfused bitwise over {n_states} states",
+              flush=True)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -296,6 +717,25 @@ def main():
             serve_phase(dev, "NCHW", "bf16_mixed", N_REQUESTS),
             serve_phase(dev, "NHWC", None, BATCH)]
 
+    import numpy as np
+    models, tx, ty, start = train_models(dev)
+    shapes = [tuple(t.shape) for t in models[0].get_params().values()]
+    check(len(shapes) == PARAMS_PER_STEP,
+          f"ResNet-50 has {len(shapes)} parameter tensors")
+    optim_cases, optim_steps = optim_kernel_phase(dev, shapes)
+    # serve once before training: the BN folds are cached now, and K1's
+    # in-place writes must invalidate them
+    rng = np.random.default_rng(SEED + 3)
+    eval_inputs = [rng.standard_normal(SHAPE, dtype=np.float32)
+                   for _ in range(BATCH)]
+    models[0].eval()
+    serve(models[0], dev, eval_inputs, None, True)
+    torch.backends.cudnn.deterministic = True
+    train = train_phase(dev, models, tx, ty, start)
+    evaluated = eval_after_training(dev, models[0], eval_inputs)
+    others = other_optimizers_phase(models, tx, ty, start)
+    torch.backends.cudnn.deterministic = False
+
     # one line per kernel: its f32 case at main-path shapes, launches from
     # the f32 run of its layout
     kernels = []
@@ -313,9 +753,25 @@ def main():
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": None})
+    launches = {"sgd": train["k1_launches"],
+                **{k: v["launches"] for k, v in others.items()}}
+    for kind, n in launches.items():
+        step = optim_steps[kind]
+        kernels.append({
+            "name": kind, "route": "cuda",
+            "source": "singa_tpu_torch/csrc/fused_optim.cu",
+            "replaces": REPLACES[kind], "launches": n,
+            "max_abs_err": max(c["max_abs_err"] for c in optim_cases
+                               if c["name"].split("_")[0] == kind),
+            "ms": step["ms"], "plain_ms": step["plain_ms"],
+            "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
+            "library_ms": step["library_ms"]})
     kind = torch.cuda.get_device_name(0)
     record = {"card": card, "torch": torch.__version__, "build_s": build_s,
               "kernel_cases": cases, "serve_runs": runs,
+              "optim_kernel_cases": optim_cases,
+              "optim_steps": optim_steps, "train": train,
+              "eval_after_training": evaluated, "train_other": others,
               "kernels": kernels}
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -323,9 +779,9 @@ def main():
         json.dump(record, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)
+    # every phase ran on the one card it was given
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
-        "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": kind, "count": 1}}))
     return 0
 
 

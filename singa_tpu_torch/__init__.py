@@ -2,17 +2,22 @@
 Hopper (H100).
 
 The JAX package ``singa_tpu`` stays as the reference; this package imports
-neither it nor JAX. Module names mirror ``singa_tpu``'s. This slice serves
-ResNet through ``Model.compile_serving`` -> ``BatchServingEngine``, with
-every frozen-BN -> (add ->) ReLU tail in one pass of the hand-written CUDA
-kernel in ``csrc/fused_epilogue.cu`` (``ops.fused_epilogue``).
+neither it nor JAX. Module names mirror ``singa_tpu``'s. It serves ResNet
+through ``Model.compile_serving`` -> ``BatchServingEngine``, with every
+frozen-BN -> (add ->) ReLU tail in one pass of the hand-written CUDA kernel
+in ``csrc/fused_epilogue.cu`` (``ops.fused_epilogue``, K2), and trains it
+in f32 through ``Model.compile(is_train=True)`` and ``model(x, y)``, with
+``opt.SGD/Adam/RMSProp/AdaGrad(fused=True)`` updating every parameter in
+one pass of a hand-written CUDA kernel in ``csrc/fused_optim.cu``
+(``ops.fused_optim``, K1, K5, K6, K7).
 
 Entry points run on the card: ``device.get_default_device()`` is
 ``cuda:0`` and raises without CUDA. Pass ``device.create_cpu_device()``
-to run on the CPU, where the kernel's plain PyTorch version stands in.
+to run on the CPU, where each kernel's plain PyTorch version stands in.
 """
 
 from . import (device, tensor, mixed_precision, autograd_base,  # noqa: F401
-               autograd, initializer, layer, model, ops, models, serving)
+               autograd, initializer, layer, model, ops, models, serving,
+               opt, metric, data, datasets)
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

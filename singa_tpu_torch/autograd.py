@@ -1,10 +1,14 @@
-"""Functional ops of the serving path.
+"""Functional ops of the CNN path.
 
-Counterpart of the serving subset of ``singa_tpu/autograd.py``: ``relu``
-(with the epilogue peephole, ``autograd.py:984-995``), ``add`` (with the
+Counterpart of the CNN subset of ``singa_tpu/autograd.py``: ``relu`` (with
+the epilogue peephole, ``autograd.py:984-995``), ``add`` (with the
 residual tag, ``autograd.py:832-847``), ``transpose``, ``flatten``,
-``matmul`` and ``add_bias``. Each takes and returns :class:`~.tensor.Tensor`s.
-The tape arrives with the training slice of the port.
+``matmul``, ``add_bias`` and the losses ``softmax_cross_entropy`` and
+``cross_entropy`` (``autograd.py:333-364``). Each takes and returns
+:class:`~.tensor.Tensor`s. Torch autograd records their gradients when
+they run outside ``no_grad`` (:func:`~.autograd_base.backward`); the
+peephole declines in training, so a training forward never makes a lazy
+tensor.
 """
 
 from __future__ import annotations
@@ -80,3 +84,32 @@ def transpose(x, shape=None):
     perm = tuple(shape) if shape is not None else \
         tuple(reversed(range(x.ndim)))
     return Tensor(data=x.data.permute(perm).contiguous(), device=x.device)
+
+
+def _f32(x):
+    return x.float() if x.dtype != torch.float32 else x
+
+
+def softmax_cross_entropy(x, t):
+    """Mean cross entropy of softmax(x) over the batch, in f32. ``t`` is
+    one-hot rows of x's shape, or integer class ids."""
+    xa = _f32(x.data)
+    ta = t.data if isinstance(t, Tensor) else torch.as_tensor(t)
+    ta = ta.detach().to(xa.device)
+    logp = torch.log_softmax(xa, dim=-1)
+    if tuple(ta.shape) == tuple(xa.shape):
+        ce = -torch.sum(_f32(ta) * logp, dim=-1)
+    else:
+        ids = ta.reshape(ta.shape[0:1]) if ta.dim() > 1 else ta
+        ce = -torch.gather(logp, -1, ids.long()[:, None])[:, 0]
+    return Tensor(data=torch.mean(ce), device=x.device)
+
+
+def cross_entropy(x, t):
+    """``-sum(t * log(x + 1e-10)) / batch`` for probabilities ``x``, in
+    f32."""
+    xa = _f32(x.data)
+    ta = t.data if isinstance(t, Tensor) else torch.as_tensor(t)
+    ta = _f32(ta.detach().to(xa.device))
+    return Tensor(data=-torch.sum(ta * torch.log(xa + 1e-10)) / xa.shape[0],
+                  device=x.device)

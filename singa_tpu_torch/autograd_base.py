@@ -1,12 +1,25 @@
-"""Global autograd mode flags.
+"""Global autograd mode flags and reverse mode over torch autograd.
 
 Counterpart of ``singa_tpu/autograd_base.py:29-49`` (the ``CTX`` training
-flag and :func:`is_training`). The tape and ``Operator`` arrive with the
-training slice of the port (ROADMAP, slice A); the serving path runs under
-``torch.inference_mode()`` and records nothing.
+flag and :func:`is_training`) and ``:217-262`` (:func:`backward`,
+:func:`gradients`). The JAX package records its own tape of
+``Operator``s; the port lets torch autograd record the graph of the
+forward and walks it: :func:`backward` finds the parameter leaves the
+output depends on (the Tensors made with ``stores_grad``) and computes
+their gradients with one ``torch.autograd.grad``. No op of the port needs
+a custom gradient yet, so there is no ``Operator`` class; one that does
+will be a ``torch.autograd.Function``.
+
+The serving path runs under ``torch.inference_mode()`` and records
+nothing.
 """
 
 from __future__ import annotations
+
+import weakref
+from collections import deque
+
+import torch
 
 
 class _Context:
@@ -19,3 +32,73 @@ CTX = _Context()
 
 def is_training() -> bool:
     return CTX.training
+
+
+def register_param(t):
+    """Mark Tensor ``t``'s torch tensor as a parameter leaf that
+    :func:`backward` yields: it requires grad and points back at ``t``."""
+    t.data.requires_grad_(True)
+    t.data._singa_param = weakref.ref(t)
+
+
+def _param_leaves(root):
+    """The parameter Tensors ``root``'s autograd graph reaches, in reverse
+    topological order (a node after every node that consumes it): the
+    last layer's first, as the JAX package's tape walk yields them."""
+    consumers, stack, seen = {}, [root], {root}
+    while stack:
+        for fn, _ in stack.pop().next_functions:
+            if fn is None:
+                continue
+            consumers[fn] = consumers.get(fn, 0) + 1
+            if fn not in seen:
+                seen.add(fn)
+                stack.append(fn)
+    out, ready = [], deque([root])
+    while ready:
+        fn = ready.popleft()
+        leaf = getattr(fn, "variable", None)
+        if leaf is not None:
+            ref = getattr(leaf, "_singa_param", None)
+            t = ref() if ref is not None else None
+            if t is not None and t.stores_grad and t.data is leaf:
+                out.append(t)
+        for nxt, _ in fn.next_functions:
+            if nxt is None:
+                continue
+            consumers[nxt] -= 1
+            if consumers[nxt] == 0:
+                ready.append(nxt)
+    return out
+
+
+def backward(y, dy=None):
+    """Reverse mode from Tensor ``y``; yields ``(param, grad)`` pairs, one
+    per parameter Tensor ``y`` depends on, each ``grad`` a Tensor that is
+    also left on ``param.grad``. ``dy`` seeds the output gradient (ones
+    by default), e.g. a loss scale."""
+    from .tensor import Tensor
+    if y.data.grad_fn is None:
+        raise RuntimeError(
+            "backward needs an output computed from parameters in training "
+            "mode (model.train(), outside torch.no_grad)")
+    params = _param_leaves(y.data.grad_fn)
+    if dy is None:
+        seed = torch.ones_like(y.data)
+    else:
+        seed = (dy.data if isinstance(dy, Tensor) else
+                torch.as_tensor(dy)).to(device=y.data.device,
+                                        dtype=y.data.dtype)
+        seed = seed.expand_as(y.data)
+    grads = torch.autograd.grad(y.data, [p.data for p in params],
+                                grad_outputs=seed)
+    for p, g in zip(params, grads):
+        gt = Tensor(data=g, device=p.device)
+        p.grad = gt
+        yield p, gt
+
+
+def gradients(y, dy=None):
+    """All ``(param, grad)`` pairs of :func:`backward` as a dict keyed by
+    param."""
+    return dict(backward(y, dy))

@@ -1,9 +1,11 @@
 """Layer API: deferred shape-inferring initialization + hierarchical
 state names.
 
-Counterpart of the serving subset of ``singa_tpu/layer.py``: ``Layer``,
-``Conv2d``, ``BatchNorm2d``, ``ReLU``, ``MaxPool2d``, ``AvgPool2d``,
-``Add``, ``Flatten`` and ``Linear``, with the same constructor arguments
+Counterpart of the CNN subset of ``singa_tpu/layer.py``: ``Layer``,
+``Conv2d``, ``BatchNorm2d`` (training and inference), ``ReLU``,
+``MaxPool2d``, ``AvgPool2d``, ``Add``, ``Flatten``, ``Linear`` and the
+losses ``SoftMaxCrossEntropy`` and ``CrossEntropy``, with the same
+constructor arguments
 and the same state names (``"conv1.W"``, ``"bn1.running_var"``, registered
 blocks as ``block.<i>``, ``sep = "."``), so a ``save_states`` archive of
 the JAX package loads here unchanged. Layers hold
@@ -18,7 +20,7 @@ import math
 import torch
 
 from . import autograd, initializer
-from .autograd_base import CTX
+from .autograd_base import CTX, register_param
 from .tensor import Tensor
 from .ops.conv import ConvHandle
 from .ops.batchnorm import BatchNormHandle
@@ -83,8 +85,14 @@ class Layer:
         self._initialized = True
 
     def __call__(self, *args, **kwargs):
+        """Initialise on the first call, then ``forward``. Outside
+        training nothing is recorded for backward (``no_grad``), as the
+        JAX package records its tape only in training."""
         self.ensure_initialized(*args, **kwargs)
-        return self.forward(*args, **kwargs)
+        if CTX.training:
+            return self.forward(*args, **kwargs)
+        with torch.no_grad():
+            return self.forward(*args, **kwargs)
 
     @property
     def training(self):
@@ -101,6 +109,16 @@ class Layer:
             return which()
         except AttributeError:
             return {}
+
+    def get_params(self):
+        """The trainable subset of :meth:`get_states` (no BN running
+        statistics), by the same names."""
+        params = {f"{self.name}{self.sep}{k}": v
+                  for k, v in self._own(self._own_params).items()}
+        for _, sub in self._sublayers():
+            for k, v in sub.get_params().items():
+                params[f"{self.name}{self.sep}{k}"] = v
+        return params
 
     def get_states(self):
         states = {f"{self.name}{self.sep}{k}": v
@@ -127,14 +145,16 @@ class Layer:
 
 
 def _param(shape, device, init="zeros", dtype=torch.float32):
-    """A new parameter; under a precision policy it takes the master
-    dtype, not a 16-bit activation's."""
+    """A new parameter: a torch leaf that requires grad. Under a
+    precision policy it takes the master dtype, not a 16-bit
+    activation's."""
     from .mixed_precision import param_dtype as _policy_param_dtype
     dtype = _policy_param_dtype(dtype)
     t = Tensor(shape=shape, device=device, dtype=dtype,
                requires_grad=True, stores_grad=True)
     if init == "ones":
         t.data.fill_(1.0)
+    register_param(t)
     return t
 
 
@@ -237,7 +257,8 @@ class Conv2d(Layer):
 
 
 class BatchNorm2d(Layer):
-    """BN over the channel axis (inference in this slice)."""
+    """BN over the channel axis: batch statistics and a running-stat
+    update in training, the running statistics in inference."""
 
     def __init__(self, *args, momentum=0.9, eps=1e-5, freeze_stats=False):
         super().__init__()
@@ -320,3 +341,13 @@ class Flatten(Layer):
 
     def forward(self, x):
         return autograd.flatten(x, self.axis)
+
+
+class SoftMaxCrossEntropy(Layer):
+    def forward(self, x, t):
+        return autograd.softmax_cross_entropy(x, t)
+
+
+class CrossEntropy(Layer):
+    def forward(self, x, t):
+        return autograd.cross_entropy(x, t)

@@ -2,7 +2,8 @@
 
 Counterpart of ``singa_tpu/models/resnet.py``: the same blocks, widths and
 state names (``ResNet.block.<i>.conv1.W``), so weights carry across from
-the JAX package. ResNet-50 at 224 px is the flagship model. The
+the JAX package, and the same ``train_one_batch`` (forward, softmax cross
+entropy, optimizer). ResNet-50 at 224 px is the flagship model. The
 ``layout=`` knob keeps both trunks: ``"NHWC"`` transposes once at the stem
 and runs the trunk on logical channels-last tensors. ``stem=
 "space_to_depth"`` is not ported yet (ROADMAP).
@@ -10,6 +11,7 @@ and runs the trunk on logical channels-last tensors. ``stem=
 
 from .. import autograd, layer, model
 from ..ops.layout import use_layout
+from . import TrainStepMixin
 
 
 def conv3x3(planes, stride=1):
@@ -79,7 +81,7 @@ class Downsample(layer.Layer):
         return self.bn(self.conv(x))
 
 
-class ResNet(model.Model):
+class ResNet(model.Model, TrainStepMixin):
 
     def __init__(self, block, layers, num_classes=10, num_channels=3,
                  layout="NCHW", stem="conv7"):
@@ -107,6 +109,7 @@ class ResNet(model.Model):
         self.avgpool = layer.AvgPool2d(7, stride=1)
         self.flatten = layer.Flatten()
         self.fc = layer.Linear(num_classes)
+        self.softmax_cross_entropy = layer.SoftMaxCrossEntropy()
         self.register_layers(*l1, *l2, *l3, *l4)
 
     def _make_layer(self, block, planes, num_blocks, stride=1):
@@ -140,6 +143,13 @@ class ResNet(model.Model):
         x = self.layer4(x)
         x = self.flatten(self.avgpool(x))
         return self.fc(x)
+
+    def train_one_batch(self, x, y, dist_option="plain", spars=None,
+                        rotation=None):
+        out = self.forward(x)
+        loss = self.softmax_cross_entropy(out, y)
+        self._apply_optimizer(loss, dist_option, spars, rotation)
+        return out, loss
 
     def _sublayers(self):
         subs = super()._sublayers()

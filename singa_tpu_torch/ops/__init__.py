@@ -1,5 +1,6 @@
 """Structured ops of the port (counterpart of ``singa_tpu/ops``): conv,
-inference BN, pooling, layout selection and the fused BN+ReLU epilogue
-(kernel K2)."""
+BN, pooling, layout selection, the fused BN+ReLU epilogue (kernel K2) and
+the fused optimizer updates (kernels K1, K5, K6, K7)."""
 
-from . import layout, conv, batchnorm, pooling, fused_epilogue  # noqa: F401
+from . import (layout, conv, batchnorm, pooling, fused_epilogue,  # noqa: F401
+               fused_optim)

@@ -1,16 +1,30 @@
-"""Inference batch normalization with frozen running statistics.
+"""Batch normalization: batch statistics in training, frozen running
+statistics in inference.
 
-Counterpart of ``singa_tpu/ops/batchnorm.py:24-163`` (the inference op
-and its epilogue tag). The 4-D output is a LAZY tensor tagged with its
-folding ingredients (``_bn_epilogue``): a ReLU that consumes it may fuse
+Counterpart of ``singa_tpu/ops/batchnorm.py:24-163``.
+
+Training (``batchnorm_2d`` with ``is_training()`` and not
+``freeze_stats``): the batch mean and the biased variance ``mean((x -
+mean)**2)`` are taken in f32, in two passes, over every axis but the
+channel's; the output ``(x - mean) * rsqrt(var + eps) * scale + bias`` is
+an ordinary tensor that torch autograd differentiates (the JAX package
+takes the vjp of the same expression). The running statistics update in
+place as ``m * running + (1 - m) * batch`` with ``m`` the layer's momentum,
+from the biased variance for both -- ``F.batch_norm(training=True)`` would
+update ``running_var`` with the unbiased variance and read ``momentum`` as
+``1 - m``, so it is not used. One device only: the JAX package's
+cross-replica ``pmean`` of the moments comes with data-parallel training
+(ROADMAP, slice B).
+
+Inference: the 4-D output is a LAZY tensor tagged with its folding
+ingredients (``_bn_epilogue``): a ReLU that consumes it may fuse
 scale/shift (+ residual add) + ReLU into one pass over the conv output
 (``ops/fused_epilogue.py``), and then this normalisation never runs.
 Anything else that reads the output (a downsample branch feeding a
 residual, a disabled epilogue) runs it on first read.
 
 Statistics and the normalisation stay f32 under every precision policy;
-the output takes the input's dtype. Training-mode BN (batch statistics and
-the running-stat update) comes with the training slice of the port.
+the output takes the input's dtype.
 """
 
 from __future__ import annotations
@@ -38,6 +52,11 @@ class BatchNormHandle:
         self.eps = eps
         self.batchsize = int(xs[0])
 
+    def _axes(self, ndim):
+        if ndim == 2:
+            return (0,)
+        return (0, 1, 2) if self.layout == "NHWC" else (0, 2, 3)
+
     def _bshape(self, ndim):
         if ndim == 2:
             return (1, self.channels)
@@ -56,17 +75,44 @@ def batchnorm_inference(x, scale, bias, rmean, rvar, eps, bshape):
     return y.to(x.dtype)
 
 
+def batch_moments(x, axes):
+    """Batch mean and biased variance of ``x`` over ``axes`` in f32, two
+    passes (the variance is taken around the mean)."""
+    xb = x.float()
+    mean = torch.mean(xb, dim=axes)
+    shape = [1 if i in axes else d for i, d in enumerate(xb.shape)]
+    var = torch.mean(torch.square(xb - mean.reshape(shape)), dim=axes)
+    return mean, var
+
+
+def batchnorm_training(x, scale, bias, running_mean, running_var, momentum,
+                       eps, axes, bshape):
+    """Normalise ``x`` by its batch statistics (differentiable) and update
+    the running statistics in place; returns the output in x's dtype."""
+    mean, var = batch_moments(x, axes)
+    with torch.no_grad():
+        m = momentum
+        for run, batch in ((running_mean, mean), (running_var, var)):
+            run.copy_((run.float() * m + batch * (1 - m)).to(run.dtype))
+    inv = torch.rsqrt(var + eps).reshape(bshape)
+    y = (x.float() - mean.reshape(bshape)) * inv \
+        * scale.float().reshape(bshape) + bias.float().reshape(bshape)
+    return y.to(x.dtype)
+
+
 def batchnorm_2d(handle: BatchNormHandle, x, scale, bias,
                  running_mean: Tensor, running_var: Tensor,
                  freeze_stats=False):
-    """Inference BN over Tensors. In training mode without
-    ``freeze_stats`` it raises: training-mode BN is not ported yet."""
-    if is_training() and not freeze_stats:
-        raise NotImplementedError(
-            "training-mode BatchNorm is not ported yet (ROADMAP: slice A, "
-            "ResNet-50 training); serve under model.eval()")
+    """BN over Tensors: batch statistics and a running-stat update in
+    training (unless ``freeze_stats``), the running statistics
+    otherwise."""
     h = handle
     bshape = h._bshape(x.ndim)
+    if is_training() and not freeze_stats:
+        return Tensor(data=batchnorm_training(
+            x.data, scale.data, bias.data, running_mean.data,
+            running_var.data, h.factor, h.eps, h._axes(x.ndim), bshape),
+            device=x.device)
 
     def run():
         return batchnorm_inference(x.data, scale.data, bias.data,

@@ -216,7 +216,8 @@ def _folded(scale, bias, rmean, rvar, eps):
             t is c and t._version == v
             for t, (c, v) in zip(parts, cached[1])):
         return cached[2]
-    folded = fold_bn(*parts, eps)
+    with torch.no_grad():       # the peephole runs outside training only
+        folded = fold_bn(*parts, eps)
     rvar._fold_cache = (eps, tuple((t, t._version) for t in parts), folded)
     return folded
 

@@ -1,10 +1,14 @@
 """Tensor: a ``torch.Tensor`` with a :class:`~.device.Device` and the
 fused-epilogue tags.
 
-Counterpart of ``singa_tpu/tensor.py`` (the serving subset: construction,
-metadata, dtype casts, numpy in and out, in-place refills). The JAX
-payload is a ``jax.Array``; here it is a ``torch.Tensor`` on the tensor's
-device.
+Counterpart of ``singa_tpu/tensor.py`` (construction, metadata, dtype
+casts, numpy in and out, in-place refills, ``grad``). The JAX payload is a
+``jax.Array``; here it is a ``torch.Tensor`` on the tensor's device. A
+parameter's payload is a torch leaf that requires grad
+(``autograd_base.register_param``); the refills (``copy_from_numpy``,
+``copy_from``, ``gaussian``) write into it in place under ``no_grad``, so
+it stays the same leaf, and :func:`~.autograd_base.backward` leaves its
+gradient on ``grad``.
 
 A tensor may be *lazy*: ``ops/batchnorm.py`` and ``autograd.add`` return
 their outputs with a thunk instead of a value, plus the tag the ReLU
@@ -68,18 +72,26 @@ class Tensor:
         self.requires_grad = requires_grad
         self.stores_grad = stores_grad
         self.name = name
+        self.grad = None
 
     @classmethod
     def lazy(cls, thunk, shape, dtype, device):
-        """A tensor whose value ``thunk()`` computes on first read."""
+        """A tensor whose value ``thunk()`` computes on first read, in the
+        grad mode of the time it was made."""
         t = cls.__new__(cls)
         t._data = None
-        t._thunk = thunk
+        grad = torch.is_grad_enabled()
+
+        def run():
+            with torch.set_grad_enabled(grad):
+                return thunk()
+        t._thunk = run
         t._meta = (tuple(shape), dtype)
         t.device = device
         t.requires_grad = False
         t.stores_grad = False
         t.name = None
+        t.grad = None
         return t
 
     @property

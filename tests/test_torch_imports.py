@@ -48,6 +48,11 @@ def test_importing_the_port_loads_no_jax():
         "before = set(sys.modules)\n"
         "import singa_tpu_torch, singa_tpu_torch.cuda_build\n"
         "from singa_tpu_torch.models import resnet\n"
+        "from singa_tpu_torch import opt, data, datasets, metric\n"
+        "from singa_tpu_torch.ops import fused_optim\n"
+        "import runpy\n"
+        "runpy.run_path('singa_tpu_torch/examples/train_cnn.py',"
+        " run_name='not_main')\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'singa_tpu'))\n"

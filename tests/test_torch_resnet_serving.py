@@ -213,15 +213,22 @@ def test_port_save_load_round_trip(tmp_path):
 
 
 def test_space_to_depth_stem_and_training_bn_are_not_ported():
+    """The space_to_depth stem is still refused. Training-mode BN is
+    ported now: a train-mode forward normalises by batch statistics into
+    an ordinary (not lazy) tensor and moves the running statistics."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tresnet.ResNet(tresnet.Bottleneck, [1, 1, 1, 1],
                        stem="space_to_depth")
     m, eng = _port_engine("basic", "NCHW")
     dev = tdevice.create_cpu_device()
     from singa_tpu_torch.tensor import Tensor
+    before = m.bn1.running_mean.to_numpy().copy()
     m.train()
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            m.forward(Tensor(data=torch.zeros((1,) + SHAPE), device=dev))
+        x = torch.from_numpy(_inputs()[0][None].repeat(2, 0) * 2 + 1)
+        out = m.forward(Tensor(data=x, device=dev))
+        assert out._thunk is None and not hasattr(out, "_bn_epilogue")
+        assert out.shape == (2, 10) and np.all(np.isfinite(out.to_numpy()))
+        assert not np.allclose(m.bn1.running_mean.to_numpy(), before)
     finally:
         m.eval()
