@@ -50,7 +50,27 @@ failure exits nonzero:
    agree: a fold that K1's in-place writes did not invalidate would not;
 8. train (other optimizers): 3 steps each of ``Adam``, ``RMSProp`` and
    ``AdaGrad``, fused against unfused from the same start, held bitwise,
-   161 launches of K5, K6 or K7 per step.
+   161 launches of K5, K6 or K7 per step;
+9. kernels (flash attention): K3 (``flash_fwd``) and K4's two kernels
+   (``flash_bwd_dq``, ``flash_bwd_dkv``) against their plain versions, in
+   f32 and bf16, causal and not, at the LM's shape B8 H8 S1024 D64, at a
+   ragged S=1000 D=32 and with a position delta, within the stated
+   tolerance (TF32 off); each timed at the main-path shape (causal) with
+   CUDA events, on the device alone (``torch.profiler``), beside its plain
+   version, its bound and ``scaled_dot_product_attention`` (forward, and
+   its backward through autograd: a yardstick the port never calls); a
+   CUDA tensor with D=512 must raise;
+10. LM eval: ``TransformerLM`` at ``bench.py``'s ``LM_SHAPE`` (d_model 512,
+   8 heads, 6 layers, seq 1024, vocab 32000), batch 8, weights from a
+   numpy seed: one eval forward through K3 (6 launches) and one with
+   ``ops.attention.USE_PLAIN`` (none), logits held within the stated
+   tolerance, in f32 and under ``compute_dtype=bfloat16``;
+11. LM training: the same model with ``fused_head_chunk=8192`` and
+   ``SGD(lr=0.1, momentum=0.9, fused=True)``, 8 steps through K3, K4 and
+   K1 (6, 6, 6 and 102 launches per step), then the same 8 steps from the
+   same start with the plain attention; the loss falls, the parameters of
+   the two runs agree within the stated tolerance; tokens/s, step p50/p99
+   and peak device memory; then 3 steps under ``compute_dtype=bfloat16``.
 
 Its last lines are the ``{"kernels": [...]}`` record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. The full record also
@@ -87,11 +107,38 @@ REPLACES = {
     "adam": "singa_tpu/ops/fused_optim.py:206",
     "rmsprop": "singa_tpu/ops/fused_optim.py:263",
     "adagrad": "singa_tpu/ops/fused_optim.py:316",
+    "flash_fwd": "singa_tpu/ops/attention.py:324",
+    "flash_bwd_dq": "singa_tpu/ops/attention.py:388",
+    "flash_bwd_dkv": "singa_tpu/ops/attention.py:424",
 }
 TRAIN_STEPS = 12            # the fused and the unfused SGD run each
 TIMED_FROM = 2              # steps before this one warm cuDNN and the pool
 OTHER_STEPS = 3
 PARAMS_PER_STEP = 161       # ResNet-50: 53 convs, 53 BNs x 2, fc W and b
+BF16_FLOPS_PER_S = 989e12       # H100 SXM data sheet, dense bf16
+# the Transformer LM of bench.py's LM leg (LM_SHAPE, n_heads=8, batch 8)
+LM = dict(vocab=32000, d_model=512, heads=8, layers=6, seq=1024, batch=8)
+LM_STEPS = 8                # the kernel run and the plain run each
+LM_TIMED_FROM = 2
+LM_BF16_STEPS = 3
+LM_PARAMS_PER_STEP = 102    # 16 per block x 6, 2 embeddings, ln_f x 2, head
+# kernel against plain version, as a fraction of the largest reference
+# value: f32 sums run in another order than the plain version's matmuls;
+# bf16 results are rounded once from f32 on both sides, so a value may
+# land one bf16 step (2^-8) away
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# LM logits, kernel attention against the plain one, as a fraction of the
+# largest |logit|: f32 differs only in attention's summation order; under
+# bf16 a one-step difference in an attention output propagates through
+# six bf16 layers
+LM_LOGIT_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# parameters after LM_STEPS of SGD, kernel run against plain run, per
+# tensor |a - b| / |b| (Frobenius): the f32 attention differences above,
+# carried through 8 steps of lr 0.1 with momentum
+LM_PARAM_TOL = 1e-3
+FLASH_KERNEL_NAME = {"flash_fwd": "flash_fwd_kernel",
+                     "flash_bwd_dq": "flash_bwd_dq_kernel",
+                     "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
 # the optimizer settings of each kernel's phases: (the wrapper, its
 # keyword arguments, the number of states, bytes moved per f32 element,
 # f32 operations per element)
@@ -144,24 +191,31 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, match, iters=20):
+def device_ms(fn, match, iters=20, attempts=3):
     """Mean device time per call of ``fn``: the durations of the kernels
     whose name contains ``match``, from ``torch.profiler``, over ``iters``
-    calls after a warm-up one. Host time between launches is not in it."""
+    calls after a warm-up one. Host time between launches is not in it.
+    A profiler session that records no device event at all (seen now and
+    then on the card's machine) is repeated, up to ``attempts`` sessions."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and match in e.name]
-    check(bool(us), f"the profiler saw no {match} kernel")
-    return sum(us) / 1e3 / iters
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and match in e.name]
+        if us:
+            return sum(us) / 1e3 / iters
+        print(f"profiler session {attempt + 1} saw no {match} kernel",
+              flush=True)
+    raise SmokeFailure(f"the profiler saw no {match} kernel in {attempts} "
+                       "sessions")
 
 
 def bound(n, c, itemsize, residual):
@@ -686,6 +740,389 @@ def other_optimizers_phase(models, tx, ty, start):
     return out
 
 
+def flash_pairs(B, H, Sq, Sk, causal):
+    """Unmasked (q, k) pairs: all of them, or k <= q (top-left aligned)."""
+    if not causal:
+        return B * H * Sq * Sk
+    rows = sum(min(i + 1, Sk) for i in range(Sq))
+    return B * H * rows
+
+
+def flash_bound(kind, q, k, causal):
+    """Least time of one call: each input read once and each output
+    written once over the HBM rate, or its flops over the f32 (f32 inputs)
+    or bf16 (bf16 inputs: their products are exact in f32, as on the
+    tensor cores) peak; the larger."""
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    it = q.element_size()
+    pairs = flash_pairs(B, H, Sq, Sk, causal)
+    qb, kb, rows = B * H * Sq * D * it, B * H * Sk * D * it, B * H * Sq * 4
+    if kind == "flash_fwd":
+        flops, nbytes = 4 * D * pairs, 2 * qb + 2 * kb + rows
+    elif kind == "flash_bwd_dq":
+        flops, nbytes = 6 * D * pairs, 3 * qb + 2 * kb + 2 * rows
+    else:
+        flops, nbytes = 8 * D * pairs, 2 * qb + 4 * kb + 2 * rows
+    peak = F32_FLOPS_PER_S if it == 4 else BF16_FLOPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_case(dev, B, H, Sq, Sk, D, dtype, causal, pos_delta=None, seed=0):
+    """K3 and K4 against their plain versions on the same inputs; returns
+    the record and the inputs."""
+    import torch
+    from singa_tpu_torch.ops import attention as at
+    gen = torch.Generator(device=dev.torch_device)
+    gen.manual_seed(seed)
+    q, k, v, g = [torch.randn(B, H, S, D, generator=gen,
+                              device=dev.torch_device).to(dtype)
+                  for S in (Sq, Sk, Sk, Sq)]
+    scale = D ** -0.5
+    out, lse = at.flash_fwd(q, k, v, causal, scale, pos_delta=pos_delta)
+    ro, rl = at._scan_flash_fwd(q, k, v, causal, scale, pos_delta=pos_delta)
+    got = {"out": (out, ro), "lse": (lse, rl)}
+    if pos_delta is None:
+        grads = at.flash_bwd(q, k, v, out, lse, g, causal, scale)
+        want = at._scan_flash_bwd(q, k, v, out, lse, g, causal, scale)
+        got.update(zip(("dq", "dk", "dv"), zip(grads, want)))
+    torch.cuda.synchronize()
+    check(all(a.dtype == b.dtype for a, b in got.values()),
+          "flash: a kernel output's dtype differs from the plain version's")
+    name = str(dtype).split(".")[-1]
+    tol = FLASH_TOL[name]
+    errs = {}
+    for what, (a, b) in got.items():
+        t = tol if what != "lse" else FLASH_TOL["float32"]
+        a, b = a.float(), b.float()
+        if what == "lse":
+            # a fully masked row (pos_delta) has lse -1e30 on both sides;
+            # the tolerance is taken over the other rows
+            live = b > -1e29
+            check(bool((a[~live] <= -1e29).all()),
+                  "flash: a fully masked row has a finite lse")
+            a, b = a[live], b[live]
+        ref = max(1.0, b.abs().max().item()) if b.numel() else 1.0
+        err = (a - b).abs().max().item() if b.numel() else 0.0
+        errs[what] = err
+        check(a.shape == b.shape and torch.isfinite(a).all().item()
+              and err <= t * ref,
+              f"flash B{B} H{H} Sq{Sq} Sk{Sk} D{D} {name} causal={causal} "
+              f"pos_delta={pos_delta}: {what} differs from the plain "
+              f"version by {err} (tolerance {t} x {ref})")
+    rec = {"shape": [B, H, Sq, Sk, D], "dtype": name, "causal": causal,
+           "pos_delta": pos_delta, "max_abs_err": errs, "tolerance": tol}
+    print(f"kernel flash B{B} H{H} Sq{Sq} Sk{Sk} D{D} {name} causal={causal}"
+          f" pos_delta={pos_delta}: max_abs_err "
+          + " ".join(f"{w}={e:.3g}" for w, e in errs.items())
+          + f" (tolerance {tol} x max(1, max|ref|))", flush=True)
+    return rec, (q, k, v, g, out, lse, scale)
+
+
+def flash_timings(dtype, inputs, causal):
+    """Per-call ms of K3, K4-dQ and K4-dKV (CUDA events and device time),
+    the plain versions, the bounds and SDPA's forward and backward."""
+    import torch
+    import torch.nn.functional as F
+    from singa_tpu_torch.ops import attention as at
+    q, k, v, g, out, lse, scale = inputs
+    delta = (g.float() * out.float()).sum(-1)
+    calls = {
+        "flash_fwd": lambda: at.flash_fwd(q, k, v, causal, scale),
+        "flash_bwd_dq": lambda: at.flash_bwd_dq(q, k, v, g, lse, delta,
+                                                causal, scale),
+        "flash_bwd_dkv": lambda: at.flash_bwd_dkv(q, k, v, g, lse, delta,
+                                                  causal, scale)}
+    plain_fwd = time_ms(lambda: at._scan_flash_fwd(q, k, v, causal, scale),
+                        iters=5, warmup=1)
+    plain_bwd = time_ms(lambda: at._scan_flash_bwd(q, k, v, out, lse, g,
+                                                   causal, scale),
+                        iters=5, warmup=1)
+    ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
+                                             scale=scale)
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, scale=scale))
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        lib_out, (ql, kl, vl), g, retain_graph=True))
+    recs = {}
+    name = str(dtype).split(".")[-1]
+    for kind, fn in calls.items():
+        bms, by = flash_bound(kind, q, k, causal)
+        fwd = kind == "flash_fwd"
+        recs[kind] = {"dtype": name, "shape": list(q.shape), "causal": causal,
+                      "ms": time_ms(fn),
+                      "device_ms": device_ms(fn, FLASH_KERNEL_NAME[kind]),
+                      "plain_ms": plain_fwd if fwd else plain_bwd,
+                      "plain_note": None if fwd else
+                      "the whole plain backward (dq, dk and dv)",
+                      "bound_ms": bms, "bound_by": by,
+                      "library_ms": lib_fwd if fwd else lib_bwd,
+                      "library": "scaled_dot_product_attention forward"
+                      if fwd else "scaled_dot_product_attention backward "
+                      "through autograd (dq, dk and dv)"}
+        r = recs[kind]
+        print(f"kernel {kind} {name} {tuple(q.shape)} causal={causal}: "
+              f"kernel_ms={r['ms']:.4f} (device {r['device_ms']:.4f}) "
+              f"plain_ms={r['plain_ms']:.4f} bound_ms={bms:.4f} ({by}) "
+              f"library_ms={r['library_ms']:.4f} ({r['library']})",
+              flush=True)
+    return recs
+
+
+def flash_kernel_phase(dev):
+    """K3/K4 against their plain versions in every case, timed at the
+    main-path shape; a head dim above 256 must raise."""
+    import torch
+    from singa_tpu_torch.ops import attention as at
+    B, H, S = LM["batch"], LM["heads"], LM["seq"]
+    D = LM["d_model"] // LM["heads"]
+    cases, timings = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (True, False):
+            rec, inputs = flash_case(dev, B, H, S, S, D, dtype, causal)
+            cases.append(rec)
+            if causal:
+                timings[rec["dtype"]] = flash_timings(dtype, inputs, causal)
+            del inputs
+        cases.append(flash_case(dev, 2, 4, 1000, 1000, 32, dtype, True,
+                                seed=1)[0])
+    cases.append(flash_case(dev, B, H, S, S, D, torch.float32, True,
+                            pos_delta=-300, seed=2)[0])
+    big = torch.zeros(1, 1, 8, 512, device=dev.torch_device)
+    try:
+        at.flash_fwd(big, big, big, True, 1.0)
+    except ValueError as e:
+        print(f"kernel flash D=512 on the card: raised ValueError ({e})",
+              flush=True)
+    else:
+        raise SmokeFailure("flash_fwd took a head dim of 512")
+    return cases, timings
+
+
+def lm_states(model, seed):
+    """numpy weights for every state of an LM: fan-in-scaled normal
+    projections, N(0, 0.02) embeddings, LayerNorm scales near 1."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, t in sorted(model.get_states().items()):
+        shape = tuple(t.shape)
+        leaf = k.rsplit(".", 1)[-1]
+        if k.endswith("emb.W"):
+            v = rng.standard_normal(shape) * 0.02
+        elif leaf == "W":
+            v = rng.standard_normal(shape) * np.sqrt(1.0 / shape[0])
+        elif leaf == "scale":
+            v = rng.uniform(0.8, 1.2, shape)
+        else:
+            v = rng.standard_normal(shape) * 0.02
+        out[k] = np.asarray(v, np.float32)
+    return out
+
+
+def lm_model(dev, tx, compute_dtype=None, train=True):
+    from singa_tpu_torch.models import transformer
+    m = transformer.TransformerLM(
+        LM["vocab"], d_model=LM["d_model"], n_heads=LM["heads"],
+        n_layers=LM["layers"], max_len=LM["seq"], tp=False,
+        fused_head_chunk=8192, compute_dtype=compute_dtype)
+    m.compile([tx], is_train=train, use_graph=True)
+    return m
+
+
+def lm_data(dev, seed=SEED):
+    """Token ids uniform over the vocab from a numpy seed (bench.py's
+    data), targets shifted by one; as float Tensors on the card."""
+    import numpy as np
+    from singa_tpu_torch.tensor import Tensor
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, LM["vocab"], (LM["batch"], LM["seq"])) \
+        .astype(np.float32)
+    tgt = np.roll(ids, -1, 1)
+    return Tensor(data=ids, device=dev), Tensor(data=tgt, device=dev)
+
+
+def flash_counts():
+    from singa_tpu_torch.ops import attention as at
+    return dict(at.launches)
+
+
+def lm_eval_phase(dev, tx, start):
+    """One eval forward through K3 and one with the plain attention, in f32
+    and under compute_dtype=bfloat16; logits within LM_LOGIT_TOL."""
+    import torch
+    from singa_tpu_torch.model import load_numpy_states
+    from singa_tpu_torch.ops import attention as at
+    out = {}
+    for name, cdt in (("float32", None), ("bfloat16", torch.bfloat16)):
+        m = lm_model(dev, tx, cdt, train=False)
+        load_numpy_states(m, start)
+        m.eval()
+        at.reset_counts()
+        got = m(tx).data
+        torch.cuda.synchronize()
+        k_counts = flash_counts()
+        at.USE_PLAIN = True
+        try:
+            at.reset_counts()
+            want = m(tx).data
+            torch.cuda.synchronize()
+            p_counts = flash_counts()
+        finally:
+            at.USE_PLAIN = False
+        check(k_counts == {"flash_fwd": LM["layers"], "flash_bwd_dq": 0,
+                           "flash_bwd_dkv": 0},
+              f"LM eval {name}: flash launches {k_counts}, expected "
+              f"{LM['layers']} of flash_fwd")
+        check(sum(p_counts.values()) == 0,
+              f"LM eval {name}: the plain run launched {p_counts}")
+        shape = (LM["batch"], LM["seq"], LM["vocab"])
+        check(tuple(got.shape) == shape and torch.isfinite(got).all().item(),
+              f"LM eval {name}: logits {tuple(got.shape)} or not finite")
+        scale = want.float().abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        check(scale > 0 and err <= LM_LOGIT_TOL[name] * scale,
+              f"LM eval {name}: logits through K3 differ from the plain "
+              f"attention by {err} (max |logit| {scale}, tolerance "
+              f"{LM_LOGIT_TOL[name]} x)")
+        out[name] = {"launches": k_counts, "max_abs_err": err,
+                     "max_abs_logit": scale,
+                     "tolerance": LM_LOGIT_TOL[name]}
+        print(f"LM eval {name} B{LM['batch']} S{LM['seq']}: K3 launches="
+              f"{k_counts['flash_fwd']} (plain run 0), logits max_abs_err="
+              f"{err:.3g} (max |logit| {scale:.3g}, tolerance "
+              f"{LM_LOGIT_TOL[name]} x)", flush=True)
+        del m, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_train_run(model, start, tx, ty, steps):
+    """``steps`` SGD steps from ``start`` with a fresh fused optimizer; the
+    launch counts are zeroed just before and read just after. Returns the
+    losses, the step times (CUDA events), the launches and the peak
+    device memory."""
+    import torch
+    from singa_tpu_torch import opt
+    from singa_tpu_torch.model import load_numpy_states
+    from singa_tpu_torch.ops import attention as at
+    from singa_tpu_torch.ops import fused_optim as fo
+    load_numpy_states(model, start)
+    model.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, fused=True))
+    model.train()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(steps)]
+    losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    at.reset_counts()
+    fo.reset_counts()
+    for begin, end in events:
+        begin.record()
+        _, loss = model(tx, ty)
+        end.record()
+        losses.append(loss.data.detach())
+    counts = dict(flash_counts(), sgd=fo.launches["sgd"],
+                  other_optim=sum(v for k, v in fo.launches.items()
+                                  if k != "sgd"))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    model.eval()
+    return ([float(v) for v in losses],
+            [b.elapsed_time(e) for b, e in events], counts, peak)
+
+
+def lm_train_phase(dev, tx, ty, start):
+    """LM_STEPS f32 steps through K3/K4/K1, the same steps with the plain
+    attention, then LM_BF16_STEPS under compute_dtype=bfloat16."""
+    import numpy as np
+    import torch
+    from singa_tpu_torch.ops import attention as at
+    m = lm_model(dev, tx)
+    losses, times, counts, peak = lm_train_run(m, start, tx, ty, LM_STEPS)
+    mine = {k: v.data.detach().clone() for k, v in m.get_params().items()}
+    at.USE_PLAIN = True
+    try:
+        p_losses, p_times, p_counts, p_peak = lm_train_run(
+            m, start, tx, ty, LM_STEPS)
+    finally:
+        at.USE_PLAIN = False
+    per_step = {"flash_fwd": LM["layers"], "flash_bwd_dq": LM["layers"],
+                "flash_bwd_dkv": LM["layers"], "sgd": LM_PARAMS_PER_STEP,
+                "other_optim": 0}
+    want = {k: v * LM_STEPS for k, v in per_step.items()}
+    check(counts == want, f"LM train: launches {counts}, expected {want}")
+    check(p_counts["flash_fwd"] + p_counts["flash_bwd_dq"]
+          + p_counts["flash_bwd_dkv"] == 0,
+          f"LM train: the plain run launched {p_counts}")
+    check(len(mine) == LM_PARAMS_PER_STEP,
+          f"the LM has {len(mine)} parameter tensors")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"LM train: loss not finite or not falling: {losses}")
+    rel = {}
+    for k, v in m.get_params().items():
+        b = v.data.detach().float()
+        rel[k] = ((mine[k].float() - b).norm() / b.norm()).item()
+    worst = max(rel, key=rel.get)
+    check(rel[worst] <= LM_PARAM_TOL,
+          f"LM train: parameters after {LM_STEPS} steps differ between the "
+          f"kernel and the plain run by {rel[worst]} (relative, {worst}; "
+          f"tolerance {LM_PARAM_TOL})")
+    toks = LM["batch"] * LM["seq"]
+    t = np.asarray(times[LM_TIMED_FROM:])
+    pt = np.asarray(p_times[LM_TIMED_FROM:])
+    rec = {"steps": LM_STEPS, "batch": LM["batch"], "seq": LM["seq"],
+           "losses": losses, "plain_losses": p_losses,
+           "launches": counts, "launches_per_step":
+           {k: v / LM_STEPS for k, v in counts.items()},
+           "max_param_rel_diff": rel[worst], "max_param_rel_diff_at": worst,
+           "param_tolerance": LM_PARAM_TOL,
+           "tokens_per_s": toks * len(t) / (t.sum() / 1e3),
+           "step_p50_ms": float(np.percentile(t, 50)),
+           "step_p99_ms": float(np.percentile(t, 99)), "step_ms": times,
+           "peak_device_bytes": peak,
+           "plain_tokens_per_s": toks * len(pt) / (pt.sum() / 1e3),
+           "plain_step_p50_ms": float(np.percentile(pt, 50)),
+           "plain_peak_device_bytes": p_peak}
+    print(f"train LM f32 B{LM['batch']} S{LM['seq']} SGD x{LM_STEPS} (timed "
+          f"from step {LM_TIMED_FROM}): tokens/s={rec['tokens_per_s']:.0f} "
+          f"(plain attention {rec['plain_tokens_per_s']:.0f}) step p50="
+          f"{rec['step_p50_ms']:.2f} ms p99={rec['step_p99_ms']:.2f} ms "
+          f"(plain p50 {rec['plain_step_p50_ms']:.2f} ms) peak="
+          f"{peak / 2**30:.2f} GiB (plain {p_peak / 2**30:.2f} GiB) "
+          f"launches/step={rec['launches_per_step']} max param rel diff "
+          f"vs plain={rel[worst]:.3g} ({worst}; tolerance {LM_PARAM_TOL})",
+          flush=True)
+    print("train LM losses: " + " ".join(f"{v:.6f}" for v in losses)
+          + " | plain: " + " ".join(f"{v:.6f}" for v in p_losses),
+          flush=True)
+    del m, mine
+    torch.cuda.empty_cache()
+
+    mb = lm_model(dev, tx, torch.bfloat16)
+    b_losses, b_times, b_counts, b_peak = lm_train_run(mb, start, tx, ty,
+                                                       LM_BF16_STEPS)
+    want_b = {k: v * LM_BF16_STEPS for k, v in per_step.items()}
+    check(b_counts == want_b,
+          f"LM train bf16: launches {b_counts}, expected {want_b}")
+    check(all(np.isfinite(b_losses)) and b_losses[-1] < b_losses[0],
+          f"LM train bf16: loss not finite or not falling: {b_losses}")
+    rec["bf16"] = {"steps": LM_BF16_STEPS, "losses": b_losses,
+                   "step_ms": b_times, "launches": b_counts,
+                   "peak_device_bytes": b_peak}
+    print(f"train LM bf16 x{LM_BF16_STEPS}: losses "
+          + " ".join(f"{v:.6f}" for v in b_losses)
+          + " step ms " + " ".join(f"{v:.1f}" for v in b_times)
+          + f" launches={b_counts} peak={b_peak / 2**30:.2f} GiB",
+          flush=True)
+    del mb
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -735,6 +1172,14 @@ def main():
     evaluated = eval_after_training(dev, models[0], eval_inputs)
     others = other_optimizers_phase(models, tx, ty, start)
     torch.backends.cudnn.deterministic = False
+    del models, tx, ty, start
+    torch.cuda.empty_cache()
+
+    flash_cases, flash_times = flash_kernel_phase(dev)
+    lm_tx, lm_ty = lm_data(dev)
+    lm_start = lm_states(lm_model(dev, lm_tx, train=False), SEED + 4)
+    lm_eval = lm_eval_phase(dev, lm_tx, lm_start)
+    lm_train = lm_train_phase(dev, lm_tx, lm_ty, lm_start)
 
     # one line per kernel: its f32 case at main-path shapes, launches from
     # the f32 run of its layout
@@ -766,12 +1211,29 @@ def main():
             "ms": step["ms"], "plain_ms": step["plain_ms"],
             "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
             "library_ms": step["library_ms"]})
+    # K3/K4: the f32 causal timings at the LM's shape, launches from the
+    # f32 LM training run, the largest error over every case
+    outputs = {"flash_fwd": ("out", "lse"), "flash_bwd_dq": ("dq",),
+               "flash_bwd_dkv": ("dk", "dv")}
+    for kname, t in flash_times["float32"].items():
+        errs = [c["max_abs_err"][w] for c in flash_cases
+                for w in outputs[kname] if w in c["max_abs_err"]]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "singa_tpu_torch/csrc/flash_attention.cu",
+            "replaces": REPLACES[kname],
+            "launches": lm_train["launches"][kname],
+            "max_abs_err": max(errs), "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     kind = torch.cuda.get_device_name(0)
     record = {"card": card, "torch": torch.__version__, "build_s": build_s,
               "kernel_cases": cases, "serve_runs": runs,
               "optim_kernel_cases": optim_cases,
               "optim_steps": optim_steps, "train": train,
               "eval_after_training": evaluated, "train_other": others,
+              "flash_cases": flash_cases, "flash_timings": flash_times,
+              "lm_eval": lm_eval, "lm_train": lm_train,
               "kernels": kernels}
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -1,10 +1,14 @@
-"""Functional ops of the CNN path.
+"""Functional ops of the CNN and Transformer LM paths.
 
-Counterpart of the CNN subset of ``singa_tpu/autograd.py``: ``relu`` (with
-the epilogue peephole, ``autograd.py:984-995``), ``add`` (with the
+Counterpart of the CNN and LM subset of ``singa_tpu/autograd.py``: ``relu``
+(with the epilogue peephole, ``autograd.py:984-995``), ``add`` (with the
 residual tag, ``autograd.py:832-847``), ``transpose``, ``flatten``,
-``matmul``, ``add_bias`` and the losses ``softmax_cross_entropy`` and
-``cross_entropy`` (``autograd.py:333-364``). Each takes and returns
+``matmul``, ``add_bias``, the losses ``softmax_cross_entropy`` and
+``cross_entropy`` (``autograd.py:333-364``), and for the LM ``gelu``
+(``GELU`` ``:297``), ``reshape`` (``Reshape`` ``:496``), ``onehot``
+(``OneHot`` ``:698``), ``embedding`` (``Embedding`` ``:714``), ``astype``
+(``AsType`` ``:778``) and ``layernorm`` (``_LayerNorm`` ``:793``). Each
+takes and returns
 :class:`~.tensor.Tensor`s. Torch autograd records their gradients when
 they run outside ``no_grad`` (:func:`~.autograd_base.backward`); the
 peephole declines in training, so a training forward never makes a lazy
@@ -113,3 +117,56 @@ def cross_entropy(x, t):
     ta = _f32(ta.detach().to(xa.device))
     return Tensor(data=-torch.sum(ta * torch.log(xa + 1e-10)) / xa.shape[0],
                   device=x.device)
+
+
+def gelu(x):
+    """GELU in its tanh approximation, the default of ``jax.nn.gelu``
+    (PyTorch's default is the erf form)."""
+    return Tensor(data=torch.nn.functional.gelu(x.data, approximate="tanh"),
+                  device=x.device)
+
+
+def reshape(x, shape):
+    return Tensor(data=x.data.reshape(tuple(int(s) for s in shape)),
+                  device=x.device)
+
+
+def onehot(axis, indices, depth, values=(0.0, 1.0)):
+    """One-hot f32 rows of the (float-encoded) integer ``indices`` along
+    ``axis``: ``on`` at the index, ``off`` elsewhere, all ``off`` for an
+    index outside ``[0, depth)``, as ``jax.nn.one_hot`` gives. Not
+    differentiable."""
+    off, on = values
+    idx = indices.data.detach().long()
+    oh = (idx.unsqueeze(-1) == torch.arange(depth, device=idx.device)) \
+        .to(torch.float32)
+    if axis not in (-1, idx.dim()):
+        oh = torch.movedim(oh, -1, axis)
+    return Tensor(data=oh * (on - off) + off, device=indices.device)
+
+
+def embedding(x, W):
+    """Rows of ``W`` at the (float-encoded) ids ``x``, which are cast to
+    integers and never differentiated; the policy cast applies to the
+    gathered rows, not to the table."""
+    ids = x.data.detach().long()
+    return Tensor(data=cast_compute(torch.nn.functional.embedding(ids,
+                                                                  W.data)),
+                  device=x.device)
+
+
+def astype(x, to):
+    """Differentiable dtype cast, the mixed-precision boundary: the
+    gradient is cast back to x's dtype."""
+    from .tensor import _torch_dtype
+    return Tensor(data=x.data.to(_torch_dtype(to)), device=x.device)
+
+
+def layernorm(x, scale, bias, eps=1e-5):
+    """Normalise over the trailing dim, then scale and shift: statistics
+    in f32 (biased variance), output in x's dtype."""
+    xf = _f32(x.data)
+    mean = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, unbiased=False, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps) * scale.data + bias.data
+    return Tensor(data=y.to(x.dtype), device=x.device)

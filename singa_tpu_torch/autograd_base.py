@@ -6,9 +6,10 @@ flag and :func:`is_training`) and ``:217-262`` (:func:`backward`,
 ``Operator``s; the port lets torch autograd record the graph of the
 forward and walks it: :func:`backward` finds the parameter leaves the
 output depends on (the Tensors made with ``stores_grad``) and computes
-their gradients with one ``torch.autograd.grad``. No op of the port needs
-a custom gradient yet, so there is no ``Operator`` class; one that does
-will be a ``torch.autograd.Function``.
+their gradients with one ``torch.autograd.grad``. There is no ``Operator``
+class: an op with a custom gradient is a ``torch.autograd.Function``
+(flash attention, ``ops/attention.py``; the fused CE head,
+``ops/losses.py``).
 
 The serving path runs under ``torch.inference_mode()`` and records
 nothing.

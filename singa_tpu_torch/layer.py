@@ -1,11 +1,12 @@
 """Layer API: deferred shape-inferring initialization + hierarchical
 state names.
 
-Counterpart of the CNN subset of ``singa_tpu/layer.py``: ``Layer``,
+Counterpart of the CNN and LM subset of ``singa_tpu/layer.py``: ``Layer``,
 ``Conv2d``, ``BatchNorm2d`` (training and inference), ``ReLU``,
-``MaxPool2d``, ``AvgPool2d``, ``Add``, ``Flatten``, ``Linear`` and the
-losses ``SoftMaxCrossEntropy`` and ``CrossEntropy``, with the same
-constructor arguments
+``MaxPool2d``, ``AvgPool2d``, ``Add``, ``Flatten``, ``Linear``,
+``Embedding`` (``:257``), ``LayerNorm`` (``:501``) and the losses
+``SoftMaxCrossEntropy`` and ``CrossEntropy``, with the same constructor
+arguments
 and the same state names (``"conv1.W"``, ``"bn1.running_var"``, registered
 blocks as ``block.<i>``, ``sep = "."``), so a ``save_states`` archive of
 the JAX package loads here unchanged. Layers hold
@@ -193,6 +194,50 @@ class Linear(Layer):
         if self.bias:
             p["b"] = self.b
         return p
+
+
+class Embedding(Layer):
+    """Token embedding lookup: ``W`` of shape (input_dim, output_dim),
+    N(0, 0.02) by default, U(-0.05, 0.05) otherwise."""
+
+    def __init__(self, input_dim, output_dim, initializer="gaussian"):
+        super().__init__()
+        self.input_dim = input_dim
+        self.output_dim = output_dim
+        self.initializer = initializer
+
+    def initialize(self, x):
+        self.W = _param((self.input_dim, self.output_dim), x.device)
+        if self.initializer == "gaussian":
+            self.W.gaussian(0.0, 0.02)
+        else:
+            self.W.uniform(-0.05, 0.05)
+
+    def forward(self, x):
+        return autograd.embedding(x, self.W)
+
+    def _own_params(self):
+        return {"W": self.W}
+
+
+class LayerNorm(Layer):
+    """Layer normalisation over the trailing dim; f32 ``scale`` (ones)
+    and ``bias`` (zeros)."""
+
+    def __init__(self, eps=1e-5):
+        super().__init__()
+        self.eps = eps
+
+    def initialize(self, x):
+        d = (x.shape[-1],)
+        self.scale = _param(d, x.device, init="ones")
+        self.bias = _param(d, x.device)
+
+    def forward(self, x):
+        return autograd.layernorm(x, self.scale, self.bias, self.eps)
+
+    def _own_params(self):
+        return {"scale": self.scale, "bias": self.bias}
 
 
 class Conv2d(Layer):

@@ -1,5 +1,5 @@
 """Model zoo of the port (counterpart of ``singa_tpu/models``): the ResNet
-family in this slice.
+family and the Transformer LM.
 
 :class:`TrainStepMixin` is the shared ``dist_option`` dispatch of
 ``train_one_batch`` (``singa_tpu/models/__init__.py:12-44``). Only
@@ -25,4 +25,4 @@ class TrainStepMixin:
             raise ValueError(f"unknown dist_option {dist_option!r}")
 
 
-from . import resnet  # noqa: F401,E402
+from . import resnet, transformer  # noqa: F401,E402

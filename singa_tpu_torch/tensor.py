@@ -167,6 +167,16 @@ class Tensor:
             self.data.copy_(r * std + mean)
         return self
 
+    def uniform(self, low=0.0, high=1.0, generator=None):
+        """Refill from U(low, high) drawn in f32 from ``generator`` (the
+        device's own by default)."""
+        g = generator if generator is not None else self.device.generator
+        r = torch.rand(self.shape, generator=g, dtype=torch.float32,
+                       device=self.device.torch_device)
+        with torch.no_grad():
+            self.data.copy_(r * (high - low) + low)
+        return self
+
     def __repr__(self):
         lazy = " lazy" if self._thunk is not None else ""
         return (f"Tensor(shape={self.shape}, dtype={dtype_name(self.dtype)},"

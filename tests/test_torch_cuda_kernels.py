@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: K2 (``ops/fused_epilogue.py``) and K1, K5, K6, K7
-(``ops/fused_optim.py``).
+card: K2 (``ops/fused_epilogue.py``), K1, K5, K6, K7
+(``ops/fused_optim.py``) and K3, K4 (``ops/attention.py``).
 
 Marked ``cuda``: the kernels have no CPU mode, so each case skips with a
 reason where ``torch.cuda.is_available()`` is false. This file imports
@@ -13,13 +13,17 @@ The kernels multiply and add without contraction (``__fmul_rn`` /
 ``__fadd_rn`` and the other ``_rn`` intrinsics), so each result is
 bitwise-equal to its plain version: K2 in f32 and, rounded once from the
 same f32 value, in bf16; the optimizer updates for every parameter and
-state type they take.
+state type they take. The flash-attention kernels sum in another order
+than the plain version's matmuls, so they are held within a tolerance:
+1e-4 of the largest reference value in f32, 2e-2 in bf16 (both round one
+f32 result to bf16, so a value may land one bf16 step away).
 """
 
 import pytest
 import torch
 
 from singa_tpu_torch.ops import fused_epilogue as tfe
+from singa_tpu_torch.ops import attention as tat
 from singa_tpu_torch.ops import fused_optim as tfo
 
 
@@ -145,3 +149,79 @@ def test_a_cuda_tensor_never_reaches_the_plain_version(monkeypatch):
                                            torch.float32, gen)
         _call(getattr(tfo, _WRAPPERS[kind]), mine, scalars, kw)
     torch.cuda.synchronize()
+
+
+# -- K3, K4 -------------------------------------------------------------------
+
+def _attn_inputs(B, H, Sq, Sk, D, dtype, seed=0):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return [torch.randn(B, H, S, D, generator=gen, device="cuda").to(dtype)
+            for S in (Sq, Sk, Sk, Sq)]
+
+
+def _near(got, want, dtype):
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    scale = max(1.0, want.float().abs().max().item())
+    err = (got.float() - want.float()).abs().max().item()
+    assert got.dtype == want.dtype and err <= tol * scale, (err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("Sq,Sk,D", [(128, 128, 64), (72, 72, 16),
+                                     (100, 100, 100), (40, 130, 130),
+                                     (130, 40, 32), (64, 64, 256)], ids=str)
+def test_flash_kernels_match_plain_version(Sq, Sk, D, causal, dtype):
+    """K3's (out, lse) and K4's (dq, dk, dv) against the plain versions;
+    one launch of each kernel is counted."""
+    _need_card()
+    q, k, v, g = _attn_inputs(2, 3, Sq, Sk, D, dtype)
+    scale = D ** -0.5
+    before = dict(tat.launches)
+    out, lse = tat.flash_fwd(q, k, v, causal, scale)
+    dq, dk, dv = tat.flash_bwd(q, k, v, out, lse, g, causal, scale)
+    ro, rl = tat._scan_flash_fwd(q, k, v, causal, scale)
+    rq, rk, rv = tat._scan_flash_bwd(q, k, v, out, lse, g, causal, scale)
+    torch.cuda.synchronize()
+    assert {n: tat.launches[n] - before[n] for n in before} == \
+        {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    for got, want in ((out, ro), (dq, rq), (dk, rk), (dv, rv)):
+        _near(got, want, dtype)
+    _near(lse, rl, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("delta", [-40, 0, 24])
+def test_flash_fwd_pos_delta_matches_plain_version(delta):
+    _need_card()
+    q, k, v, _ = _attn_inputs(1, 2, 96, 96, 32, torch.float32, seed=1)
+    out, lse = tat.flash_fwd(q, k, v, True, 0.2, pos_delta=delta)
+    ro, rl = tat._scan_flash_fwd(q, k, v, True, 0.2, pos_delta=delta)
+    torch.cuda.synchronize()
+    _near(out, ro, torch.float32)
+    _near(lse, rl, torch.float32)
+
+
+@pytest.mark.cuda
+def test_flash_kernels_refuse_a_head_dim_above_256():
+    _need_card()
+    q = torch.zeros(1, 1, 8, 512, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        tat.flash_fwd(q, q, q, True, 1.0)
+
+
+@pytest.mark.cuda
+def test_a_cuda_tensor_never_reaches_the_plain_attention(monkeypatch):
+    _need_card()
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(tat, "_scan_flash_fwd", refuse)
+    monkeypatch.setattr(tat, "_scan_flash_bwd", refuse)
+    q, k, v, g = [t.requires_grad_(i < 3) for i, t in enumerate(
+        _attn_inputs(1, 2, 64, 64, 32, torch.float32))]
+    tat.flash_attention(q, k, v, True).backward(g)
+    torch.cuda.synchronize()
+    assert q.grad is not None and k.grad is not None and v.grad is not None

@@ -23,7 +23,11 @@ def _forbidden(name):
 
 def _sources():
     files = sorted(PKG.rglob("*.py"))
-    assert len(files) >= 15
+    assert len(files) >= 21
+    names = {str(f.relative_to(PKG)) for f in files}
+    assert {"ops/attention.py", "ops/losses.py",
+            "parallel/tensor_parallel.py", "models/transformer.py",
+            "examples/train_transformer.py"} <= names
     return files
 
 
@@ -49,9 +53,12 @@ def test_importing_the_port_loads_no_jax():
         "import singa_tpu_torch, singa_tpu_torch.cuda_build\n"
         "from singa_tpu_torch.models import resnet\n"
         "from singa_tpu_torch import opt, data, datasets, metric\n"
-        "from singa_tpu_torch.ops import fused_optim\n"
+        "from singa_tpu_torch.ops import fused_optim, attention, losses\n"
+        "from singa_tpu_torch.parallel import tensor_parallel\n"
+        "from singa_tpu_torch.models import transformer\n"
         "import runpy\n"
-        "runpy.run_path('singa_tpu_torch/examples/train_cnn.py',"
+        "for ex in ('train_cnn', 'train_transformer'):\n"
+        "    runpy.run_path(f'singa_tpu_torch/examples/{ex}.py',"
         " run_name='not_main')\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
