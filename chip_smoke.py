@@ -32,25 +32,37 @@ failure exits nonzero:
    included), on the device alone (``torch.profiler``, over copies that
    exceed the L2 cache) and, for K1 and K5, beside
    ``torch.optim.SGD/Adam(fused=True).step()`` on the same tensor; then
-   each timed over a whole ResNet-50 update (its 161 parameter tensors)
-   in the same four ways;
+   each timed over a whole ResNet-50 update (its 161 parameter tensors,
+   one launch each) in the same four ways and on the host clock; then
+   the multi-tensor launches of K1 (and with nesterov) and K5 over the
+   161 shapes (both chunk capacities crossed), with two lr tensors and
+   three weight decays in turn, in f32 and with bf16 parameters and f32
+   state, held bitwise against the loop of plain versions, versions and
+   launches (one per chunk, none per tensor) checked, and each whole
+   update timed the same five ways beside the per-tensor loop;
 6. train: ResNet-50, 224 px, batch 32, f32, TF32 off, NCHW, weights and BN
    statistics from a numpy seed and one fixed synthetic batch, through
    ``Model.compile(is_train=True)`` and ``model(x, y)`` with ``SGD(lr=0.1,
-   momentum=0.9, weight_decay=1e-5)``: once with ``fused=True`` (kernel
-   K1, 161 launches per step) and once with ``fused=False`` from the same
-   start, cuDNN deterministic, every parameter, momentum and running
-   statistic held bitwise after the steps; img/s and step p50/p99 from
-   CUDA events, the loss per step (finite, falling), peak device memory;
+   momentum=0.9, weight_decay=1e-5)``: once with ``fused=True`` (K1's
+   multi-tensor launch, 2 per step, no per-tensor K1), once with
+   ``fused=False`` and once with ``fused=True`` through the per-tensor K1
+   (161 launches per step, the earlier design) from the same start, cuDNN
+   deterministic, every parameter, momentum and running statistic of the
+   three held bitwise after the steps; img/s, step p50/p99 (CUDA events)
+   and the host time of each step's update (host clock) for the three,
+   the loss per step (finite, falling), peak device memory;
 7. eval after training: the fused-trained model (which served once
    before training, so its BN folds were cached) serves one batch through
    K2 (49 launches) and through the unfused path, and their logits agree;
-   then K1 updates only the BN scales and biases (106 launches, no
-   forward, so no running statistic moves) and the two paths must still
-   agree: a fold that K1's in-place writes did not invalidate would not;
+   then ``Optimizer.apply`` updates only the BN scales and biases through
+   the per-tensor K1 (106 launches, no forward, so no running statistic
+   moves) and the two paths must still agree: a fold that K1's in-place
+   writes did not invalidate would not;
 8. train (other optimizers): 3 steps each of ``Adam``, ``RMSProp`` and
-   ``AdaGrad``, fused against unfused from the same start, held bitwise,
-   161 launches of K5, K6 or K7 per step;
+   ``AdaGrad``, fused against unfused from the same start, held bitwise:
+   K5's multi-tensor launch (3 per step), 161 launches of K6 or K7 per
+   step; after Adam, the BN-only update of phase 7 through the
+   per-tensor K5 (106 launches);
 9. kernels (flash attention): K3 (``flash_fwd``) and K4's two kernels
    (``flash_bwd_dq``, ``flash_bwd_dkv``) against their plain versions, in
    f32 and bf16, causal and not, at the LM's shape B8 H8 S1024 D64, at a
@@ -67,10 +79,14 @@ failure exits nonzero:
    tolerance, in f32 and under ``compute_dtype=bfloat16``;
 11. LM training: the same model with ``fused_head_chunk=8192`` and
    ``SGD(lr=0.1, momentum=0.9, fused=True)``, 8 steps through K3, K4 and
-   K1 (6, 6, 6 and 102 launches per step), then the same 8 steps from the
-   same start with the plain attention; the loss falls, the parameters of
-   the two runs agree within the stated tolerance; tokens/s, step p50/p99
-   and peak device memory; then 3 steps under ``compute_dtype=bfloat16``.
+   K1's multi-tensor launch (6, 6, 6 and 2 launches per step), then the
+   same 8 steps from the same start with the plain attention; the loss
+   falls, the parameters of the two runs agree within the stated
+   tolerance; tokens/s, step p50/p99, the update's host time and peak
+   device memory; then 6 steps under ``compute_dtype=bfloat16``, with the
+   multi-tensor update and again with the per-tensor one (102 launches
+   per step), their parameters within the same tolerance, step p50/p99
+   and update host time of each.
 
 Its last lines are the ``{"kernels": [...]}`` record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. The full record also
@@ -105,6 +121,8 @@ REPLACES = {
     "affine_add_relu_nhwc": "singa_tpu/ops/fused_epilogue.py:93",
     "sgd": "singa_tpu/ops/fused_optim.py:155",
     "adam": "singa_tpu/ops/fused_optim.py:206",
+    "sgd_multi": "singa_tpu/ops/fused_optim.py:155",
+    "adam_multi": "singa_tpu/ops/fused_optim.py:206",
     "rmsprop": "singa_tpu/ops/fused_optim.py:263",
     "adagrad": "singa_tpu/ops/fused_optim.py:316",
     "flash_fwd": "singa_tpu/ops/attention.py:324",
@@ -120,7 +138,7 @@ BF16_FLOPS_PER_S = 989e12       # H100 SXM data sheet, dense bf16
 LM = dict(vocab=32000, d_model=512, heads=8, layers=6, seq=1024, batch=8)
 LM_STEPS = 8                # the kernel run and the plain run each
 LM_TIMED_FROM = 2
-LM_BF16_STEPS = 3
+LM_BF16_STEPS = 6
 LM_PARAMS_PER_STEP = 102    # 16 per block x 6, 2 embeddings, ln_f x 2, head
 # kernel against plain version, as a fraction of the largest reference
 # value: f32 sums run in another order than the plain version's matmuls;
@@ -144,7 +162,9 @@ FLASH_KERNEL_NAME = {"flash_fwd": "flash_fwd_kernel",
 # f32 operations per element)
 KERNEL_NAME = {"sgd": "sgd_kernel", "sgd_nesterov": "sgd_kernel",
                "adam": "adam_kernel", "rmsprop": "scaled_kernel",
-               "adagrad": "scaled_kernel"}
+               "adagrad": "scaled_kernel", "sgd_multi": "sgd_multi_kernel",
+               "sgd_multi_nesterov": "sgd_multi_kernel",
+               "adam_multi": "adam_multi_kernel"}
 OPTIM_CASES = {
     "sgd": ("sgd_momentum_update",
             dict(momentum=0.9, weight_decay=1e-5), 1, 20, 7),
@@ -155,6 +175,15 @@ OPTIM_CASES = {
              2, 28, 14),
     "rmsprop": ("rmsprop_update", dict(rho=0.9, epsilon=1e-8), 1, 20, 8),
     "adagrad": ("adagrad_update", dict(epsilon=1e-8), 1, 20, 6),
+}
+# the multi-tensor launches of K1 and K5: the per-tensor case whose
+# tensors, scalars, bytes and operations they share, and the wrapper's
+# shared keyword arguments (lr and weight decay are per entry)
+MULTI_CASES = {
+    "sgd_multi": ("sgd", dict(momentum=0.9)),
+    "sgd_multi_nesterov": ("sgd_nesterov", dict(momentum=0.9,
+                                                nesterov=True)),
+    "adam_multi": ("adam", dict(beta_1=0.9, beta_2=0.999, epsilon=1e-8)),
 }
 
 
@@ -289,9 +318,10 @@ def kernel_phase(dev):
     return cases
 
 
-def optim_args(kind, shapes, gen, dev):
-    """Fresh (p, g, *states) per shape for one optimizer kernel, and the
-    device scalars it takes (lr, and Adam's bias corrections)."""
+def optim_args(kind, shapes, gen, dev, p_dtype=None):
+    """Fresh (p, g, *states) per shape for one optimizer kernel (p in
+    ``p_dtype`` when given, the rest f32), and the device scalars it takes
+    (lr, and Adam's bias corrections)."""
     import torch
     _, _, n_states, _, _ = OPTIM_CASES[kind]
     positive = kind in ("rmsprop", "adagrad")
@@ -301,7 +331,9 @@ def optim_args(kind, shapes, gen, dev):
             t = torch.randn(shape, generator=gen, device=dev.torch_device)
             return t.abs() if pos else t
         states = [rand(pos=positive or i == 1) for i in range(n_states)]
-        tensors.append([rand(), rand() * 0.1] + states)
+        p = rand()
+        tensors.append([p if p_dtype is None else p.to(p_dtype),
+                        rand() * 0.1] + states)
     scalars = [torch.tensor(0.01, device=dev.torch_device)]
     if kind == "adam":
         scalars += [torch.tensor(1 - 0.9 ** 3, device=dev.torch_device),
@@ -315,6 +347,55 @@ def optim_update(kind, tensors, scalars, plain=False):
     fn = getattr(fo, name + ("_reference" if plain else ""))
     for p, g, *states in tensors:
         fn(p, g, *states, *scalars, **kw)
+
+
+def multi_entries(mkind, tensors, scalars, mixed):
+    """Entries ``(p, g, *states, lr, weight_decay)`` of multi-tensor case
+    ``mkind`` over ``tensors``: as the optimizer sends them on the main
+    path (one lr, the per-tensor case's weight decay everywhere), or
+    ``mixed``: two lr tensors and three weight decays in turn."""
+    base, _ = MULTI_CASES[mkind]
+    lr = scalars[0]
+    if not mixed:
+        wd = OPTIM_CASES[base][1].get("weight_decay", 0.0)
+        return [(*t, lr, wd) for t in tensors]
+    lrs, wds = [lr, lr * 2], [1e-5, 0.0, 1e-3]
+    return [(*t, lrs[i % 2], wds[i % 3]) for i, t in enumerate(tensors)]
+
+
+def multi_update(mkind, entries, scalars, plain=False):
+    """One multi-tensor update (``plain``: its plain version, a loop of
+    the per-tensor plain versions)."""
+    from singa_tpu_torch.ops import fused_optim as fo
+    _, kw = MULTI_CASES[mkind]
+    suffix = "_reference" if plain else ""
+    if mkind == "adam_multi":
+        getattr(fo, "adam_update_multi" + suffix)(entries, *scalars[1:],
+                                                  **kw)
+    else:
+        getattr(fo, "sgd_momentum_update_multi" + suffix)(entries, **kw)
+
+
+def clone_entries(entries):
+    import torch
+    return [tuple(t.clone() if isinstance(t, torch.Tensor) and t.dim()
+                  else t for t in e) for e in entries]
+
+
+def host_ms(fn, iters=10, warmup=2):
+    """Mean time per call of ``fn`` on the host clock with no sync inside:
+    what the calling thread spends, the enqueueing of the launches
+    included."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t0) / iters * 1e3
+    torch.cuda.synchronize()
+    return ms
 
 
 def optim_bound(kind, n):
@@ -414,7 +495,7 @@ def optim_kernel_phase(dev, param_shapes):
         def step():
             optim_update(kind, tensors, scalars)
         rec = {"name": kind, "tensors": len(tensors), "elements": n,
-               "ms": time_ms(step, iters=10),
+               "ms": time_ms(step, iters=10), "host_ms": host_ms(step),
                "device_ms": device_ms(step, KERNEL_NAME[kind], iters=5),
                "plain_ms": time_ms(lambda: optim_update(
                    kind, plain, scalars, plain=True), iters=10),
@@ -423,11 +504,99 @@ def optim_kernel_phase(dev, param_shapes):
         steps[kind] = rec
         lib_s = f"{rec['library_ms']:.4f}" if lib else "null"
         print(f"step {kind} over {len(tensors)} ResNet-50 tensors ({n} "
-              f"elements): kernel_ms={rec['ms']:.4f} (device "
+              f"elements, one launch each): kernel_ms={rec['ms']:.4f} "
+              f"(host {rec['host_ms']:.4f}, device "
               f"{rec['device_ms']:.4f}) plain_ms="
               f"{rec['plain_ms']:.4f} bound_ms={bms:.4f} ({by}) "
               f"library_ms={lib_s}", flush=True)
         del tensors, plain
+    multi_cases, multi_steps = multi_phase(dev, param_shapes, gen, steps)
+    return cases + multi_cases, {**steps, **multi_steps}
+
+
+def multi_phase(dev, param_shapes, gen, per_tensor):
+    """K1's and K5's multi-tensor launches over the 161 ResNet-50
+    parameter shapes (both chunk capacities crossed): bitwise against the
+    loop of plain versions with mixed per-tensor lr and weight decay, in
+    f32 and with bf16 parameters and f32 state, every written tensor's
+    version checked, one launch per chunk and none per tensor; then each
+    whole update timed as the optimizer sends it (one lr, one weight
+    decay), four ways, beside ``torch.optim``'s fused step and the
+    per-tensor loop of the same run (``per_tensor``)."""
+    import torch
+    from singa_tpu_torch.ops import fused_optim as fo
+    cases, steps = [], {}
+    for mkind, (base, _) in MULTI_CASES.items():
+        key = "adam_multi" if mkind == "adam_multi" else "sgd_multi"
+        chunks = multi_chunks(key, len(param_shapes))
+        for p_dtype in (torch.float32, torch.bfloat16):
+            tensors, scalars = optim_args(base, param_shapes, gen, dev,
+                                          p_dtype)
+            mine = multi_entries(mkind, tensors, scalars, mixed=True)
+            plain = clone_entries(mine)
+            written = [(e[0],) + e[2:-2] for e in mine]
+            want = [(e[0],) + e[2:-2] for e in plain]
+            versions = [[t._version for t in w] for w in written]
+            fo.reset_counts()
+            multi_update(mkind, mine, scalars)
+            counts = dict(fo.launches)
+            multi_update(mkind, plain, scalars, plain=True)
+            torch.cuda.synchronize()
+            name = str(p_dtype).split(".")[-1]
+            check(counts == {**{k: 0 for k in counts}, key: chunks},
+                  f"{mkind} {name}: launches {counts}, expected {chunks} "
+                  f"of {key}")
+            pairs = [(a, b) for w, r in zip(written, want)
+                     for a, b in zip(w, r)]
+            err = max((a.float() - b.float()).abs().max().item()
+                      for a, b in pairs)
+            check(all(torch.equal(a, b) for a, b in pairs),
+                  f"{mkind} {name}: kernel differs from the loop of plain "
+                  f"versions (max abs err {err})")
+            check(all(t._version > v for w, vs in zip(written, versions)
+                      for t, v in zip(w, vs)),
+                  f"{mkind} {name}: a written tensor kept its version")
+            cases.append({"name": mkind, "param_dtype": name,
+                          "tensors": len(mine), "launches": chunks,
+                          "max_abs_err": err})
+            print(f"kernel {mkind} params {name} states float32 over "
+                  f"{len(mine)} ResNet-50 tensors, two lr tensors, weight "
+                  f"decays 1e-5/0/1e-3: {chunks} launches, bitwise with "
+                  f"the loop of plain versions, versions bumped",
+                  flush=True)
+            del tensors, mine, plain, written, want, pairs
+        tensors, scalars = optim_args(base, param_shapes, gen, dev)
+        entries = multi_entries(mkind, tensors, scalars, mixed=False)
+        plain = clone_entries(entries)
+        n = sum(t[0].numel() for t in tensors)
+        bms, by = optim_bound(base, n)
+        lib = library_step(base, tensors)
+        if lib is not None:
+            lib()                   # past torch's first-step momentum init
+
+        def step():
+            multi_update(mkind, entries, scalars)
+        rec = {"name": mkind, "tensors": len(tensors), "elements": n,
+               "launches_per_update": chunks,
+               "ms": time_ms(step, iters=10), "host_ms": host_ms(step),
+               "device_ms": device_ms(step, KERNEL_NAME[mkind], iters=5),
+               "plain_ms": time_ms(lambda: multi_update(
+                   mkind, plain, scalars, plain=True), iters=10),
+               "bound_ms": bms, "bound_by": by,
+               "library_ms": time_ms(lib, iters=10) if lib else None,
+               "per_tensor_ms": per_tensor[base]["ms"],
+               "per_tensor_host_ms": per_tensor[base]["host_ms"]}
+        steps[mkind] = rec
+        lib_s = f"{rec['library_ms']:.4f}" if lib else "null"
+        print(f"step {mkind} over {len(tensors)} ResNet-50 tensors ({n} "
+              f"elements, {chunks} launches): kernel_ms={rec['ms']:.4f} "
+              f"(host {rec['host_ms']:.4f}, device "
+              f"{rec['device_ms']:.4f}) plain_ms={rec['plain_ms']:.4f} "
+              f"bound_ms={bms:.4f} ({by}) library_ms={lib_s}; the "
+              f"per-tensor loop of this run: kernel_ms="
+              f"{rec['per_tensor_ms']:.4f} (host "
+              f"{rec['per_tensor_host_ms']:.4f})", flush=True)
+        del tensors, entries, plain
     return cases, steps
 
 
@@ -555,16 +724,47 @@ def train_models(dev, seed=SEED):
     return models, tx, ty, start
 
 
+def timed_updates(optimizer):
+    """Time each parameter update of ``optimizer``'s training steps on the
+    host clock: ``update_params`` runs after the backward (its pairs are
+    taken first) and is timed alone, with no sync, so the time is the
+    host work of the update and the enqueueing of its launches. Returns
+    the list the times (ms) go to."""
+    real = optimizer.update_params
+    times = []
+
+    def update_params(pairs):
+        pairs = list(pairs)
+        t0 = time.perf_counter()
+        real(pairs)
+        times.append((time.perf_counter() - t0) * 1e3)
+    optimizer.update_params = update_params
+    return times
+
+
+def per_tensor(optimizer):
+    """``optimizer`` (``fused=True``) with the earlier design of its fused
+    step, for comparison within one run: every parameter through
+    ``Optimizer.apply``, one per-tensor launch each."""
+    def update_params(pairs):
+        for p, g in pairs:
+            optimizer.apply(p.name or f"param/{id(p)}", p, g)
+    optimizer.update_params = update_params
+    return optimizer
+
+
 def train_run(model, optimizer, start, tx, ty, steps, kernel):
     """``steps`` train steps from ``start`` with ``optimizer``; the launch
     counts are zeroed just before and read just after. Returns the loss
     per step, the step times (CUDA events, one sync at the end), the
-    launches of ``kernel`` and of the other optimizer kernels."""
+    launches of ``kernel`` and of the other optimizer kernels, and the
+    host time of each step's update (ms)."""
     import torch
     from singa_tpu_torch.model import load_numpy_states
     from singa_tpu_torch.ops import fused_optim as fo
     load_numpy_states(model, start)
     model.set_optimizer(optimizer)
+    update_ms = timed_updates(optimizer)
     model.train()
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(steps)]
@@ -581,7 +781,7 @@ def train_run(model, optimizer, start, tx, ty, steps, kernel):
     losses = [float(v) for v in losses]
     times = [b.elapsed_time(e) for b, e in events]
     mine = counts.pop(kernel, 0)
-    return losses, times, mine, sum(counts.values())
+    return losses, times, mine, sum(counts.values()), update_ms
 
 
 def held_equal(a, b, what):
@@ -599,54 +799,84 @@ def held_equal(a, b, what):
     return len(sa)
 
 
+def multi_chunks(key, n_params):
+    """Launches of multi-tensor kernel ``key`` per step over
+    ``n_params`` parameters of one dtype pair."""
+    from singa_tpu_torch.ops import fused_optim as fo
+    return -(-n_params // fo.MULTI_CAPACITY[key])
+
+
 def train_phase(dev, models, tx, ty, start):
-    """ResNet-50 b32 f32 SGD: fused (K1) against unfused, same start."""
+    """ResNet-50 b32 f32 SGD: fused (K1's multi-tensor launch) against
+    unfused, same start."""
     import numpy as np
     import torch
     from singa_tpu_torch import opt
     fused, plain = models
     runs = {}
-    for name, m in (("fused", fused), ("unfused", plain)):
+    for name, m in (("fused", fused), ("unfused", plain),
+                    ("per_tensor", plain)):
         torch.cuda.reset_peak_memory_stats()
         sgd = opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5,
-                      fused=name == "fused")
-        losses, times, k1, other = train_run(m, sgd, start, tx, ty,
-                                             TRAIN_STEPS, "sgd")
+                      fused=name != "unfused")
+        if name == "per_tensor":
+            # the unfused run is held first: this run overwrites its model
+            n_states = held_equal(fused, plain, "SGD")
+            sgd = per_tensor(sgd)
+        losses, times, k1, other, update_ms = train_run(
+            m, sgd, start, tx, ty, TRAIN_STEPS,
+            "sgd" if name == "per_tensor" else "sgd_multi")
         runs[name] = {"losses": losses, "step_ms": times, "k1": k1,
                       "other_kernel_launches": other,
+                      "update_host_ms": update_ms,
                       "peak_bytes": torch.cuda.max_memory_allocated()}
     f = runs["fused"]
-    check(f["k1"] == PARAMS_PER_STEP * TRAIN_STEPS and
+    per_step = multi_chunks("sgd_multi", PARAMS_PER_STEP)
+    check(per_step <= 4 and f["k1"] == per_step * TRAIN_STEPS and
           f["other_kernel_launches"] == 0,
-          f"fused run: {f['k1']} K1 launches (expected "
-          f"{PARAMS_PER_STEP} x {TRAIN_STEPS}), "
-          f"{f['other_kernel_launches']} others")
+          f"fused run: {f['k1']} K1 multi-tensor launches (expected "
+          f"{per_step} x {TRAIN_STEPS}), {f['other_kernel_launches']} "
+          "others (per-tensor K1 included)")
     check(runs["unfused"]["k1"] + runs["unfused"]["other_kernel_launches"]
           == 0, "the unfused run launched an optimizer kernel")
+    pt = runs["per_tensor"]
+    check(pt["k1"] == PARAMS_PER_STEP * TRAIN_STEPS and
+          pt["other_kernel_launches"] == 0,
+          f"per-tensor run: {pt['k1']} per-tensor K1 launches (expected "
+          f"{PARAMS_PER_STEP} x {TRAIN_STEPS}), "
+          f"{pt['other_kernel_launches']} others")
     check(all(np.isfinite(f["losses"])), f"loss not finite: {f['losses']}")
     check(f["losses"][-1] < f["losses"][0],
           f"loss did not fall on the fixed batch: {f['losses']}")
-    n_states = held_equal(fused, plain, "SGD")
+    held_equal(fused, plain, "SGD multi-tensor against per-tensor")
     rec = {"steps": TRAIN_STEPS, "batch": BATCH, "states_held": n_states,
            "k1_launches": f["k1"], "k1_launches_per_step":
            f["k1"] / TRAIN_STEPS, "losses": f["losses"],
            "unfused_losses": runs["unfused"]["losses"]}
     for name, r in runs.items():
         t = np.asarray(r["step_ms"][TIMED_FROM:])
-        pre = "" if name == "fused" else "unfused_"
+        u = np.asarray(r["update_host_ms"][TIMED_FROM:])
+        pre = "" if name == "fused" else f"{name}_"
         rec.update({f"{pre}img_per_s": BATCH * len(t) / (t.sum() / 1e3),
                     f"{pre}step_p50_ms": float(np.percentile(t, 50)),
                     f"{pre}step_p99_ms": float(np.percentile(t, 99)),
                     f"{pre}step_ms": r["step_ms"],
+                    f"{pre}update_host_p50_ms": float(np.percentile(u, 50)),
+                    f"{pre}update_host_ms": r["update_host_ms"],
                     f"{pre}peak_device_bytes": r["peak_bytes"]})
     print(f"train resnet50 NCHW f32 b{BATCH} SGD x{TRAIN_STEPS} (timed from "
           f"step {TIMED_FROM}): img/s={rec['img_per_s']:.1f} (unfused "
           f"{rec['unfused_img_per_s']:.1f}) step p50="
           f"{rec['step_p50_ms']:.2f} ms p99={rec['step_p99_ms']:.2f} ms "
-          f"(unfused p50 {rec['unfused_step_p50_ms']:.2f} ms) K1 launches="
-          f"{f['k1']} ({rec['k1_launches_per_step']:.0f}/step) peak="
+          f"(unfused p50 {rec['unfused_step_p50_ms']:.2f} ms, per-tensor K1 "
+          f"p50 {rec['per_tensor_step_p50_ms']:.2f} ms) update host "
+          f"p50={rec['update_host_p50_ms']:.3f} ms (unfused "
+          f"{rec['unfused_update_host_p50_ms']:.3f} ms, per-tensor K1 "
+          f"{rec['per_tensor_update_host_p50_ms']:.3f} ms) K1 multi-tensor "
+          f"launches={f['k1']} ({rec['k1_launches_per_step']:.0f}/step, "
+          f"no per-tensor K1) peak="
           f"{rec['peak_device_bytes'] / 2**30:.2f} GiB; fused == unfused "
-          f"bitwise over {n_states} states", flush=True)
+          f"== per-tensor K1 bitwise over {n_states} states", flush=True)
     print("train losses: " + " ".join(f"{v:.6f}" for v in f["losses"]),
           flush=True)
     return rec
@@ -654,7 +884,8 @@ def train_phase(dev, models, tx, ty, start):
 
 def eval_after_training(dev, model, inputs):
     """Serve the fused-trained model through K2 and through the unfused
-    path; logits must agree (a stale BN fold would not)."""
+    path; logits must agree (a stale BN fold would not). Then a BN-only
+    per-tensor K1 update (:func:`bn_only_update`)."""
     import numpy as np
     model.eval()
     ref, _, _, ref_launches, _ = serve(model, dev, inputs, None, False)
@@ -674,10 +905,22 @@ def eval_after_training(dev, model, inputs):
           f"(max |logit| {scale:.3g})", flush=True)
     rec = {"launches": launches, "max_abs_err_vs_unfused": err,
            "max_abs_logit": scale}
+    bn = bn_only_update(dev, model, inputs, "sgd", ref)
+    rec.update({"bn_only_k1_launches": bn["launches"],
+                "bn_only_moved": bn["moved"],
+                "bn_only_max_abs_err_vs_unfused": bn["max_abs_err"]})
+    return rec
 
-    # one more fused update of the BN scales and biases alone, with no
-    # forward: the running statistics keep their versions, so only K1's
-    # in-place writes can invalidate the folds the serve above cached
+
+def bn_only_update(dev, model, inputs, kernel, ref):
+    """One more fused update of the BN scales and biases alone, through
+    ``Optimizer.apply`` (the per-parameter API: per-tensor kernel
+    ``kernel``, 106 launches) with no forward. The running statistics keep
+    their versions, so only the kernel's in-place writes can invalidate
+    the BN folds the serving path cached; the served logits (``ref``
+    before) must move and K2's must still agree with the unfused path's.
+    The model's fused serve must have run since its last update."""
+    import numpy as np
     import torch
     from singa_tpu_torch.ops import fused_optim as fo
     gen = torch.Generator(device=dev.torch_device)
@@ -688,9 +931,11 @@ def eval_after_training(dev, model, inputs):
     for k, t in bn.items():
         model.optimizer.apply(k, t, torch.randn(
             t.shape, generator=gen, device=dev.torch_device) * 0.5)
-    n_bn = fo.launches["sgd"]
-    check(n_bn == len(bn) == 106, f"{n_bn} K1 launches for {len(bn)} BN "
-          "scales and biases, expected 106")
+    counts = dict(fo.launches)
+    n_bn = counts.pop(kernel)
+    check(n_bn == len(bn) == 106 and sum(counts.values()) == 0,
+          f"{n_bn} {kernel} launches for {len(bn)} BN scales and biases, "
+          f"expected 106, and others {counts}")
     ref2, _, _, _, _ = serve(model, dev, inputs, None, False)
     got2, _, _, _, _ = serve(model, dev, inputs, None, True)
     moved = float(np.abs(ref2 - ref).max())
@@ -698,45 +943,61 @@ def eval_after_training(dev, model, inputs):
     scale2 = float(np.abs(ref2).max())
     check(moved > REL_TOL["float32"] * scale2 and
           err2 <= REL_TOL["float32"] * scale2,
-          f"after a BN-only K1 update the unfused logits moved by {moved}; "
-          f"K2 logits differ from them by {err2} (max |logit| {scale2}): "
-          "a stale BN fold?")
-    print(f"eval after a BN-only K1 update ({n_bn} launches): logits moved "
-          f"by {moved:.3g}, K2 against unfused max_abs_err={err2:.3g}",
-          flush=True)
-    rec.update({"bn_only_k1_launches": n_bn, "bn_only_moved": moved,
-                "bn_only_max_abs_err_vs_unfused": err2})
-    return rec
+          f"after a BN-only {kernel} update the unfused logits moved by "
+          f"{moved}; K2 logits differ from them by {err2} (max |logit| "
+          f"{scale2}): a stale BN fold?")
+    print(f"eval after a BN-only per-tensor {kernel} update through "
+          f"Optimizer.apply ({n_bn} launches): logits moved by {moved:.3g}, "
+          f"K2 against unfused max_abs_err={err2:.3g}", flush=True)
+    return {"launches": n_bn, "moved": moved, "max_abs_err": err2}
 
 
-def other_optimizers_phase(models, tx, ty, start):
-    """Adam (K5), RMSProp (K6), AdaGrad (K7): 3 steps fused against
-    unfused from the same start."""
+def other_optimizers_phase(dev, models, tx, ty, start, inputs):
+    """Adam (K5's multi-tensor launch), RMSProp (K6), AdaGrad (K7): 3
+    steps fused against unfused from the same start; after Adam, a BN-only
+    per-tensor K5 update through ``Optimizer.apply``."""
     import numpy as np
     from singa_tpu_torch import opt
     makers = {"adam": lambda f: opt.Adam(lr=1e-3, fused=f),
               "rmsprop": lambda f: opt.RMSProp(lr=1e-3, fused=f),
               "adagrad": lambda f: opt.AdaGrad(lr=1e-2, fused=f)}
+    kernels = {"adam": "adam_multi", "rmsprop": "rmsprop",
+               "adagrad": "adagrad"}
+    per_step = {"adam": multi_chunks("adam_multi", PARAMS_PER_STEP),
+                "rmsprop": PARAMS_PER_STEP, "adagrad": PARAMS_PER_STEP}
     out = {}
     for kind, make in makers.items():
         res = {}
         for m, fused in zip(models, (True, False)):
             res[fused] = train_run(m, make(fused), start, tx, ty,
-                                   OTHER_STEPS, kind)
-        losses, times, n, other = res[True]
-        check(n == PARAMS_PER_STEP * OTHER_STEPS and other == 0,
-              f"{kind}: {n} launches (expected {PARAMS_PER_STEP} x "
-              f"{OTHER_STEPS}), {other} of other kernels")
+                                   OTHER_STEPS, kernels[kind])
+        losses, times, n, other, update_ms = res[True]
+        check(per_step[kind] <= (4 if kind == "adam" else PARAMS_PER_STEP)
+              and n == per_step[kind] * OTHER_STEPS and other == 0,
+              f"{kind}: {n} {kernels[kind]} launches (expected "
+              f"{per_step[kind]} x {OTHER_STEPS}), {other} of other kernels")
         check(res[False][2] + res[False][3] == 0,
               f"{kind}: the unfused run launched a kernel")
         check(all(np.isfinite(losses)), f"{kind}: loss not finite")
         n_states = held_equal(models[0], models[1], kind)
-        out[kind] = {"launches": n, "losses": losses, "step_ms": times,
+        out[kind] = {"kernel": kernels[kind], "launches": n,
+                     "losses": losses, "step_ms": times,
+                     "update_host_ms": update_ms,
+                     "unfused_update_host_ms": res[False][4],
                      "states_held": n_states}
-        print(f"train resnet50 {kind} x{OTHER_STEPS}: {n} launches, losses "
+        print(f"train resnet50 {kind} x{OTHER_STEPS}: {n} {kernels[kind]} "
+              f"launches ({per_step[kind]}/step), update host ms "
+              + " ".join(f"{v:.3f}" for v in update_ms) + " (unfused "
+              + " ".join(f"{v:.3f}" for v in res[False][4]) + "), losses "
               + " ".join(f"{v:.6f}" for v in losses)
               + f"; fused == unfused bitwise over {n_states} states",
               flush=True)
+        if kind == "adam":
+            models[0].eval()
+            ref, _, _, _, _ = serve(models[0], dev, inputs, None, False)
+            serve(models[0], dev, inputs, None, True)
+            out["adam_bn_only"] = bn_only_update(dev, models[0], inputs,
+                                                 "adam", ref)
     return out
 
 
@@ -1000,18 +1261,23 @@ def lm_eval_phase(dev, tx, start):
     return out
 
 
-def lm_train_run(model, start, tx, ty, steps):
+def lm_train_run(model, start, tx, ty, steps, per_tensor_update=False):
     """``steps`` SGD steps from ``start`` with a fresh fused optimizer; the
     launch counts are zeroed just before and read just after. Returns the
-    losses, the step times (CUDA events), the launches and the peak
-    device memory."""
+    losses, the step times (CUDA events), the launches, the peak device
+    memory and the host time of each step's update (ms).
+    ``per_tensor_update``: the earlier design (:func:`per_tensor`)."""
     import torch
     from singa_tpu_torch import opt
     from singa_tpu_torch.model import load_numpy_states
     from singa_tpu_torch.ops import attention as at
     from singa_tpu_torch.ops import fused_optim as fo
     load_numpy_states(model, start)
-    model.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, fused=True))
+    sgd = opt.SGD(lr=0.1, momentum=0.9, fused=True)
+    if per_tensor_update:
+        per_tensor(sgd)
+    model.set_optimizer(sgd)
+    update_ms = timed_updates(sgd)
     model.train()
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(steps)]
@@ -1025,14 +1291,15 @@ def lm_train_run(model, start, tx, ty, steps):
         _, loss = model(tx, ty)
         end.record()
         losses.append(loss.data.detach())
-    counts = dict(flash_counts(), sgd=fo.launches["sgd"],
+    counts = dict(flash_counts(), sgd_multi=fo.launches["sgd_multi"],
+                  sgd=fo.launches["sgd"],
                   other_optim=sum(v for k, v in fo.launches.items()
-                                  if k != "sgd"))
+                                  if k not in ("sgd_multi", "sgd")))
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     model.eval()
     return ([float(v) for v in losses],
-            [b.elapsed_time(e) for b, e in events], counts, peak)
+            [b.elapsed_time(e) for b, e in events], counts, peak, update_ms)
 
 
 def lm_train_phase(dev, tx, ty, start):
@@ -1042,17 +1309,19 @@ def lm_train_phase(dev, tx, ty, start):
     import torch
     from singa_tpu_torch.ops import attention as at
     m = lm_model(dev, tx)
-    losses, times, counts, peak = lm_train_run(m, start, tx, ty, LM_STEPS)
+    losses, times, counts, peak, upd = lm_train_run(m, start, tx, ty,
+                                                    LM_STEPS)
     mine = {k: v.data.detach().clone() for k, v in m.get_params().items()}
     at.USE_PLAIN = True
     try:
-        p_losses, p_times, p_counts, p_peak = lm_train_run(
+        p_losses, p_times, p_counts, p_peak, _ = lm_train_run(
             m, start, tx, ty, LM_STEPS)
     finally:
         at.USE_PLAIN = False
     per_step = {"flash_fwd": LM["layers"], "flash_bwd_dq": LM["layers"],
-                "flash_bwd_dkv": LM["layers"], "sgd": LM_PARAMS_PER_STEP,
-                "other_optim": 0}
+                "flash_bwd_dkv": LM["layers"],
+                "sgd_multi": multi_chunks("sgd_multi", LM_PARAMS_PER_STEP),
+                "sgd": 0, "other_optim": 0}
     want = {k: v * LM_STEPS for k, v in per_step.items()}
     check(counts == want, f"LM train: launches {counts}, expected {want}")
     check(p_counts["flash_fwd"] + p_counts["flash_bwd_dq"]
@@ -1083,6 +1352,8 @@ def lm_train_phase(dev, tx, ty, start):
            "tokens_per_s": toks * len(t) / (t.sum() / 1e3),
            "step_p50_ms": float(np.percentile(t, 50)),
            "step_p99_ms": float(np.percentile(t, 99)), "step_ms": times,
+           "update_host_p50_ms": float(np.percentile(
+               upd[LM_TIMED_FROM:], 50)), "update_host_ms": upd,
            "peak_device_bytes": peak,
            "plain_tokens_per_s": toks * len(pt) / (pt.sum() / 1e3),
            "plain_step_p50_ms": float(np.percentile(pt, 50)),
@@ -1091,7 +1362,8 @@ def lm_train_phase(dev, tx, ty, start):
           f"from step {LM_TIMED_FROM}): tokens/s={rec['tokens_per_s']:.0f} "
           f"(plain attention {rec['plain_tokens_per_s']:.0f}) step p50="
           f"{rec['step_p50_ms']:.2f} ms p99={rec['step_p99_ms']:.2f} ms "
-          f"(plain p50 {rec['plain_step_p50_ms']:.2f} ms) peak="
+          f"(plain p50 {rec['plain_step_p50_ms']:.2f} ms) update host p50="
+          f"{rec['update_host_p50_ms']:.3f} ms peak="
           f"{peak / 2**30:.2f} GiB (plain {p_peak / 2**30:.2f} GiB) "
           f"launches/step={rec['launches_per_step']} max param rel diff "
           f"vs plain={rel[worst]:.3g} ({worst}; tolerance {LM_PARAM_TOL})",
@@ -1102,22 +1374,53 @@ def lm_train_phase(dev, tx, ty, start):
     del m, mine
     torch.cuda.empty_cache()
 
+    # bf16: the multi-tensor update, then the earlier per-tensor one from
+    # the same start on the same model
     mb = lm_model(dev, tx, torch.bfloat16)
-    b_losses, b_times, b_counts, b_peak = lm_train_run(mb, start, tx, ty,
-                                                       LM_BF16_STEPS)
-    want_b = {k: v * LM_BF16_STEPS for k, v in per_step.items()}
-    check(b_counts == want_b,
-          f"LM train bf16: launches {b_counts}, expected {want_b}")
-    check(all(np.isfinite(b_losses)) and b_losses[-1] < b_losses[0],
-          f"LM train bf16: loss not finite or not falling: {b_losses}")
-    rec["bf16"] = {"steps": LM_BF16_STEPS, "losses": b_losses,
-                   "step_ms": b_times, "launches": b_counts,
-                   "peak_device_bytes": b_peak}
-    print(f"train LM bf16 x{LM_BF16_STEPS}: losses "
-          + " ".join(f"{v:.6f}" for v in b_losses)
-          + " step ms " + " ".join(f"{v:.1f}" for v in b_times)
-          + f" launches={b_counts} peak={b_peak / 2**30:.2f} GiB",
-          flush=True)
+    bf = {}
+    for name, per in (("multi", False), ("per_tensor", True)):
+        b_losses, b_times, b_counts, b_peak, b_upd = lm_train_run(
+            mb, start, tx, ty, LM_BF16_STEPS, per_tensor_update=per)
+        want_b = {k: v * LM_BF16_STEPS for k, v in per_step.items()}
+        if per:
+            want_b.update(sgd_multi=0, sgd=LM_PARAMS_PER_STEP * LM_BF16_STEPS)
+        check(b_counts == want_b, f"LM train bf16 {name}: launches "
+              f"{b_counts}, expected {want_b}")
+        check(all(np.isfinite(b_losses)) and b_losses[-1] < b_losses[0],
+              f"LM train bf16 {name}: loss not finite or not falling: "
+              f"{b_losses}")
+        bt = np.asarray(b_times[LM_TIMED_FROM:])
+        bf[name] = {"steps": LM_BF16_STEPS, "losses": b_losses,
+                    "step_ms": b_times, "launches": b_counts,
+                    "step_p50_ms": float(np.percentile(bt, 50)),
+                    "step_p99_ms": float(np.percentile(bt, 99)),
+                    "tokens_per_s": toks * len(bt) / (bt.sum() / 1e3),
+                    "update_host_ms": b_upd, "update_host_p50_ms":
+                    float(np.percentile(b_upd[LM_TIMED_FROM:], 50)),
+                    "peak_device_bytes": b_peak}
+        if not per:
+            after = {k: v.data.detach().clone()
+                     for k, v in mb.get_params().items()}
+        print(f"train LM bf16 {name} update x{LM_BF16_STEPS} (timed from "
+              f"step {LM_TIMED_FROM}): step p50="
+              f"{bf[name]['step_p50_ms']:.2f} ms p99="
+              f"{bf[name]['step_p99_ms']:.2f} ms tokens/s="
+              f"{bf[name]['tokens_per_s']:.0f} update host p50="
+              f"{bf[name]['update_host_p50_ms']:.3f} ms; losses "
+              + " ".join(f"{v:.6f}" for v in b_losses)
+              + " step ms " + " ".join(f"{v:.1f}" for v in b_times)
+              + f" launches={b_counts} peak={b_peak / 2**30:.2f} GiB",
+              flush=True)
+    brel = max(((after[k].float() - v.data.detach().float()).norm()
+                / v.data.detach().float().norm()).item()
+               for k, v in mb.get_params().items())
+    check(brel <= LM_PARAM_TOL,
+          f"LM train bf16: the multi-tensor and the per-tensor update differ "
+          f"by {brel} (relative) after {LM_BF16_STEPS} steps")
+    rec["bf16"] = dict(bf["multi"], per_tensor=bf["per_tensor"],
+                       max_param_rel_diff_vs_per_tensor=brel)
+    print(f"train LM bf16: multi-tensor against per-tensor update, max "
+          f"param rel diff {brel:.3g}", flush=True)
     del mb
     torch.cuda.empty_cache()
     return rec
@@ -1170,7 +1473,8 @@ def main():
     torch.backends.cudnn.deterministic = True
     train = train_phase(dev, models, tx, ty, start)
     evaluated = eval_after_training(dev, models[0], eval_inputs)
-    others = other_optimizers_phase(models, tx, ty, start)
+    others = other_optimizers_phase(dev, models, tx, ty, start,
+                                    eval_inputs)
     torch.backends.cudnn.deterministic = False
     del models, tx, ty, start
     torch.cuda.empty_cache()
@@ -1198,8 +1502,15 @@ def main():
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": None})
-    launches = {"sgd": train["k1_launches"],
-                **{k: v["launches"] for k, v in others.items()}}
+    # launches of each optimizer kernel on the path that drives it: the
+    # fused training steps (multi-tensor K1 and K5, per-tensor K6 and K7),
+    # the BN-only Optimizer.apply loops (per-tensor K1 and K5)
+    launches = {"sgd": evaluated["bn_only_k1_launches"],
+                "adam": others["adam_bn_only"]["launches"],
+                "rmsprop": others["rmsprop"]["launches"],
+                "adagrad": others["adagrad"]["launches"],
+                "sgd_multi": train["k1_launches"],
+                "adam_multi": others["adam"]["launches"]}
     for kind, n in launches.items():
         step = optim_steps[kind]
         kernels.append({
@@ -1207,7 +1518,8 @@ def main():
             "source": "singa_tpu_torch/csrc/fused_optim.cu",
             "replaces": REPLACES[kind], "launches": n,
             "max_abs_err": max(c["max_abs_err"] for c in optim_cases
-                               if c["name"].split("_")[0] == kind),
+                               if c["name"].replace("_nesterov", "")
+                               == kind),
             "ms": step["ms"], "plain_ms": step["plain_ms"],
             "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
             "library_ms": step["library_ms"]})

@@ -5,14 +5,14 @@ NVIDIA card.
     python3 profile_training.py [--model resnet50|lm] [--steps 3] [--warmup 3]
 
 ``--model resnet50`` (the default) builds chip_smoke.py's ResNet training
-setup (ResNet-50, 224 px, batch 32, f32,
-TF32 off, NCHW, weights and BN statistics from the same numpy seed, one
-fixed synthetic batch, ``SGD(lr=0.1, momentum=0.9, weight_decay=1e-5)``)
-and, for the fused (kernel K1) and the unfused optimizer in turns (fused,
-unfused, unfused, fused), with cuDNN deterministic as in chip_smoke.py's
-comparison and again without it, prints one JSON line per run of
-``--steps`` steps under ``torch.profiler`` (CPU + CUDA activities), after
-``--warmup`` untraced steps:
+setup (ResNet-50, 224 px, batch 32, f32, TF32 off, NCHW, weights and BN
+statistics from the same numpy seed, one fixed synthetic batch,
+``SGD(lr=0.1, momentum=0.9, weight_decay=1e-5)``) and, for the fused
+(kernel K1's multi-tensor launch) and the unfused optimizer in turns
+(fused, unfused, unfused, fused), with cuDNN deterministic as in
+chip_smoke.py's comparison and again without it, prints one JSON line per
+run of ``--steps`` steps under ``torch.profiler`` (CPU + CUDA activities),
+after ``--warmup`` untraced steps:
 
 - wall ms per step (host clock, the steps end in a synchronize), device
   busy ms per step (the sum of kernel times) and the device's idle share;
@@ -52,7 +52,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # kind of kernel -> substrings of its name (first match wins, in order)
 KINDS = (
-    ("k1", ("sgd_kernel",)),
+    ("k1", ("sgd_kernel", "sgd_multi_kernel")),
     ("conv", ("conv", "xmma", "implicit", "wgrad", "dgrad", "cudnn",
               "winograd", "fft", "precomputed")),
     ("matmul", ("gemm", "cutlass", "gemv")),
@@ -67,7 +67,7 @@ KINDS = (
 LM_KINDS = (
     ("k3", ("flash_fwd_kernel",)),
     ("k4", ("flash_bwd_",)),
-    ("k1", ("sgd_kernel",)),
+    ("k1", ("sgd_kernel", "sgd_multi_kernel")),
     ("matmul", ("gemm", "cutlass", "gemv", "xmma", "sm90_", "nvjet")),
     ("embedding", ("embedding", "index", "scatter", "gather")),
     ("reduction", ("reduce",)),
@@ -124,7 +124,8 @@ def run(model, tx, ty, start, fused, deterministic, steps, warmup):
     wall, kernels, kinds = traced_steps(model, tx, ty, steps)
     rec = {"trace": "train", "fused": fused, "deterministic": deterministic,
            "steps": steps, "batch": chip_smoke.BATCH,
-           "k1_launches_per_step": fo.launches["sgd"] / steps}
+           "k1_launches_per_step": fo.launches["sgd"] / steps,
+           "k1_multi_launches_per_step": fo.launches["sgd_multi"] / steps}
     rec.update(summary(wall, kernels, kinds, steps, chip_smoke.BATCH,
                        "img_per_s"))
     print(json.dumps(rec), flush=True)

@@ -31,13 +31,35 @@
 // 23,528,522 parameters in 161 tensors, so one step moves 470.6 MB
 // (K1/K6/K7) or 658.8 MB (K5): 0.140 ms / 0.197 ms at the H100 SXM
 // data-sheet 3.35 TB/s. 106 of the 161 tensors are BN vectors of 64-2048
-// elements, so a step's update time is set by the launches, not the bytes.
+// elements, so one launch per tensor makes a step's update cost the
+// launches (and their host work), not the bytes.
 //
-// Design: one flat grid-stride loop over n elements. When every pointer
-// is aligned to a 4-element vector, each thread moves 4 elements per
-// access (16 B per f32 array), then a scalar loop covers the rest (all of
-// it when a pointer is not aligned). The TPU kernel's (rows, 128) tiles
-// and zero padding are Mosaic details with no counterpart here.
+// Design, per tensor (singa_*_update): one flat grid-stride loop over n
+// elements. When every pointer is aligned to a 4-element vector, each
+// thread moves 4 elements per access (16 B per f32 array), then a scalar
+// loop covers the rest (all of it when a pointer is not aligned). The TPU
+// kernel's (rows, 128) tiles and zero padding are Mosaic details with no
+// counterpart here.
+//
+// Design, multi-tensor (singa_sgd_update_multi, singa_adam_update_multi:
+// K1 and K5 over all of a step's parameters at once): the host passes an
+// array of per-tensor entries (pointers, n, the tensor's own lr pointer
+// and weight decay). The table reaches the device BY VALUE, as the
+// kernel's one parameter (a __grid_constant__ struct of at most 4 KB, the
+// limit every toolkit and card take): SGD_MULTI_MAX (83) SGD entries or
+// ADAM_MULTI_MAX (70) Adam entries per launch, so a ResNet-50 step is 2
+// (K1) or 3 (K5) launches in place of 161. No device table, no copy and
+// no allocation, so stream order alone orders one step's launch after the
+// last; the table is rebuilt from the current gradients every call. Each
+// tensor gets ceil(n / TILE) blocks of 256 threads, TILE = 4096 elements;
+// a block finds its tensor by a binary search of the cumulative block
+// counts in the table and its range from its rank among that tensor's
+// blocks, so a 64-element BN vector and a 2.36 M-element conv weight share
+// one grid. The 4-wide path is chosen per tensor from its own pointers'
+// alignment (a tile starts at a multiple of TILE, so it keeps it). Both
+// designs run the same per-element update (sgd_elem / adam_elem) through
+// the same span loop (sgd_span / adam_span), so a multi-tensor launch is
+// bitwise-equal to one launch per tensor and to the plain version.
 //
 // Numerics: __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn / __fsqrt_rn
 // keep the compiler from contracting a multiply and an add into an FMA,
@@ -53,7 +75,34 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+// One tensor of a multi-tensor update, as the host passes it: its
+// pointers, its element count (> 0), a device pointer to its own f32
+// learning rate and its own weight decay.
+struct SingaSgdEntry {
+  void* p;
+  const void* g;
+  void* m;
+  const void* lr;
+  long long n;
+  float weight_decay;
+};
+
+struct SingaAdamEntry {
+  void* p;
+  const void* g;
+  void* m;
+  void* v;
+  const void* lr;
+  long long n;
+  float weight_decay;
+};
+
+// entries per multi-tensor launch: as many as fit the 4 KB table
+#define SGD_MULTI_MAX 83
+#define ADAM_MULTI_MAX 70
 
 namespace {
 
@@ -146,18 +195,17 @@ __device__ __forceinline__ float scaled_step(float p, float g, float lr,
                                 __fsqrt_rn(__fadd_rn(S::to_f(stored), eps))));
 }
 
-// -- the kernels --------------------------------------------------------
-// Each thread takes whole vectors (when `vec`), then single elements from
-// `nvec * V` on.
+// -- the span loops -----------------------------------------------------
+// Elements [0, n) of one tensor, thread `tid` of `stride`: whole vectors
+// first (when `vec`), then single elements from `nvec * V` on. The
+// per-tensor kernels run them over the whole tensor with a grid-stride,
+// the multi-tensor kernels over one block's tile with a block-stride.
 
 template <class P, class S>
-__global__ void __launch_bounds__(256) sgd_kernel(
+__device__ __forceinline__ void sgd_span(
     typename P::T* __restrict__ p, const typename P::T* __restrict__ g,
-    typename S::T* __restrict__ m, const float* __restrict__ lr_ptr,
-    long long n, SgdArgs a, bool vec) {
-  const float lr = __ldg(lr_ptr);
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    typename S::T* __restrict__ m, float lr, long long n,
+    const SgdArgs& a, bool vec, long long tid, long long stride) {
   const long long nvec = vec ? n / V : 0;
   for (long long i = tid; i < nvec; i += stride) {
     Vec<typename P::T> pv = reinterpret_cast<Vec<typename P::T>*>(p)[i];
@@ -182,14 +230,11 @@ __global__ void __launch_bounds__(256) sgd_kernel(
 }
 
 template <class P, class S>
-__global__ void __launch_bounds__(256) adam_kernel(
+__device__ __forceinline__ void adam_span(
     typename P::T* __restrict__ p, const typename P::T* __restrict__ g,
     typename S::T* __restrict__ m, typename S::T* __restrict__ v,
-    const float* __restrict__ lr_ptr, const float* __restrict__ bc1_ptr,
-    const float* __restrict__ bc2_ptr, long long n, AdamArgs a, bool vec) {
-  const float lr = __ldg(lr_ptr), bc1 = __ldg(bc1_ptr), bc2 = __ldg(bc2_ptr);
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    float lr, float bc1, float bc2, long long n, const AdamArgs& a,
+    bool vec, long long tid, long long stride) {
   const long long nvec = vec ? n / V : 0;
   for (long long i = tid; i < nvec; i += stride) {
     Vec<typename P::T> pv = reinterpret_cast<Vec<typename P::T>*>(p)[i];
@@ -216,6 +261,130 @@ __global__ void __launch_bounds__(256) adam_kernel(
     m[i] = S::from_f(mf);
     v[i] = S::from_f(vf);
   }
+}
+
+// -- the kernels --------------------------------------------------------
+
+template <class P, class S>
+__global__ void __launch_bounds__(256) sgd_kernel(
+    typename P::T* __restrict__ p, const typename P::T* __restrict__ g,
+    typename S::T* __restrict__ m, const float* __restrict__ lr_ptr,
+    long long n, SgdArgs a, bool vec) {
+  sgd_span<P, S>(p, g, m, __ldg(lr_ptr), n, a, vec,
+                 (long long)blockIdx.x * blockDim.x + threadIdx.x,
+                 (long long)gridDim.x * blockDim.x);
+}
+
+template <class P, class S>
+__global__ void __launch_bounds__(256) adam_kernel(
+    typename P::T* __restrict__ p, const typename P::T* __restrict__ g,
+    typename S::T* __restrict__ m, typename S::T* __restrict__ v,
+    const float* __restrict__ lr_ptr, const float* __restrict__ bc1_ptr,
+    const float* __restrict__ bc2_ptr, long long n, AdamArgs a, bool vec) {
+  adam_span<P, S>(p, g, m, v, __ldg(lr_ptr), __ldg(bc1_ptr), __ldg(bc2_ptr),
+                  n, a, vec,
+                  (long long)blockIdx.x * blockDim.x + threadIdx.x,
+                  (long long)gridDim.x * blockDim.x);
+}
+
+// -- the multi-tensor kernels -------------------------------------------
+// The table is the kernel's only parameter. block_end[i] is the number of
+// blocks of entries 0..i together; entry i takes ceil(n[i] / TILE) blocks.
+
+constexpr int TILE = 4096;  // elements per block of a multi-tensor launch
+
+struct SgdTable {
+  void* p[SGD_MULTI_MAX];
+  const void* g[SGD_MULTI_MAX];
+  void* m[SGD_MULTI_MAX];
+  const float* lr[SGD_MULTI_MAX];
+  long long n[SGD_MULTI_MAX];
+  float weight_decay[SGD_MULTI_MAX];
+  int block_end[SGD_MULTI_MAX];
+  unsigned char vec[SGD_MULTI_MAX];
+  int count;
+  float momentum, one_minus_dampening;
+  int nesterov;
+};
+
+struct AdamTable {
+  void* p[ADAM_MULTI_MAX];
+  const void* g[ADAM_MULTI_MAX];
+  void* m[ADAM_MULTI_MAX];
+  void* v[ADAM_MULTI_MAX];
+  const float* lr[ADAM_MULTI_MAX];
+  long long n[ADAM_MULTI_MAX];
+  float weight_decay[ADAM_MULTI_MAX];
+  int block_end[ADAM_MULTI_MAX];
+  unsigned char vec[ADAM_MULTI_MAX];
+  int count;
+  const float* bc1;
+  const float* bc2;
+  float beta1, one_minus_beta1, beta2, one_minus_beta2, eps;
+};
+
+static_assert(sizeof(SgdTable) <= 4096 && sizeof(AdamTable) <= 4096,
+              "a multi-tensor table must fit the 4 KB kernel parameter "
+              "space");
+
+// the entry whose blocks hold block b: the first i with b < block_end[i]
+template <int N>
+__device__ __forceinline__ int find_entry(const int (&block_end)[N],
+                                          int count, int b) {
+  int lo = 0, hi = count - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (b < block_end[mid]) hi = mid;
+    else lo = mid + 1;
+  }
+  return lo;
+}
+
+// this block's tile of entry e: its first element and its length
+template <int N>
+__device__ __forceinline__ void tile_of(const int (&block_end)[N],
+                                        const long long (&n)[N], int e,
+                                        int b, long long& begin,
+                                        long long& len) {
+  begin = (long long)(b - (e ? block_end[e - 1] : 0)) * TILE;
+  const long long rest = n[e] - begin;
+  len = rest < TILE ? rest : TILE;
+}
+
+template <class P, class S>
+__global__ void __launch_bounds__(256) sgd_multi_kernel(
+    const __grid_constant__ SgdTable t) {
+  using PT = typename P::T;
+  using ST = typename S::T;
+  const int b = blockIdx.x;
+  const int e = find_entry(t.block_end, t.count, b);
+  long long begin, len;
+  tile_of(t.block_end, t.n, e, b, begin, len);
+  const SgdArgs a{t.momentum, t.one_minus_dampening, t.weight_decay[e],
+                  t.nesterov};
+  sgd_span<P, S>(static_cast<PT*>(t.p[e]) + begin,
+                 static_cast<const PT*>(t.g[e]) + begin,
+                 static_cast<ST*>(t.m[e]) + begin, __ldg(t.lr[e]), len, a,
+                 t.vec[e] != 0, threadIdx.x, blockDim.x);
+}
+
+template <class P, class S>
+__global__ void __launch_bounds__(256) adam_multi_kernel(
+    const __grid_constant__ AdamTable t) {
+  using PT = typename P::T;
+  using ST = typename S::T;
+  const int b = blockIdx.x;
+  const int e = find_entry(t.block_end, t.count, b);
+  long long begin, len;
+  tile_of(t.block_end, t.n, e, b, begin, len);
+  const AdamArgs a{t.beta1, t.one_minus_beta1, t.beta2, t.one_minus_beta2,
+                   t.eps, t.weight_decay[e]};
+  adam_span<P, S>(static_cast<PT*>(t.p[e]) + begin,
+                  static_cast<const PT*>(t.g[e]) + begin,
+                  static_cast<ST*>(t.m[e]) + begin,
+                  static_cast<ST*>(t.v[e]) + begin, __ldg(t.lr[e]),
+                  __ldg(t.bc1), __ldg(t.bc2), len, a, t.vec[e] != 0,
+                  threadIdx.x, blockDim.x);
 }
 
 // RMSProp (ADAGRAD = false) and AdaGrad (ADAGRAD = true): one state r
@@ -321,6 +490,75 @@ struct Launch {
         (PT*)p, (const PT*)g, (ST*)r, lr, n, a, vec);
     return (int)cudaGetLastError();
   }
+  // one launch over `count` entries (1..SGD_MULTI_MAX)
+  static int sgd_multi(const SingaSgdEntry* es, int count, float momentum,
+                       float one_minus_dampening, int nesterov,
+                       cudaStream_t st) {
+    using PT = typename P::T;
+    using ST = typename S::T;
+    if (count < 1 || count > SGD_MULTI_MAX)
+      return (int)cudaErrorInvalidValue;
+    SgdTable t{};
+    long long blocks = 0;
+    for (int i = 0; i < count; ++i) {
+      const SingaSgdEntry& e = es[i];
+      if (e.n <= 0) return (int)cudaErrorInvalidValue;
+      t.p[i] = e.p;
+      t.g[i] = e.g;
+      t.m[i] = e.m;
+      t.lr[i] = static_cast<const float*>(e.lr);
+      t.n[i] = e.n;
+      t.weight_decay[i] = e.weight_decay;
+      t.vec[i] = aligned((PT*)e.p) && aligned((const PT*)e.g) &&
+                 aligned((ST*)e.m);
+      blocks += (e.n + TILE - 1) / TILE;
+      if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+      t.block_end[i] = (int)blocks;
+    }
+    t.count = count;
+    t.momentum = momentum;
+    t.one_minus_dampening = one_minus_dampening;
+    t.nesterov = nesterov;
+    sgd_multi_kernel<P, S><<<(unsigned)blocks, 256, 0, st>>>(t);
+    return (int)cudaGetLastError();
+  }
+  // one launch over `count` entries (1..ADAM_MULTI_MAX)
+  static int adam_multi(const SingaAdamEntry* es, int count,
+                        const float* bc1, const float* bc2, AdamArgs a,
+                        cudaStream_t st) {
+    using PT = typename P::T;
+    using ST = typename S::T;
+    if (count < 1 || count > ADAM_MULTI_MAX)
+      return (int)cudaErrorInvalidValue;
+    AdamTable t{};
+    long long blocks = 0;
+    for (int i = 0; i < count; ++i) {
+      const SingaAdamEntry& e = es[i];
+      if (e.n <= 0) return (int)cudaErrorInvalidValue;
+      t.p[i] = e.p;
+      t.g[i] = e.g;
+      t.m[i] = e.m;
+      t.v[i] = e.v;
+      t.lr[i] = static_cast<const float*>(e.lr);
+      t.n[i] = e.n;
+      t.weight_decay[i] = e.weight_decay;
+      t.vec[i] = aligned((PT*)e.p) && aligned((const PT*)e.g) &&
+                 aligned((ST*)e.m) && aligned((ST*)e.v);
+      blocks += (e.n + TILE - 1) / TILE;
+      if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+      t.block_end[i] = (int)blocks;
+    }
+    t.count = count;
+    t.bc1 = bc1;
+    t.bc2 = bc2;
+    t.beta1 = a.beta1;
+    t.one_minus_beta1 = a.one_minus_beta1;
+    t.beta2 = a.beta2;
+    t.one_minus_beta2 = a.one_minus_beta2;
+    t.eps = a.eps;
+    adam_multi_kernel<P, S><<<(unsigned)blocks, 256, 0, st>>>(t);
+    return (int)cudaGetLastError();
+  }
 };
 
 // Calls f(Launch<P, S>()) for the runtime dtypes, or returns
@@ -410,4 +648,41 @@ extern "C" int singa_adagrad_update(int p_dtype, int s_dtype, void* p,
     return l.template scaled<true>(p, g, h, static_cast<const float*>(lr),
                                    n, a, st);
   });
+}
+
+// entries: a host array of `count` entries of one (p, state) dtype pair;
+// any count > 0, at most SGD_MULTI_MAX / ADAM_MULTI_MAX, each with n > 0.
+// One launch each; the hyperparameters shared by the entries are
+// arguments, as for the per-tensor functions.
+
+extern "C" int singa_sgd_update_multi(int p_dtype, int s_dtype,
+                                      const SingaSgdEntry* entries,
+                                      int count, float momentum,
+                                      float one_minus_dampening,
+                                      int nesterov, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_types(p_dtype, s_dtype, [&](auto l) {
+    return l.sgd_multi(entries, count, momentum, one_minus_dampening,
+                       nesterov, st);
+  });
+}
+
+extern "C" int singa_adam_update_multi(int p_dtype, int s_dtype,
+                                       const SingaAdamEntry* entries,
+                                       int count, const void* bc1,
+                                       const void* bc2, float beta1,
+                                       float one_minus_beta1, float beta2,
+                                       float one_minus_beta2, float eps,
+                                       void* stream) {
+  const AdamArgs a{beta1, one_minus_beta1, beta2, one_minus_beta2, eps, 0.f};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_types(p_dtype, s_dtype, [&](auto l) {
+    return l.adam_multi(entries, count, static_cast<const float*>(bc1),
+                        static_cast<const float*>(bc2), a, st);
+  });
+}
+
+// the most entries one multi-tensor launch takes: 0 = SGD, 1 = Adam
+extern "C" int singa_optim_multi_capacity(int kind) {
+  return kind == 0 ? SGD_MULTI_MAX : kind == 1 ? ADAM_MULTI_MAX : 0;
 }

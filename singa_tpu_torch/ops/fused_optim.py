@@ -13,10 +13,17 @@ the state once, in place:
 - :func:`rmsprop_update` -- the new mean square is stored, then read back
   for the step (K6);
 - :func:`adagrad_update` -- the new history is stored, then read back
-  (K7).
+  (K7);
+- :func:`sgd_momentum_update_multi`, :func:`adam_update_multi` -- K1 and
+  K5 over many parameters at once, each with its own lr and weight decay:
+  on the card one launch per chunk of up to ``MULTI_CAPACITY`` tensors
+  (the table travels as the kernel's parameter), so a whole ResNet-50
+  step is 2 or 3 launches in place of 161. ``opt.SGD/Adam(fused=True)``
+  update a step's eligible parameters this way; ``Optimizer.apply`` keeps
+  the per-tensor wrappers.
 
-Each wrapper takes the JAX signature and returns the updated ``(p, m[,
-v])``, which are the tensors passed in, updated in place. ``lr`` (and
+Each per-tensor wrapper takes the JAX signature and returns the updated
+``(p, m[, v])``, which are the tensors passed in, updated in place. ``lr`` (and
 Adam's bias corrections) may be 0-d f32 tensors on the parameter's device,
 as the optimizers pass them, so a learning-rate schedule costs no host
 sync; a Python number is placed on the device first.
@@ -27,7 +34,10 @@ plain version only for a tensor on the CPU. A CUDA tensor always goes to
 the hand-written kernel in ``csrc/fused_optim.cu`` (built at first use by
 :mod:`..cuda_build`) or raises: no fallback and no size gate (the JAX
 package's ``MIN_FUSED_ELEMS`` is a TPU launch-cost gate and is not carried
-over). ``launches`` counts kernel launches by kernel.
+over). ``launches`` counts kernel launches by kernel: ``"sgd"`` and
+``"adam"`` per-tensor launches, ``"sgd_multi"`` and ``"adam_multi"``
+multi-tensor ones. On the CPU a multi-tensor wrapper calls the per-tensor
+wrapper of this module for each entry, so it counts no launch either.
 
 The kernel writes through raw pointers, which PyTorch's version counter
 does not see. Each launch therefore bumps the version of every tensor it
@@ -41,10 +51,12 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 # kernel launches, by kernel (only where the CUDA kernel runs)
-launches = {"sgd": 0, "adam": 0, "rmsprop": 0, "adagrad": 0}
+launches = {"sgd": 0, "adam": 0, "rmsprop": 0, "adagrad": 0,
+            "sgd_multi": 0, "adam_multi": 0}
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -135,44 +147,88 @@ def adagrad_update_reference(p, g, h, lr, *, epsilon, weight_decay=0.0):
 
 # -- the CUDA kernels --------------------------------------------------------
 
+_VP, _INT, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_float)
+
+
+class _SgdEntry(ctypes.Structure):
+    """``SingaSgdEntry`` of ``csrc/fused_optim.cu``: one tensor of a
+    multi-tensor K1 launch."""
+    _fields_ = [("p", _VP), ("g", _VP), ("m", _VP), ("lr", _VP),
+                ("n", _LL), ("weight_decay", _F)]
+
+
+class _AdamEntry(ctypes.Structure):
+    """``SingaAdamEntry``: one tensor of a multi-tensor K5 launch."""
+    _fields_ = [("p", _VP), ("g", _VP), ("m", _VP), ("v", _VP),
+                ("lr", _VP), ("n", _LL), ("weight_decay", _F)]
+
+
+# a chunk's table is built as a numpy array of these structs: one
+# conversion of a list of tuples, cheaper than filling a ctypes array
+_ENTRIES = {"sgd_multi": _SgdEntry, "adam_multi": _AdamEntry}
+_ROWS = {kind: np.dtype(entry) for kind, entry in _ENTRIES.items()}
+
+# entries per multi-tensor launch: as many as fit the kernel's 4 KB
+# parameter table (SGD_MULTI_MAX, ADAM_MULTI_MAX in the source, checked
+# against the library when it loads)
+MULTI_CAPACITY = {"sgd_multi": 83, "adam_multi": 70}
+
 _SIGNATURES = {
-    # name: (C function, pointer args after the two dtype codes, float args)
-    "sgd": ("singa_sgd_update", 4, 3),
-    "adam": ("singa_adam_update", 7, 6),
-    "rmsprop": ("singa_rmsprop_update", 4, 4),
-    "adagrad": ("singa_adagrad_update", 4, 2),
+    # name: (C function, argument types after the two dtype codes)
+    "sgd": ("singa_sgd_update", [_VP] * 4 + [_LL] + [_F] * 3 + [_INT, _VP]),
+    "adam": ("singa_adam_update", [_VP] * 7 + [_LL] + [_F] * 6 + [_VP]),
+    "rmsprop": ("singa_rmsprop_update", [_VP] * 4 + [_LL] + [_F] * 4 + [_VP]),
+    "adagrad": ("singa_adagrad_update", [_VP] * 4 + [_LL] + [_F] * 2
+                + [_VP]),
+    "sgd_multi": ("singa_sgd_update_multi", [
+        ctypes.POINTER(_SgdEntry), _INT, _F, _F, _INT, _VP]),
+    "adam_multi": ("singa_adam_update_multi", [
+        ctypes.POINTER(_AdamEntry), _INT, _VP, _VP] + [_F] * 5 + [_VP]),
 }
 
 
 def _function(kind):
     from .. import cuda_build
-    name, n_ptr, n_float = _SIGNATURES[kind]
-    fn = getattr(cuda_build.load("fused_optim"), name)
+    name, argtypes = _SIGNATURES[kind]
+    lib = cuda_build.load("fused_optim")
+    fn = getattr(lib, name)
     if fn.argtypes is None:
+        if kind in MULTI_CAPACITY:
+            cap = lib.singa_optim_multi_capacity(kind != "sgd_multi")
+            if cap != MULTI_CAPACITY[kind]:
+                raise RuntimeError(
+                    f"{name} takes {cap} entries per launch, the wrapper "
+                    f"{MULTI_CAPACITY[kind]}: csrc/fused_optim.cu and "
+                    "ops/fused_optim.py disagree")
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int, ctypes.c_int] + \
-            [ctypes.c_void_p] * n_ptr + [ctypes.c_longlong] + \
-            [ctypes.c_float] * n_float + \
-            ([ctypes.c_int] if kind == "sgd" else []) + [ctypes.c_void_p]
+        fn.argtypes = [_INT, _INT] + argtypes
     return fn
 
 
 def _check(p, g, states):
+    """Raise unless the kernels take ``p``, ``g`` (in p's dtype) and the
+    states: f32, bf16 or f16, contiguous, of p's shape, on p's device, the
+    states of one dtype. Kept to cheap attribute reads: the multi-tensor
+    wrappers run it for every parameter of every step."""
     if p.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"the optimizer kernels take f32, bf16 or f16 "
                         f"parameters, got {p.dtype}")
-    sdt = states[0].dtype
-    for name, t in [("g", g)] + [(f"state {i}", s)
-                                 for i, s in enumerate(states)]:
-        if tuple(t.shape) != tuple(p.shape) or t.device != p.device or \
-                not t.is_contiguous():
-            raise ValueError(
-                f"{name} must be a contiguous tensor of p's shape "
-                f"{tuple(p.shape)} on {p.device}; got {tuple(t.shape)} "
-                f"on {t.device}")
     if not p.is_contiguous():
         raise ValueError(f"p must be contiguous; got strides {p.stride()}")
-    if sdt not in _KERNEL_DTYPES or any(s.dtype != sdt for s in states):
+    shape, dev = p.shape, p.get_device()
+    sdt = states[0].dtype
+    for i, t in enumerate((g, *states)):
+        if t.shape != shape or t.get_device() != dev or \
+                not t.is_contiguous():
+            name = f"state {i - 1}" if i else "g"
+            raise ValueError(
+                f"{name} must be a contiguous tensor of p's shape "
+                f"{tuple(shape)} on {p.device}; got {tuple(t.shape)} "
+                f"on {t.device}")
+        if i and t.dtype != sdt:
+            sdt = None
+    if sdt not in _KERNEL_DTYPES:
         raise TypeError(f"the optimizer states must share one of f32, bf16 "
                         f"or f16; got {[s.dtype for s in states]}")
 
@@ -282,3 +338,128 @@ def adagrad_update(p, g, h, lr, *, epsilon, weight_decay=0.0):
               p.data_ptr(), g.data_ptr(), h.data_ptr(), lr.data_ptr(),
               p.numel(), float(epsilon), float(weight_decay)), (p, h))
     return p, h
+
+
+# -- multi-tensor updates: K1 and K5 over many parameters in few launches ---
+
+def sgd_momentum_update_multi_reference(entries, *, momentum, dampening=0.0,
+                                        nesterov=False):
+    """Plain version of :func:`sgd_momentum_update_multi`: the plain
+    per-tensor update of each entry in turn."""
+    for p, g, m, lr, wd in entries:
+        sgd_momentum_update_reference(p, g, m, lr, momentum=momentum,
+                                      dampening=dampening, weight_decay=wd,
+                                      nesterov=nesterov)
+
+
+def adam_update_multi_reference(entries, bias_corr1, bias_corr2, *, beta_1,
+                                beta_2, epsilon):
+    """Plain version of :func:`adam_update_multi`."""
+    for p, g, m, v, lr, wd in entries:
+        adam_update_reference(p, g, m, v, lr, bias_corr1, bias_corr2,
+                              beta_1=beta_1, beta_2=beta_2, epsilon=epsilon,
+                              weight_decay=wd)
+
+
+def _on_cpu(entries):
+    """Whether the entries lie on the CPU; raises unless all of them lie
+    on the first one's device."""
+    dev = entries[0][0].device
+    for e in entries:
+        if e[0].device != dev:
+            raise ValueError(f"one multi-tensor update takes parameters on "
+                             f"one device; got {dev} and {e[0].device}")
+    return _device_kind(entries[0][0]) == "cpu"
+
+
+def _run_multi(kind, entries, n_states, args):
+    """Launch multi-tensor kernel ``kind`` over ``entries`` (``(p, g,
+    *states, lr, weight_decay)`` each): every entry checked as the
+    per-tensor wrappers check it, grouped by (p, state) dtype pair, each
+    group in chunks of ``MULTI_CAPACITY[kind]``, one launch per chunk
+    with ``args`` between the table and the stream. Counts each launch and
+    bumps the version of every tensor it wrote."""
+    groups, lrs = {}, {}
+    for e in entries:
+        p, g, states, lr = e[0], e[1], e[2:2 + n_states], e[-2]
+        if g.dtype != p.dtype:
+            g = g.to(p.dtype)
+        if not g.is_contiguous():
+            g = g.contiguous()
+        _check(p, g, states)
+        n = p.numel()
+        if not n:
+            continue
+        lr_t = lrs.get(id(lr))
+        if lr_t is None:
+            lr_t = lrs[id(lr)] = _scalar(lr, p)
+        groups.setdefault((p.dtype, states[0].dtype), []).append(
+            (p, g, states, lr_t, n, float(e[-1])))
+    if not groups:
+        return
+    fn = _function(kind)
+    stream = _stream(entries[0][0].device)
+    cap, entry = MULTI_CAPACITY[kind], ctypes.POINTER(_ENTRIES[kind])
+    for (p_dtype, s_dtype), group in groups.items():
+        for i in range(0, len(group), cap):
+            chunk = group[i:i + cap]
+            rows = np.array([
+                (p.data_ptr(), g.data_ptr(), *[s.data_ptr() for s in states],
+                 lr.data_ptr(), n, wd)
+                for p, g, states, lr, n, wd in chunk], dtype=_ROWS[kind])
+            err = fn(_KERNEL_DTYPES[p_dtype], _KERNEL_DTYPES[s_dtype],
+                     rows.ctypes.data_as(entry), len(chunk), *args, stream)
+            if err != 0:
+                raise RuntimeError(f"fused {kind} kernel launch failed: CUDA "
+                                   f"error {err}")
+            launches[kind] += 1
+            torch.autograd.graph.increment_version(
+                [t for p, _, states, _, _, _ in chunk for t in (p, *states)])
+
+
+def sgd_momentum_update_multi(entries, *, momentum, dampening=0.0,
+                              nesterov=False):
+    """Fused ``opt.SGD`` momentum update of many parameters, in place.
+    ``entries`` holds one ``(p, g, m, lr, weight_decay)`` per parameter:
+    the parameter, its gradient, its momentum, its own learning rate (a
+    0-d f32 tensor on its device, or a number) and its own weight decay;
+    the other hyperparameters are shared. On the card, kernel K1's
+    multi-tensor launch: one per chunk of ``MULTI_CAPACITY["sgd_multi"]``
+    entries of one (p, m) dtype pair, bitwise-equal to one
+    :func:`sgd_momentum_update` per entry. On the CPU,
+    :func:`sgd_momentum_update` for each entry."""
+    if not entries:
+        return
+    if _on_cpu(entries):
+        for p, g, m, lr, wd in entries:
+            sgd_momentum_update(p, g, m, lr, momentum=momentum,
+                                dampening=dampening, weight_decay=wd,
+                                nesterov=nesterov)
+        return
+    _run_multi("sgd_multi", entries, 1,
+               (float(momentum), float(1.0 - dampening),
+                int(bool(nesterov))))
+
+
+def adam_update_multi(entries, bias_corr1, bias_corr2, *, beta_1, beta_2,
+                      epsilon):
+    """Fused ``opt.Adam`` update (no amsgrad) of many parameters, in
+    place. ``entries`` holds one ``(p, g, m, v, lr, weight_decay)`` per
+    parameter; ``bias_corr1/2`` (``1 - beta**t``) and the betas are
+    shared. On the card, kernel K5's multi-tensor launch, one per chunk of
+    ``MULTI_CAPACITY["adam_multi"]`` entries of one dtype pair; on the CPU,
+    :func:`adam_update` for each entry."""
+    if not entries:
+        return
+    if _on_cpu(entries):
+        for p, g, m, v, lr, wd in entries:
+            adam_update(p, g, m, v, lr, bias_corr1, bias_corr2,
+                        beta_1=beta_1, beta_2=beta_2, epsilon=epsilon,
+                        weight_decay=wd)
+        return
+    like = entries[0][0]
+    bc1, bc2 = _scalar(bias_corr1, like), _scalar(bias_corr2, like)
+    _run_multi("adam_multi", entries, 2,
+               (bc1.data_ptr(), bc2.data_ptr(), float(beta_1),
+                float(1.0 - beta_1), float(beta_2), float(1.0 - beta_2),
+                float(epsilon)))

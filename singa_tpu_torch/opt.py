@@ -19,7 +19,13 @@ its plain version on the CPU. A parameter with a regularizer or a
 constraint, or one that is not floating point, declines to the plain
 chain below, per parameter, as the JAX package does. Unlike the JAX
 package there is no size gate (``MIN_FUSED_ELEMS``): on the card every
-eligible parameter goes to the kernel.
+eligible parameter goes to the kernel. A training step
+(:meth:`Optimizer.backward_and_update`) gathers the eligible parameters of
+``SGD`` (with momentum) and ``Adam`` (without amsgrad) into one
+multi-tensor call (``sgd_momentum_update_multi`` / ``adam_update_multi``:
+a few launches for the whole model), and sends every other parameter
+through :meth:`Optimizer.apply`, which updates one parameter and keeps
+the per-tensor kernels.
 
 The loss scale is held at 1.0: dynamic loss scaling
 (``resilience.GuardedOptimizer``) comes with ``bf16_mixed`` training
@@ -76,6 +82,17 @@ class ExponentialDecay(DecayScheduler):
         if self.staircase:
             e = torch.floor(e)
         return torch.pow(self.decay_rate, e) * self.init_value
+
+
+def _grad_data(grad):
+    return grad.data if isinstance(grad, Tensor) else grad
+
+
+def _grad_as(grad, p):
+    """The gradient in ``p``'s dtype, as :meth:`Optimizer.apply` casts it
+    (without the cost of a ``to`` call when it already is)."""
+    g = _grad_data(grad)
+    return g if g.dtype == p.dtype else g.to(p.dtype)
 
 
 class Regularizer:
@@ -220,24 +237,49 @@ class Optimizer:
         self.backward_and_update(loss)
 
     def backward_and_update(self, loss):
-        for p, g in autograd_base.backward(loss):
-            self.apply(p.name or f"param/{id(p)}", p, g)
+        self.update_params(autograd_base.backward(loss))
         self.step()
+
+    def update_params(self, pairs):
+        """Update each parameter in place from its ``(param, grad)`` pair
+        (what ``autograd_base.backward`` yields): the ones that take a
+        multi-tensor kernel (:meth:`_multi_entry`) together in one call,
+        every other one through :meth:`apply`, with the same state names
+        and the same results. The step counter does not move."""
+        entries = []
+        for p, g in pairs:
+            name = p.name or f"param/{id(p)}"
+            entry = self._multi_entry(name, p, g)
+            if entry is None:
+                self.apply(name, p, g)
+            else:
+                entries.append(entry)
+        if entries:
+            with torch.no_grad():
+                self._update_multi(entries)
 
     def step(self):
         with torch.no_grad():
             self.step_counter.data.add_(1.0)
 
     def apply(self, param_name, param_value, param_grad):
-        """Update ``param_value`` in place from ``param_grad``."""
+        """Update ``param_value`` in place from ``param_grad``, alone (the
+        fused optimizers through their per-tensor kernels)."""
         self._bound(param_value)
-        grad = param_grad.data if isinstance(param_grad, Tensor) \
-            else param_grad
         with torch.no_grad():
             self._update(param_name, param_value,
-                         grad.to(param_value.dtype))
+                         _grad_data(param_grad).to(param_value.dtype))
 
     def _update(self, name, p, grad):
+        raise NotImplementedError
+
+    def _multi_entry(self, name, p, grad):
+        """The entry of ``name``'s update in the step's multi-tensor call,
+        or None where :meth:`apply` updates it alone (the base class: every
+        parameter)."""
+        return None
+
+    def _update_multi(self, entries):
         raise NotImplementedError
 
     # -- state ------------------------------------------------------------
@@ -285,8 +327,9 @@ class Optimizer:
 
 class SGD(Optimizer):
     """SGD with momentum, dampening, nesterov and weight decay.
-    ``fused=True`` sends each eligible momentum update through kernel K1
-    (a momentum-less SGD has no state to fuse with)."""
+    ``fused=True`` sends each eligible momentum update through kernel K1,
+    a training step's all in one multi-tensor call (a momentum-less SGD
+    has no state to fuse with)."""
 
     def __init__(self, lr=0.1, momentum=0.0, dampening=0.0,
                  weight_decay=0.0, nesterov=False, fused=False):
@@ -300,10 +343,27 @@ class SGD(Optimizer):
             raise ValueError(
                 "Nesterov momentum requires momentum>0 and dampening=0")
 
-    def _update(self, name, p, grad):
-        wd = self.weight_decay \
+    def _weight_decay(self, name):
+        return self.weight_decay \
             if self.weight_decay != 0 and \
             self.should_apply_weight_decay(name) else 0.0
+
+    def _multi_entry(self, name, p, grad):
+        if self.momentum == 0 or not self._fused_ok(name, p):
+            return None
+        self._bound(p)
+        return (p.data, _grad_as(grad, p),
+                self._get_aux(f"{name}:momentum", p).data,
+                self._scaled_lr(name), self._weight_decay(name))
+
+    def _update_multi(self, entries):
+        from .ops import fused_optim
+        fused_optim.sgd_momentum_update_multi(
+            entries, momentum=self.momentum, dampening=self.dampening,
+            nesterov=self.nesterov)
+
+    def _update(self, name, p, grad):
+        wd = self._weight_decay(name)
         if self.momentum != 0 and self._fused_ok(name, p):
             from .ops import fused_optim
             buf = self._get_aux(f"{name}:momentum", p)
@@ -384,8 +444,9 @@ class AdaGrad(Optimizer):
 
 class Adam(Optimizer):
     """Adam (with amsgrad). ``fused=True``: kernel K5 for each eligible
-    param; amsgrad keeps the plain path (its running max is a fourth
-    state the kernel does not carry)."""
+    param, a training step's all in one multi-tensor call; amsgrad keeps
+    the plain path (its running max is a fourth state the kernel does not
+    carry)."""
 
     def __init__(self, lr=0.001, beta_1=0.9, beta_2=0.999, epsilon=1e-8,
                  weight_decay=0.0, amsgrad=False, fused=False):
@@ -405,6 +466,21 @@ class Adam(Optimizer):
             return (1 - torch.pow(self.beta_1, t),
                     1 - torch.pow(self.beta_2, t))
         return self._per_step("bias_corrections", make)
+
+    def _multi_entry(self, name, p, grad):
+        if self.amsgrad or not self._fused_ok(name, p):
+            return None
+        self._bound(p)
+        return (p.data, _grad_as(grad, p), self._get_aux(f"{name}:m", p).data,
+                self._get_aux(f"{name}:v", p).data, self._scaled_lr(name),
+                self.weight_decay)
+
+    def _update_multi(self, entries):
+        from .ops import fused_optim
+        bc1, bc2 = self._bias_corrections()
+        fused_optim.adam_update_multi(
+            entries, bc1, bc2, beta_1=self.beta_1, beta_2=self.beta_2,
+            epsilon=self.epsilon)
 
     def _update(self, name, p, grad):
         bc1, bc2 = self._bias_corrections()

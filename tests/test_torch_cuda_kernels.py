@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: K2 (``ops/fused_epilogue.py``), K1, K5, K6, K7
-(``ops/fused_optim.py``) and K3, K4 (``ops/attention.py``).
+card: K2 (``ops/fused_epilogue.py``), K1, K5, K6, K7 and the
+multi-tensor K1 and K5 launches (``ops/fused_optim.py``) and K3, K4
+(``ops/attention.py``).
 
 Marked ``cuda``: the kernels have no CPU mode, so each case skips with a
 reason where ``torch.cuda.is_available()`` is false. This file imports
@@ -13,7 +14,8 @@ The kernels multiply and add without contraction (``__fmul_rn`` /
 ``__fadd_rn`` and the other ``_rn`` intrinsics), so each result is
 bitwise-equal to its plain version: K2 in f32 and, rounded once from the
 same f32 value, in bf16; the optimizer updates for every parameter and
-state type they take. The flash-attention kernels sum in another order
+state type they take, per tensor and multi-tensor (over ResNet-50's 161
+parameter shapes and over a set that crosses a chunk boundary). The flash-attention kernels sum in another order
 than the plain version's matmuls, so they are held within a tolerance:
 1e-4 of the largest reference value in f32, 2e-2 in bf16 (both round one
 f32 result to bf16, so a value may land one bf16 step away).
@@ -148,6 +150,117 @@ def test_a_cuda_tensor_never_reaches_the_plain_version(monkeypatch):
         mine, _, scalars, kw = _optim_case(kind, (1000,), torch.float32,
                                            torch.float32, gen)
         _call(getattr(tfo, _WRAPPERS[kind]), mine, scalars, kw)
+    torch.cuda.synchronize()
+
+
+# -- K1 and K5 multi-tensor launches -----------------------------------------
+
+def _resnet50_shapes():
+    """The 161 parameter shapes of ResNet-50 with 10 classes: 53 convs
+    (OIHW), 53 BN scales and biases, the fc weight and bias."""
+    shapes = [(64, 3, 7, 7), (64,), (64,)]
+    cin = 64
+    for width, blocks in zip((64, 128, 256, 512), (3, 4, 6, 3)):
+        for b in range(blocks):
+            shapes += [(width, cin, 1, 1), (width,), (width,),
+                       (width, width, 3, 3), (width,), (width,),
+                       (4 * width, width, 1, 1), (4 * width,), (4 * width,)]
+            if b == 0:
+                shapes += [(4 * width, cin, 1, 1), (4 * width,),
+                           (4 * width,)]
+            cin = 4 * width
+    return shapes + [(2048, 10), (10,)]
+
+
+_MULTI_SETS = {
+    "resnet50": _resnet50_shapes,
+    # 180 entries: past both chunk capacities, with ragged and tiny ones
+    "chunk_boundary": lambda: [(4099,), (64,), (1,), (3, 3, 3, 5)] * 45,
+}
+_MULTI_KW = {"sgd": dict(momentum=0.9, dampening=0.1),
+             "sgd_nesterov": dict(momentum=0.9, nesterov=True),
+             "adam": dict(beta_1=0.9, beta_2=0.999, epsilon=1e-8)}
+
+
+def _multi_entries(kind, shapes, p_dtype, s_dtype, gen):
+    """Entries ``(p, g, *states, lr, weight_decay)`` with two lr tensors
+    and three weight decays in turn, and their clones."""
+    lrs = [torch.tensor(0.05, device="cuda"),
+           torch.tensor(0.01, device="cuda")]
+    wds = [1e-5, 0.0, 1e-3]
+    mine = []
+    for i, shape in enumerate(shapes):
+        def rand(positive=False):
+            t = torch.randn(shape, generator=gen, device="cuda")
+            return t.abs() if positive else t
+        states = [rand().to(s_dtype)]
+        if kind == "adam":
+            states.append(rand(positive=True).to(s_dtype))
+        mine.append((rand().to(p_dtype), rand(), *states, lrs[i % 2],
+                     wds[i % 3]))
+    plain = [tuple(t.clone() if isinstance(t, torch.Tensor) and t.dim()
+                   else t for t in e) for e in mine]
+    return mine, plain
+
+
+def _run_multi(kind, entries, plain=False):
+    suffix = "_reference" if plain else ""
+    if kind == "adam":
+        bc = (torch.tensor(1 - 0.9 ** 3, device="cuda"),
+              torch.tensor(1 - 0.999 ** 3, device="cuda"))
+        getattr(tfo, "adam_update_multi" + suffix)(entries, *bc,
+                                                   **_MULTI_KW[kind])
+    else:
+        getattr(tfo, "sgd_momentum_update_multi" + suffix)(
+            entries, **_MULTI_KW[kind])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(_MULTI_KW))
+@pytest.mark.parametrize("shapes", sorted(_MULTI_SETS))
+@pytest.mark.parametrize("p_dtype,s_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32)])
+def test_multi_kernel_matches_the_loop_of_plain_versions(kind, shapes,
+                                                         p_dtype, s_dtype):
+    """Bitwise against the plain version of each entry; each written
+    tensor's version goes up; one launch per chunk and none per tensor."""
+    _need_card()
+    import math
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    mine, plain = _multi_entries(kind, _MULTI_SETS[shapes](), p_dtype,
+                                 s_dtype, gen)
+    written = [(e[0],) + e[2:-2] for e in mine]
+    versions = [[t._version for t in w] for w in written]
+    key = "adam_multi" if kind == "adam" else "sgd_multi"
+    before = dict(tfo.launches)
+    _run_multi(kind, mine)
+    _run_multi(kind, plain, plain=True)
+    torch.cuda.synchronize()
+    chunks = math.ceil(len(mine) / tfo.MULTI_CAPACITY[key])
+    assert {k: tfo.launches[k] - before[k] for k in before} == \
+        {**{k: 0 for k in before}, key: chunks}
+    for w, vs, want in zip(written, versions, plain):
+        assert all(t._version > v for t, v in zip(w, vs))
+        for got, ref in zip(w, (want[0],) + want[2:-2]):
+            assert torch.equal(got, ref), \
+                (got.float() - ref.float()).abs().max()
+
+
+@pytest.mark.cuda
+def test_a_cuda_multi_update_never_reaches_a_per_tensor_path(monkeypatch):
+    _need_card()
+    for name in ("sgd_momentum_update", "adam_update",
+                 "sgd_momentum_update_reference", "adam_update_reference"):
+        def refuse(*a, _name=name, **k):
+            raise AssertionError(f"a CUDA multi update reached {_name}")
+        monkeypatch.setattr(tfo, name, refuse)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    for kind in sorted(_MULTI_KW):
+        mine, _ = _multi_entries(kind, [(1000,), (7,)], torch.float32,
+                                 torch.float32, gen)
+        _run_multi(kind, mine)
     torch.cuda.synchronize()
 
 
