@@ -63,15 +63,22 @@ failure exits nonzero:
    K5's multi-tensor launch (3 per step), 161 launches of K6 or K7 per
    step; after Adam, the BN-only update of phase 7 through the
    per-tensor K5 (106 launches);
-9. kernels (flash attention): K3 (``flash_fwd``) and K4's two kernels
+9. kernels (flash attention): the built library's SASS (``cuobjdump``)
+   holds HMMA (tensor-core) instructions in each bf16 kernel (one at
+   least of each of the three) and in no f32 one; K3 (``flash_fwd``) and K4's two kernels
    (``flash_bwd_dq``, ``flash_bwd_dkv``) against their plain versions, in
-   f32 and bf16, causal and not, at the LM's shape B8 H8 S1024 D64, at a
-   ragged S=1000 D=32 and with a position delta, within the stated
-   tolerance (TF32 off); each timed at the main-path shape (causal) with
-   CUDA events, on the device alone (``torch.profiler``), beside its plain
-   version, its bound and ``scaled_dot_product_attention`` (forward, and
-   its backward through autograd: a yardstick the port never calls); a
-   CUDA tensor with D=512 must raise;
+   f32 (CUDA cores) and bf16 (tensor cores), causal and not, at the LM's
+   shape B8 H8 S1024 D64, at a ragged S=1000 D=32 and with a position
+   delta, within the stated tolerances (TF32 off): one scaled by the
+   largest reference value, one per element (each value against its own
+   size and its row's); each timed at the
+   main-path shape (causal) with CUDA events, on the device alone
+   (``torch.profiler``, by its kernel's name), with its achieved TFLOP/s
+   and share of the bound, beside its plain version, its bound and
+   ``scaled_dot_product_attention`` (forward, and its backward through
+   autograd: a yardstick the port never calls), timed as the device time
+   of the kernels each launches, which name its backend; a CUDA tensor
+   with D=512 must raise;
 10. LM eval: ``TransformerLM`` at ``bench.py``'s ``LM_SHAPE`` (d_model 512,
    8 heads, 6 layers, seq 1024, vocab 32000), batch 8, weights from a
    numpy seed: one eval forward through K3 (6 launches) and one with
@@ -86,10 +93,17 @@ failure exits nonzero:
    device memory; then 6 steps under ``compute_dtype=bfloat16``, with the
    multi-tensor update and again with the per-tensor one (102 launches
    per step), their parameters within the same tolerance, step p50/p99
-   and update host time of each.
+   and update host time of each, then the same bf16 steps with the plain
+   attention: the final loss and the loss decrease through K3/K4 within
+   2% of it, and each parameter tensor's update within 20% of its own.
 
 Its last lines are the ``{"kernels": [...]}`` record, the card's name and
-power limit, and ``{"ok": true, "device": {...}}``. The full record also
+power limit, and ``{"ok": true, "device": {...}}``. In that record
+``ms`` and ``plain_ms`` are CUDA-event times of one call, host work
+included; a flash kernel's ``library_ms`` is the device time of the
+kernels that ``scaled_dot_product_attention`` launches (its call time
+with host work is ``library_call_ms`` in the full record), and an
+optimizer's the CUDA-event time of ``torch.optim``'s step. The full record also
 goes to ``chiprun_out/chip_smoke.json``.
 """
 
@@ -128,6 +142,9 @@ REPLACES = {
     "flash_fwd": "singa_tpu/ops/attention.py:324",
     "flash_bwd_dq": "singa_tpu/ops/attention.py:388",
     "flash_bwd_dkv": "singa_tpu/ops/attention.py:424",
+    "flash_fwd_bf16": "singa_tpu/ops/attention.py:324",
+    "flash_bwd_dq_bf16": "singa_tpu/ops/attention.py:388",
+    "flash_bwd_dkv_bf16": "singa_tpu/ops/attention.py:424",
 }
 TRAIN_STEPS = 12            # the fused and the unfused SGD run each
 TIMED_FROM = 2              # steps before this one warm cuDNN and the pool
@@ -143,8 +160,23 @@ LM_PARAMS_PER_STEP = 102    # 16 per block x 6, 2 embeddings, ln_f x 2, head
 # kernel against plain version, as a fraction of the largest reference
 # value: f32 sums run in another order than the plain version's matmuls;
 # bf16 results are rounded once from f32 on both sides, so a value may
-# land one bf16 step (2^-8) away
+# land one bf16 step (2^-8) away, and the tensor-core kernels round P and
+# dS to bf16 before their products, which moves a value by up to about
+# 2^-9 of the largest one
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# a second gate beside FLASH_TOL, per element: |a - b| <= c (|b| + rms(b)),
+# the rms over each row of the reference (one query's out or dq, one
+# key's dk or dv; elem_err). FLASH_TOL scales by the largest value of the
+# whole tensor, which at the LM shape is about the size of a typical value
+# (row or key 0 holds the largest), so a tile of small rows left at zero
+# could pass it; this one holds each row to its own size. The rms of a
+# (batch, head) slice would not: row or key 0 dominates it too. A row's
+# rms is taken as at least 1/64 of its slice's: a row that cancels to
+# nothing (causal dq of row 0: dS = P (dP - delta) with P = 1 and delta =
+# dP) holds f32 noise that differs between the two sides. c is set from
+# the readings of sound runs; flash_gate_check.py shows that planted
+# faults fail it
+FLASH_ELEM_TOL = {"float32": 1e-5, "bfloat16": 0.025}
 # LM logits, kernel attention against the plain one, as a fraction of the
 # largest |logit|: f32 differs only in attention's summation order; under
 # bf16 a one-step difference in an attention output propagates through
@@ -154,9 +186,30 @@ LM_LOGIT_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # tensor |a - b| / |b| (Frobenius): the f32 attention differences above,
 # carried through 8 steps of lr 0.1 with momentum
 LM_PARAM_TOL = 1e-3
-FLASH_KERNEL_NAME = {"flash_fwd": "flash_fwd_kernel",
-                     "flash_bwd_dq": "flash_bwd_dq_kernel",
-                     "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
+# final loss of the bf16 LM run through K3/K4 against the run with the
+# plain attention, relative: both round to bf16 at other places (P and dS
+# on the tensor cores, the outputs only in the plain version)
+LM_BF16_LOSS_TOL = 0.02
+# the loss hardly tells attention's faults apart (on uniform random tokens
+# it falls by fitting the head), so each parameter tensor's update over
+# the bf16 run is held to the plain-attention run's too, per tensor
+# |upd - upd_plain| / |upd_plain|: set from the readings of sound runs
+LM_BF16_UPDATE_TOL = 0.2
+# a tensor the plain run leaves (almost) unchanged has no update to be
+# held to: the k-projection biases, whose gradient is 0 in exact
+# arithmetic (softmax ignores a shift common to a row's scores), take
+# only rounding noise. Its difference is read against this fraction of
+# the tensor's norm instead
+LM_BF16_UPDATE_FLOOR = 1e-3
+# the kernel each wrapper launches, by input dtype: f32 on the CUDA cores,
+# bf16 on the tensor cores
+FLASH_KERNEL_NAME = {
+    "float32": {"flash_fwd": "flash_fwd_kernel",
+                "flash_bwd_dq": "flash_bwd_dq_kernel",
+                "flash_bwd_dkv": "flash_bwd_dkv_kernel"},
+    "bfloat16": {"flash_fwd": "flash_fwd_mma_kernel",
+                 "flash_bwd_dq": "flash_bwd_dq_mma_kernel",
+                 "flash_bwd_dkv": "flash_bwd_dkv_mma_kernel"}}
 # the optimizer settings of each kernel's phases: (the wrapper, its
 # keyword arguments, the number of states, bytes moved per f32 element,
 # f32 operations per element)
@@ -220,12 +273,13 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, match, iters=20, attempts=3):
-    """Mean device time per call of ``fn``: the durations of the kernels
-    whose name contains ``match``, from ``torch.profiler``, over ``iters``
-    calls after a warm-up one. Host time between launches is not in it.
-    A profiler session that records no device event at all (seen now and
-    then on the card's machine) is repeated, up to ``attempts`` sessions."""
+def device_kernels(fn, match="", iters=20, attempts=3):
+    """Device ms per call of ``fn``, by kernel name, for the kernels whose
+    name contains ``match`` (every kernel by default), from
+    ``torch.profiler`` over ``iters`` calls after a warm-up one. Host time
+    between launches is not in it. A profiler session that records no such
+    kernel (a session with no device event at all is seen now and then on
+    the card's machine) is repeated, up to ``attempts`` sessions."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -236,15 +290,24 @@ def device_ms(fn, match, iters=20, attempts=3):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and match in e.name]
-        if us:
-            return sum(us) / 1e3 / iters
+        ms = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA \
+                    and match in e.name:
+                ms[e.name] = ms.get(e.name, 0.0) \
+                    + e.time_range.elapsed_us() / 1e3 / iters
+        if ms:
+            return ms
         print(f"profiler session {attempt + 1} saw no {match} kernel",
               flush=True)
     raise SmokeFailure(f"the profiler saw no {match} kernel in {attempts} "
                        "sessions")
+
+
+def device_ms(fn, match, iters=20, attempts=3):
+    """Mean device time per call of ``fn`` in the kernels whose name
+    contains ``match`` (:func:`device_kernels`)."""
+    return sum(device_kernels(fn, match, iters, attempts).values())
 
 
 def bound(n, c, itemsize, residual):
@@ -1009,31 +1072,48 @@ def flash_pairs(B, H, Sq, Sk, causal):
     return B * H * rows
 
 
-def flash_bound(kind, q, k, causal):
-    """Least time of one call: each input read once and each output
-    written once over the HBM rate, or its flops over the f32 (f32 inputs)
-    or bf16 (bf16 inputs: their products are exact in f32, as on the
-    tensor cores) peak; the larger."""
+def flash_work(kind, q, k, causal):
+    """(flops, bytes) of one call: 4·D (K3), 6·D (dQ) or 8·D (dK/dV)
+    flops per unmasked (q, k) pair; each input read once and each output
+    written once."""
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     it = q.element_size()
     pairs = flash_pairs(B, H, Sq, Sk, causal)
     qb, kb, rows = B * H * Sq * D * it, B * H * Sk * D * it, B * H * Sq * 4
     if kind == "flash_fwd":
-        flops, nbytes = 4 * D * pairs, 2 * qb + 2 * kb + rows
-    elif kind == "flash_bwd_dq":
-        flops, nbytes = 6 * D * pairs, 3 * qb + 2 * kb + 2 * rows
-    else:
-        flops, nbytes = 8 * D * pairs, 2 * qb + 4 * kb + 2 * rows
-    peak = F32_FLOPS_PER_S if it == 4 else BF16_FLOPS_PER_S
+        return 4 * D * pairs, 2 * qb + 2 * kb + rows
+    if kind == "flash_bwd_dq":
+        return 6 * D * pairs, 3 * qb + 2 * kb + 2 * rows
+    return 8 * D * pairs, 2 * qb + 4 * kb + 2 * rows
+
+
+def flash_bound(kind, q, k, causal):
+    """Least time of one call: its bytes over the HBM rate, or its flops
+    over the f32 (f32 inputs) or bf16 (bf16 inputs: their products are
+    exact in f32, as on the tensor cores) peak; the larger."""
+    flops, nbytes = flash_work(kind, q, k, causal)
+    peak = F32_FLOPS_PER_S if q.element_size() == 4 else BF16_FLOPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def flash_case(dev, B, H, Sq, Sk, D, dtype, causal, pos_delta=None, seed=0):
-    """K3 and K4 against their plain versions on the same inputs; returns
-    the record and the inputs."""
+def elem_err(a, b):
+    """The per-element reading of FLASH_ELEM_TOL: the largest |a - b| /
+    (|b| + rms(b)), the rms over each row of ``b`` (its head dim), at
+    least 1/64 of the rms of the row's (batch, head) slice."""
+    import torch
+    a, b = a.float(), b.float()
+    sq = b.pow(2)
+    rms = torch.maximum(sq.mean(dim=-1, keepdim=True),
+                        sq.mean(dim=(-2, -1), keepdim=True) / 64 ** 2).sqrt()
+    return ((a - b).abs() / (b.abs() + rms).clamp_min(1e-30)).max().item()
+
+
+def flash_run(dev, B, H, Sq, Sk, D, dtype, causal, pos_delta=None, seed=0):
+    """K3 and K4 and their plain versions on the same inputs; returns
+    ``{output: (kernel's, plain)}`` and the inputs."""
     import torch
     from singa_tpu_torch.ops import attention as at
     gen = torch.Generator(device=dev.torch_device)
@@ -1050,41 +1130,73 @@ def flash_case(dev, B, H, Sq, Sk, D, dtype, causal, pos_delta=None, seed=0):
         want = at._scan_flash_bwd(q, k, v, out, lse, g, causal, scale)
         got.update(zip(("dq", "dk", "dv"), zip(grads, want)))
     torch.cuda.synchronize()
-    check(all(a.dtype == b.dtype for a, b in got.values()),
-          "flash: a kernel output's dtype differs from the plain version's")
-    name = str(dtype).split(".")[-1]
-    tol = FLASH_TOL[name]
-    errs = {}
+    return got, (q, k, v, g, out, lse, scale)
+
+
+def flash_readings(got, name):
+    """Each output's readings for both gates, and what fails them as
+    ``(gate, message)``: ``max_abs_err`` against FLASH_TOL x max(1,
+    max|ref|) (lse always at the f32 limit, over the rows not fully
+    masked), ``elem_err`` against FLASH_ELEM_TOL (out, dq, dk, dv)."""
+    import torch
+    errs, elem, failed = {}, {}, []
     for what, (a, b) in got.items():
-        t = tol if what != "lse" else FLASH_TOL["float32"]
+        t = FLASH_TOL[name] if what != "lse" else FLASH_TOL["float32"]
+        if a.dtype != b.dtype or a.shape != b.shape:
+            failed.append(("FLASH_TOL", f"{what}: {a.dtype} {tuple(a.shape)}"
+                           f" against {b.dtype} {tuple(b.shape)}"))
+            continue
+        if what != "lse":
+            elem[what] = elem_err(a, b)
+            if not elem[what] <= FLASH_ELEM_TOL[name]:
+                failed.append(("FLASH_ELEM_TOL", f"{what}: per-element "
+                               f"reading {elem[what]:.4g} (tolerance "
+                               f"{FLASH_ELEM_TOL[name]})"))
         a, b = a.float(), b.float()
         if what == "lse":
             # a fully masked row (pos_delta) has lse -1e30 on both sides;
             # the tolerance is taken over the other rows
             live = b > -1e29
-            check(bool((a[~live] <= -1e29).all()),
-                  "flash: a fully masked row has a finite lse")
+            if not bool((a[~live] <= -1e29).all()):
+                failed.append(("FLASH_TOL",
+                               "lse: a fully masked row has a finite lse"))
             a, b = a[live], b[live]
         ref = max(1.0, b.abs().max().item()) if b.numel() else 1.0
-        err = (a - b).abs().max().item() if b.numel() else 0.0
-        errs[what] = err
-        check(a.shape == b.shape and torch.isfinite(a).all().item()
-              and err <= t * ref,
-              f"flash B{B} H{H} Sq{Sq} Sk{Sk} D{D} {name} causal={causal} "
-              f"pos_delta={pos_delta}: {what} differs from the plain "
-              f"version by {err} (tolerance {t} x {ref})")
+        errs[what] = (a - b).abs().max().item() if b.numel() else 0.0
+        if not (torch.isfinite(a).all().item() and errs[what] <= t * ref):
+            failed.append(("FLASH_TOL", f"{what}: max_abs_err {errs[what]} "
+                           f"(tolerance {t} x {ref})"))
+    return errs, elem, failed
+
+
+def flash_case(dev, B, H, Sq, Sk, D, dtype, causal, pos_delta=None, seed=0):
+    """K3 and K4 against their plain versions on the same inputs, at both
+    gates; returns the record and the inputs."""
+    name = str(dtype).split(".")[-1]
+    got, inputs = flash_run(dev, B, H, Sq, Sk, D, dtype, causal, pos_delta,
+                            seed)
+    errs, elem, failed = flash_readings(got, name)
+    check(not failed, f"flash B{B} H{H} Sq{Sq} Sk{Sk} D{D} {name} "
+          f"causal={causal} pos_delta={pos_delta} differs from the plain "
+          f"version: " + "; ".join(m for _, m in failed))
+    tol = FLASH_TOL[name]
     rec = {"shape": [B, H, Sq, Sk, D], "dtype": name, "causal": causal,
-           "pos_delta": pos_delta, "max_abs_err": errs, "tolerance": tol}
+           "pos_delta": pos_delta, "max_abs_err": errs, "tolerance": tol,
+           "elem_err": elem, "elem_tolerance": FLASH_ELEM_TOL[name]}
     print(f"kernel flash B{B} H{H} Sq{Sq} Sk{Sk} D{D} {name} causal={causal}"
           f" pos_delta={pos_delta}: max_abs_err "
           + " ".join(f"{w}={e:.3g}" for w, e in errs.items())
-          + f" (tolerance {tol} x max(1, max|ref|))", flush=True)
-    return rec, (q, k, v, g, out, lse, scale)
+          + f" (tolerance {tol} x max(1, max|ref|)); per element "
+          + " ".join(f"{w}={e:.3g}" for w, e in elem.items())
+          + f" (tolerance {FLASH_ELEM_TOL[name]})", flush=True)
+    return rec, inputs
 
 
 def flash_timings(dtype, inputs, causal):
     """Per-call ms of K3, K4-dQ and K4-dKV (CUDA events and device time),
-    the plain versions, the bounds and SDPA's forward and backward."""
+    the plain versions, the bounds and SDPA's forward and backward: the
+    device time of the kernels of each, with the backend they belong to
+    named by those kernels, and the time of the call with its host work."""
     import torch
     import torch.nn.functional as F
     from singa_tpu_torch.ops import attention as at
@@ -1104,33 +1216,91 @@ def flash_timings(dtype, inputs, causal):
     ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
     lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
                                              scale=scale)
-    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=causal, scale=scale))
-    lib_bwd = time_ms(lambda: torch.autograd.grad(
-        lib_out, (ql, kl, vl), g, retain_graph=True))
-    recs = {}
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                              scale=scale)
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_out, (ql, kl, vl), g,
+                                   retain_graph=True)
     name = str(dtype).split(".")[-1]
+    lib = {}
+    for what, fn in (("forward", lib_fwd), ("backward", lib_bwd)):
+        per_kernel = device_kernels(fn)
+        kernels = sorted(per_kernel, key=per_kernel.get, reverse=True)
+        dms = sum(per_kernel.values())
+        lib[what] = {"ms": dms, "call_ms": time_ms(fn), "kernels": kernels}
+        print(f"library {name} scaled_dot_product_attention {what}: "
+              f"{dms:.4f} ms on the device ({lib[what]['call_ms']:.4f} ms "
+              f"per call with its host work); kernels: "
+              + "; ".join(n[:90] for n in kernels), flush=True)
+    recs = {}
     for kind, fn in calls.items():
         bms, by = flash_bound(kind, q, k, causal)
+        flops, _ = flash_work(kind, q, k, causal)
         fwd = kind == "flash_fwd"
+        lw = lib["forward" if fwd else "backward"]
         recs[kind] = {"dtype": name, "shape": list(q.shape), "causal": causal,
                       "ms": time_ms(fn),
-                      "device_ms": device_ms(fn, FLASH_KERNEL_NAME[kind]),
+                      "device_ms": device_ms(fn,
+                                             FLASH_KERNEL_NAME[name][kind]),
+                      "kernel": FLASH_KERNEL_NAME[name][kind],
                       "plain_ms": plain_fwd if fwd else plain_bwd,
                       "plain_note": None if fwd else
                       "the whole plain backward (dq, dk and dv)",
                       "bound_ms": bms, "bound_by": by,
-                      "library_ms": lib_fwd if fwd else lib_bwd,
+                      "library_ms": lw["ms"],
+                      "library_call_ms": lw["call_ms"],
+                      "library_kernels": lw["kernels"],
                       "library": "scaled_dot_product_attention forward"
                       if fwd else "scaled_dot_product_attention backward "
-                      "through autograd (dq, dk and dv)"}
+                      "through autograd (dq, dk and dv)",
+                      "library_note": "device time of the library call's "
+                      "kernels (torch.profiler); library_call_ms adds its "
+                      "host work"}
         r = recs[kind]
+        r["tflops"] = flops / (r["device_ms"] * 1e-3) / 1e12
+        r["bound_share"] = bms / r["device_ms"]
         print(f"kernel {kind} {name} {tuple(q.shape)} causal={causal}: "
-              f"kernel_ms={r['ms']:.4f} (device {r['device_ms']:.4f}) "
-              f"plain_ms={r['plain_ms']:.4f} bound_ms={bms:.4f} ({by}) "
-              f"library_ms={r['library_ms']:.4f} ({r['library']})",
-              flush=True)
+              f"kernel_ms={r['ms']:.4f} (device {r['device_ms']:.4f}, "
+              f"{r['tflops']:.1f} TFLOP/s, {r['bound_share']:.3f} of the "
+              f"bound) plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={bms:.4f} ({by}) library_ms={r['library_ms']:.4f} "
+              f"({r['library']}, device)", flush=True)
     return recs
+
+
+def flash_hmma_counts():
+    """HMMA (tensor-core) instructions of each flash-attention kernel in
+    the built library, by kernel and head-dim bucket, from ``cuobjdump
+    --dump-sass``: every bf16 kernel must have them, no f32 kernel any."""
+    import re
+    from singa_tpu_torch import cuda_build
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run(
+        [tool, "--dump-sass",
+         str(cuda_build.library_path("flash_attention"))],
+        capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"\d(flash_\w+?_kernel)I\S*?Li(\d+)E", line)
+            fn = f"{m.group(1)}<{m.group(2)}>" if m else None
+            if fn:
+                counts[fn] = 0
+        elif fn and "HMMA" in line:
+            counts[fn] += 1
+    for want in FLASH_KERNEL_NAME["bfloat16"].values():
+        check(any(n.startswith(want + "<") for n in counts),
+              f"the flash library has no {want}: {sorted(counts)}")
+    for name, n in counts.items():
+        check((n > 0) == ("_mma_" in name),
+              f"{name} has {n} HMMA instructions")
+    print("sass HMMA instructions per flash kernel: "
+          + " ".join(f"{k}={v}" for k, v in sorted(counts.items())),
+          flush=True)
+    return counts
 
 
 def flash_kernel_phase(dev):
@@ -1150,8 +1320,9 @@ def flash_kernel_phase(dev):
             del inputs
         cases.append(flash_case(dev, 2, 4, 1000, 1000, 32, dtype, True,
                                 seed=1)[0])
-    cases.append(flash_case(dev, B, H, S, S, D, torch.float32, True,
-                            pos_delta=-300, seed=2)[0])
+    for dtype in (torch.float32, torch.bfloat16):
+        cases.append(flash_case(dev, B, H, S, S, D, dtype, True,
+                                pos_delta=-300, seed=2)[0])
     big = torch.zeros(1, 1, 8, 512, device=dev.torch_device)
     try:
         at.flash_fwd(big, big, big, True, 1.0)
@@ -1302,6 +1473,48 @@ def lm_train_run(model, start, tx, ty, steps, per_tensor_update=False):
             [b.elapsed_time(e) for b, e in events], counts, peak, update_ms)
 
 
+def lm_bf16_readings(losses, plain_losses, after, plain, start):
+    """A bf16 LM run through K3/K4 against the same steps with the plain
+    attention: the final loss and the loss decrease, relative, within
+    LM_BF16_LOSS_TOL; for each parameter tensor, the update over the run
+    (``after`` against ``start``, the plain run's: ``plain``; both
+    ``{name: tensor}``), |upd - upd_plain| / max(|upd_plain|,
+    LM_BF16_UPDATE_FLOOR x |start|), within LM_BF16_UPDATE_TOL. Returns
+    the readings and the gates they fail."""
+    import numpy as np
+    import torch
+    upd, size = {}, {}
+    for k, p in plain.items():
+        s0 = torch.as_tensor(start[k], device=p.device).to(p.dtype).float()
+        mine, ref = after[k].float() - s0, p.float() - s0
+        size[k] = (ref.norm() / s0.norm()).item()
+        upd[k] = ((mine - ref).norm() / max(
+            ref.norm().item(), LM_BF16_UPDATE_FLOOR * s0.norm().item())
+        ).item()
+    worst = max(upd, key=upd.get)
+    dec, p_dec = losses[0] - losses[-1], plain_losses[0] - plain_losses[-1]
+    r = {"final_loss_rel": abs(losses[-1] - plain_losses[-1])
+         / abs(plain_losses[-1]),
+         "decrease": dec, "plain_decrease": p_dec,
+         "decrease_rel": abs(dec - p_dec) / abs(p_dec),
+         "update_rel": upd, "update_size": size,
+         "update_rel_max": upd[worst],
+         "update_rel_at": worst}
+    failed = []
+    for what in ("final_loss_rel", "decrease_rel"):
+        if not (np.isfinite(r[what]) and r[what] <= LM_BF16_LOSS_TOL):
+            failed.append(f"{what} {r[what]:.4g} (tolerance "
+                          f"{LM_BF16_LOSS_TOL}; losses {losses} against "
+                          f"{plain_losses})")
+    bad = sorted(k for k, e in upd.items() if not e <= LM_BF16_UPDATE_TOL)
+    if bad:
+        failed.append(f"parameter updates differ by more than "
+                      f"{LM_BF16_UPDATE_TOL} (relative) in {len(bad)} "
+                      f"tensors: " + ", ".join(f"{k}={upd[k]:.3g}"
+                                               for k in bad[:8]))
+    return r, failed
+
+
 def lm_train_phase(dev, tx, ty, start):
     """LM_STEPS f32 steps through K3/K4/K1, the same steps with the plain
     attention, then LM_BF16_STEPS under compute_dtype=bfloat16."""
@@ -1417,10 +1630,41 @@ def lm_train_phase(dev, tx, ty, start):
     check(brel <= LM_PARAM_TOL,
           f"LM train bf16: the multi-tensor and the per-tensor update differ "
           f"by {brel} (relative) after {LM_BF16_STEPS} steps")
+    # the same bf16 steps with the plain attention: the run through the
+    # tensor-core K3/K4 is held to it by lm_bf16_readings
+    at.USE_PLAIN = True
+    try:
+        pb_losses, pb_times, pb_counts, _, _ = lm_train_run(
+            mb, start, tx, ty, LM_BF16_STEPS)
+    finally:
+        at.USE_PLAIN = False
+    check(pb_counts["flash_fwd"] + pb_counts["flash_bwd_dq"]
+          + pb_counts["flash_bwd_dkv"] == 0,
+          f"LM train bf16: the plain run launched {pb_counts}")
+    against, failed = lm_bf16_readings(
+        bf["multi"]["losses"], pb_losses, after,
+        {k: v.data.detach() for k, v in mb.get_params().items()}, start)
+    check(not failed, "LM train bf16 through K3/K4 against the plain "
+          "attention: " + "; ".join(failed))
+    pbt = np.asarray(pb_times[LM_TIMED_FROM:])
     rec["bf16"] = dict(bf["multi"], per_tensor=bf["per_tensor"],
-                       max_param_rel_diff_vs_per_tensor=brel)
+                       max_param_rel_diff_vs_per_tensor=brel,
+                       plain_losses=pb_losses, plain_step_ms=pb_times,
+                       plain_step_p50_ms=float(np.percentile(pbt, 50)),
+                       against_plain=against,
+                       loss_tolerance=LM_BF16_LOSS_TOL,
+                       update_tolerance=LM_BF16_UPDATE_TOL)
     print(f"train LM bf16: multi-tensor against per-tensor update, max "
           f"param rel diff {brel:.3g}", flush=True)
+    print("train LM bf16 losses, K3/K4: "
+          + " ".join(f"{v:.6f}" for v in bf["multi"]["losses"])
+          + " | plain attention: " + " ".join(f"{v:.6f}" for v in pb_losses)
+          + f" | final loss rel diff {against['final_loss_rel']:.3g}, "
+          f"loss decrease rel diff {against['decrease_rel']:.3g} (tolerance "
+          f"{LM_BF16_LOSS_TOL}); parameter updates rel diff max "
+          f"{against['update_rel_max']:.3g} ({against['update_rel_at']}; "
+          f"tolerance {LM_BF16_UPDATE_TOL}); plain step p50 "
+          f"{rec['bf16']['plain_step_p50_ms']:.2f} ms", flush=True)
     del mb
     torch.cuda.empty_cache()
     return rec
@@ -1479,6 +1723,7 @@ def main():
     del models, tx, ty, start
     torch.cuda.empty_cache()
 
+    flash_hmma = flash_hmma_counts()
     flash_cases, flash_times = flash_kernel_phase(dev)
     lm_tx, lm_ty = lm_data(dev)
     lm_start = lm_states(lm_model(dev, lm_tx, train=False), SEED + 4)
@@ -1523,21 +1768,27 @@ def main():
             "ms": step["ms"], "plain_ms": step["plain_ms"],
             "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
             "library_ms": step["library_ms"]})
-    # K3/K4: the f32 causal timings at the LM's shape, launches from the
-    # f32 LM training run, the largest error over every case
+    # K3/K4: the causal timings at the LM's shape, in f32 (launches from the
+    # f32 LM training run) and in bf16 (from the bf16 run with the
+    # multi-tensor update), the largest error over every case of the dtype;
+    # ms is CUDA-event time, library_ms SDPA's device time (device_ms, the
+    # kernel's own device time, is in flash_timings of the full record)
     outputs = {"flash_fwd": ("out", "lse"), "flash_bwd_dq": ("dq",),
                "flash_bwd_dkv": ("dk", "dv")}
-    for kname, t in flash_times["float32"].items():
-        errs = [c["max_abs_err"][w] for c in flash_cases
-                for w in outputs[kname] if w in c["max_abs_err"]]
-        kernels.append({
-            "name": kname, "route": "cuda",
-            "source": "singa_tpu_torch/csrc/flash_attention.cu",
-            "replaces": REPLACES[kname],
-            "launches": lm_train["launches"][kname],
-            "max_abs_err": max(errs), "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    for dname, suffix, run in (("float32", "", lm_train),
+                               ("bfloat16", "_bf16", lm_train["bf16"])):
+        for kname, t in flash_times[dname].items():
+            errs = [c["max_abs_err"][w] for c in flash_cases
+                    if c["dtype"] == dname
+                    for w in outputs[kname] if w in c["max_abs_err"]]
+            kernels.append({
+                "name": kname + suffix, "route": "cuda",
+                "source": "singa_tpu_torch/csrc/flash_attention.cu",
+                "replaces": REPLACES[kname + suffix],
+                "launches": run["launches"][kname],
+                "max_abs_err": max(errs), "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     kind = torch.cuda.get_device_name(0)
     record = {"card": card, "torch": torch.__version__, "build_s": build_s,
               "kernel_cases": cases, "serve_runs": runs,
@@ -1545,6 +1796,7 @@ def main():
               "optim_steps": optim_steps, "train": train,
               "eval_after_training": evaluated, "train_other": others,
               "flash_cases": flash_cases, "flash_timings": flash_times,
+              "flash_sass_hmma": flash_hmma,
               "lm_eval": lm_eval, "lm_train": lm_train,
               "kernels": kernels}
     out_dir = os.path.join(HERE, "chiprun_out")

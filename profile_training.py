@@ -65,7 +65,7 @@ KINDS = (
 # the LM has no convolutions: cuBLAS's kernels (some named xmma) are
 # matrix products
 LM_KINDS = (
-    ("k3", ("flash_fwd_kernel",)),
+    ("k3", ("flash_fwd_kernel", "flash_fwd_mma_kernel")),
     ("k4", ("flash_bwd_",)),
     ("k1", ("sgd_kernel", "sgd_multi_kernel")),
     ("matmul", ("gemm", "cutlass", "gemv", "xmma", "sm90_", "nvjet")),

@@ -27,7 +27,13 @@ The kernels take contiguous (B, H, S, D) tensors, all f32 or all bf16, with
 1 <= D <= 256; the wrappers make their inputs contiguous, which is free for
 the Transformer LM (its head split, ``autograd.transpose``, already copies
 q, k and v into that layout, one copy of each per call) and a copy of each
-otherwise.
+otherwise. What runs depends on the dtype, behind the same wrappers and
+launch counters: f32 inputs reach ``flash_*_kernel``, f32 FMAs on the
+CUDA cores; bf16 inputs reach ``flash_*_mma_kernel``, ``mma.sync``
+products on the tensor cores with f32 sums, where P and dS are rounded to
+bf16 before their products and l (so lse) is summed from the f32 p. The
+plain versions compute in f32 for both dtypes and round only their
+outputs.
 """
 
 from __future__ import annotations

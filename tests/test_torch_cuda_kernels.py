@@ -18,7 +18,9 @@ state type they take, per tensor and multi-tensor (over ResNet-50's 161
 parameter shapes and over a set that crosses a chunk boundary). The flash-attention kernels sum in another order
 than the plain version's matmuls, so they are held within a tolerance:
 1e-4 of the largest reference value in f32, 2e-2 in bf16 (both round one
-f32 result to bf16, so a value may land one bf16 step away).
+f32 result to bf16, so a value may land one bf16 step away), and each
+value within 1e-5 (f32) or 0.025 (bf16) of its own size plus its row's
+rms (chip_smoke.py's per-element gate).
 """
 
 import pytest
@@ -338,3 +340,100 @@ def test_a_cuda_tensor_never_reaches_the_plain_attention(monkeypatch):
     tat.flash_attention(q, k, v, True).backward(g)
     torch.cuda.synchronize()
     assert q.grad is not None and k.grad is not None and v.grad is not None
+
+
+# -- K3, K4 in bf16: the tensor-core kernels ----------------------------------
+
+# per element, beside _near: |got - want| <= c (|want| + rms of the row of
+# want, at least 1/64 of its (batch, head) slice's), as chip_smoke.py's
+# FLASH_ELEM_TOL; _near scales by the largest value of the tensor, so
+# alone it lets a row of small values go wrong
+_ELEM_TOL = {torch.float32: 1e-5, torch.bfloat16: 0.025}
+
+
+def _near_each(got, want, dtype):
+    got, want = got.float(), want.float()
+    sq = want.pow(2)
+    rms = torch.maximum(sq.mean(-1, keepdim=True),
+                        sq.mean((-2, -1), keepdim=True) / 64 ** 2).sqrt()
+    err = ((got - want).abs() / (want.abs() + rms).clamp_min(1e-30)).max()
+    assert err.item() <= _ELEM_TOL[dtype], err.item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("Sq,Sk,D", [(128, 128, 64), (72, 72, 16),
+                                     (100, 100, 100), (40, 130, 130),
+                                     (130, 40, 32), (64, 64, 256)], ids=str)
+def test_flash_kernels_match_plain_version_per_element(Sq, Sk, D, causal,
+                                                       dtype):
+    """K3's out and K4's (dq, dk, dv) against the plain versions, each
+    value within _ELEM_TOL of its own size and its row's."""
+    _need_card()
+    q, k, v, g = _attn_inputs(2, 3, Sq, Sk, D, dtype)
+    scale = D ** -0.5
+    out, lse = tat.flash_fwd(q, k, v, causal, scale)
+    grads = tat.flash_bwd(q, k, v, out, lse, g, causal, scale)
+    ro, _ = tat._scan_flash_fwd(q, k, v, causal, scale)
+    want = tat._scan_flash_bwd(q, k, v, out, lse, g, causal, scale)
+    torch.cuda.synchronize()
+    for a, b in zip((out,) + tuple(grads), (ro,) + tuple(want)):
+        _near_each(a, b, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("delta", [-40, 0, 24])
+def test_flash_fwd_bf16_pos_delta_matches_plain_version(delta):
+    """The bf16 forward (tensor cores) under a position delta: -40 masks
+    the first 40 rows fully (out 0, lse -1e30 on both sides)."""
+    _need_card()
+    q, k, v, _ = _attn_inputs(1, 2, 96, 96, 32, torch.bfloat16, seed=1)
+    out, lse = tat.flash_fwd(q, k, v, True, 0.2, pos_delta=delta)
+    ro, rl = tat._scan_flash_fwd(q, k, v, True, 0.2, pos_delta=delta)
+    torch.cuda.synchronize()
+    _near(out, ro, torch.bfloat16)
+    _near_each(out, ro, torch.bfloat16)
+    _near(lse, rl, torch.float32)
+    if delta < 0:
+        assert torch.all(out[:, :, :-delta] == 0)
+        assert torch.all(lse[:, :, :-delta] <= -1e29)
+
+
+_KERNEL_NAMES = {
+    torch.bfloat16: ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
+                     "flash_bwd_dkv_mma_kernel"),
+    torch.float32: ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                    "flash_bwd_dkv_kernel")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_each_wrapper_runs_the_kernel_of_its_dtype(dtype):
+    """By the kernels' names in the profiler: a bf16 call of flash_fwd,
+    flash_bwd_dq and flash_bwd_dkv runs the tensor-core kernel, an f32
+    call the CUDA-core one, and nothing else of the other dtype."""
+    _need_card()
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v, g = _attn_inputs(1, 2, 128, 128, 64, dtype)
+    out, lse = tat.flash_fwd(q, k, v, True, 0.125)
+    delta = (g.float() * out.float()).sum(-1)
+    calls = (lambda: tat.flash_fwd(q, k, v, True, 0.125),
+             lambda: tat.flash_bwd_dq(q, k, v, g, lse, delta, True, 0.125),
+             lambda: tat.flash_bwd_dkv(q, k, v, g, lse, delta, True, 0.125))
+    other = _KERNEL_NAMES[torch.float32 if dtype == torch.bfloat16
+                          else torch.bfloat16]
+    for fn, want in zip(calls, _KERNEL_NAMES[dtype]):
+        torch.cuda.synchronize()
+        for _ in range(3):  # a session may record no device event at all
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+            if names:
+                break
+        ours = [n for n in names if "flash_" in n]
+        assert len(ours) == 1 and want + "<" in ours[0], (want, names)
+        assert not any(o + "<" in n for o in other for n in names), names
