@@ -65,10 +65,13 @@ failure exits nonzero:
    per-tensor K5 (106 launches);
 9. kernels (flash attention): the built library's SASS (``cuobjdump``)
    holds HMMA (tensor-core) instructions in each bf16 kernel (one at
-   least of each of the three) and in no f32 one; K3 (``flash_fwd``) and K4's two kernels
+   least of each of the three) and in no f32 one; each f32 kernel
+   instance's registers, local memory (none may spill) and shared memory
+   (``cudaFuncGetAttributes``); K3 (``flash_fwd``) and K4's two kernels
    (``flash_bwd_dq``, ``flash_bwd_dkv``) against their plain versions, in
    f32 (CUDA cores) and bf16 (tensor cores), causal and not, at the LM's
-   shape B8 H8 S1024 D64, at a ragged S=1000 D=32 and with a position
+   shape B8 H8 S1024 D64, at a ragged S=1000 D=32, at S=333 D=30 (the
+   narrow load path of each dtype) and with a position
    delta, within the stated tolerances (TF32 off): one scaled by the
    largest reference value, one per element (each value against its own
    size and its row's); each timed at the
@@ -77,8 +80,10 @@ failure exits nonzero:
    and share of the bound, beside its plain version, its bound and
    ``scaled_dot_product_attention`` (forward, and its backward through
    autograd: a yardstick the port never calls), timed as the device time
-   of the kernels each launches, which name its backend; a CUDA tensor
-   with D=512 must raise;
+   of the kernels each launches, which name its backend; in f32 SDPA's
+   backward and K4 are timed in alternation over 5 rounds (median and
+   spread; K4's library_ms is SDPA's median); a CUDA tensor with D=512
+   must raise;
 10. LM eval: ``TransformerLM`` at ``bench.py``'s ``LM_SHAPE`` (d_model 512,
    8 heads, 6 layers, seq 1024, vocab 32000), batch 8, weights from a
    numpy seed: one eval forward through K3 (6 launches) and one with
@@ -201,6 +206,8 @@ LM_BF16_UPDATE_TOL = 0.2
 # only rounding noise. Its difference is read against this fraction of
 # the tensor's norm instead
 LM_BF16_UPDATE_FLOOR = 1e-3
+# rounds of SDPA's f32 backward against K4 f32, in alternation
+YARDSTICK_ROUNDS = 5
 # the kernel each wrapper launches, by input dtype: f32 on the CUDA cores,
 # bf16 on the tensor cores
 FLASH_KERNEL_NAME = {
@@ -1235,6 +1242,9 @@ def flash_timings(dtype, inputs, causal):
               f"{dms:.4f} ms on the device ({lib[what]['call_ms']:.4f} ms "
               f"per call with its host work); kernels: "
               + "; ".join(n[:90] for n in kernels), flush=True)
+    if name == "float32":
+        lib["backward"]["rounds"] = yardstick_rounds(lib_bwd, calls)
+        lib["backward"]["ms"] = lib["backward"]["rounds"]["sdpa_median"]
     recs = {}
     for kind, fn in calls.items():
         bms, by = flash_bound(kind, q, k, causal)
@@ -1271,6 +1281,39 @@ def flash_timings(dtype, inputs, causal):
     return recs
 
 
+def yardstick_rounds(lib_bwd, calls, rounds=YARDSTICK_ROUNDS):
+    """SDPA's backward and K4 (dQ + dK/dV), device time of their kernels,
+    in alternation over ``rounds`` rounds (SDPA first in even rounds, K4
+    first in odd ones): each one's readings, median and spread."""
+    import statistics
+    sdpa, k4 = [], []
+
+    def k4_ms():
+        return (device_ms(calls["flash_bwd_dq"],
+                          FLASH_KERNEL_NAME["float32"]["flash_bwd_dq"])
+                + device_ms(calls["flash_bwd_dkv"],
+                            FLASH_KERNEL_NAME["float32"]["flash_bwd_dkv"]))
+    for r in range(rounds):
+        for which in (("sdpa", "k4") if r % 2 == 0 else ("k4", "sdpa")):
+            if which == "sdpa":
+                sdpa.append(sum(device_kernels(lib_bwd).values()))
+            else:
+                k4.append(k4_ms())
+    out = {"sdpa": sdpa, "k4": k4,
+           "sdpa_median": statistics.median(sdpa),
+           "k4_median": statistics.median(k4),
+           "sdpa_spread": max(sdpa) - min(sdpa),
+           "k4_spread": max(k4) - min(k4)}
+    print(f"yardstick float32 backward over {rounds} alternating rounds, "
+          f"device ms: SDPA median {out['sdpa_median']:.4f} spread "
+          f"{out['sdpa_spread']:.4f} ({' '.join(f'{x:.4f}' for x in sdpa)});"
+          f" K4 (dQ + dK/dV) median {out['k4_median']:.4f} spread "
+          f"{out['k4_spread']:.4f} ({' '.join(f'{x:.4f}' for x in k4)}); "
+          f"K4 / SDPA {out['k4_median'] / out['sdpa_median']:.3f}",
+          flush=True)
+    return out
+
+
 def flash_hmma_counts():
     """HMMA (tensor-core) instructions of each flash-attention kernel in
     the built library, by kernel and head-dim bucket, from ``cuobjdump
@@ -1303,6 +1346,36 @@ def flash_hmma_counts():
     return counts
 
 
+def flash_f32_resources():
+    """Registers and local memory per thread (``cudaFuncGetAttributes``)
+    and dynamic shared memory per block of each f32 flash kernel instance
+    (K3, K4-dQ, K4-dKV at DMAX 64, 128, 256); local memory means spills,
+    and none may have it."""
+    import ctypes
+    from singa_tpu_torch import cuda_build
+    fn = cuda_build.load("flash_attention").singa_flash_f32_resources
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int)]
+    res = {}
+    for which, kind in enumerate(FLASH_KERNEL_NAME["float32"].values()):
+        for dmax in (64, 128, 256):
+            out = (ctypes.c_int * 3)()
+            err = fn(which, dmax, out)
+            check(err == 0, f"cudaFuncGetAttributes of {kind}<{dmax}>: "
+                  f"CUDA error {err}")
+            res[f"{kind}<{dmax}>"] = {"registers": out[0],
+                                      "local_bytes": out[1],
+                                      "smem_bytes": out[2]}
+    print("f32 flash kernels (registers / local bytes / dynamic shared "
+          "bytes): " + " ".join(f"{n}={r['registers']}/{r['local_bytes']}/"
+                                f"{r['smem_bytes']}"
+                                for n, r in res.items()), flush=True)
+    spilled = [n for n, r in res.items() if r["local_bytes"]]
+    check(not spilled, f"f32 flash kernels with local memory: {spilled}")
+    return res
+
+
 def flash_kernel_phase(dev):
     """K3/K4 against their plain versions in every case, timed at the
     main-path shape; a head dim above 256 must raise."""
@@ -1320,6 +1393,8 @@ def flash_kernel_phase(dev):
             del inputs
         cases.append(flash_case(dev, 2, 4, 1000, 1000, 32, dtype, True,
                                 seed=1)[0])
+        cases.append(flash_case(dev, 2, 4, 333, 333, 30, dtype, True,
+                                seed=3)[0])
     for dtype in (torch.float32, torch.bfloat16):
         cases.append(flash_case(dev, B, H, S, S, D, dtype, True,
                                 pos_delta=-300, seed=2)[0])
@@ -1724,6 +1799,7 @@ def main():
     torch.cuda.empty_cache()
 
     flash_hmma = flash_hmma_counts()
+    flash_res = flash_f32_resources()
     flash_cases, flash_times = flash_kernel_phase(dev)
     lm_tx, lm_ty = lm_data(dev)
     lm_start = lm_states(lm_model(dev, lm_tx, train=False), SEED + 4)
@@ -1797,6 +1873,7 @@ def main():
               "eval_after_training": evaluated, "train_other": others,
               "flash_cases": flash_cases, "flash_timings": flash_times,
               "flash_sass_hmma": flash_hmma,
+              "flash_f32_resources": flash_res,
               "lm_eval": lm_eval, "lm_train": lm_train,
               "kernels": kernels}
     out_dir = os.path.join(HERE, "chiprun_out")

@@ -1,15 +1,16 @@
-"""Plant faults in copies of the bf16 flash-attention kernels (K3, K4) and
-show which of chip_smoke.py's gates fail each one; the sound source must
-pass them all.
+"""Plant faults in copies of the flash-attention kernels (K3, K4), bf16
+and f32, and show which of chip_smoke.py's gates fail each one; the sound
+source must pass them all.
 
 Each fault is one text edit of ``singa_tpu_torch/csrc/flash_attention.cu``.
 The edited copies are written and built (one ``nvcc`` each, all started
 together) under a temporary directory, never in the package, and each is
 loaded in place of the sound library in turn. Every copy then runs
-chip_smoke.py's bf16 flash cases at the LM shape (B8 H8 S1024 D64, causal
-and not), the ragged case and the ``pos_delta`` case, read at both gates:
-FLASH_TOL (scaled by the largest reference value of the tensor) and
-FLASH_ELEM_TOL (per element). Each copy also runs the bf16 LM training
+chip_smoke.py's flash cases in the dtype of its fault at the LM shape (B8
+H8 S1024 D64, causal and not), the ragged case, the narrow-load case
+(D=30) and the ``pos_delta`` case, read at both gates: FLASH_TOL (scaled
+by the largest reference value of the tensor) and FLASH_ELEM_TOL (per
+element). Each copy with a bf16 fault also runs the bf16 LM training
 steps of chip_smoke.py, held to the plain-attention run at
 LM_BF16_LOSS_TOL and LM_BF16_UPDATE_TOL. The sound library's readings are
 printed for both dtypes, at chip_smoke.py's cases and at the shapes of
@@ -18,6 +19,13 @@ them. Needs one CUDA card; exits 1 if the sound source fails a gate or a
 fault passes every gate:
 
     python3 flash_gate_check.py     # also writes chiprun_out/flash_gate_check.json
+
+With ``--alternatives`` it checks no gate: it builds the design
+alternatives of the f32 kernels in ``ALTERNATIVES`` the same way and
+times each against the sound kernels at the LM shape, causal and not, in
+turns (device time of the kernel, ``torch.profiler``):
+
+    python3 flash_gate_check.py --alternatives  # flash_alternatives.json
 """
 
 import json
@@ -28,7 +36,8 @@ import tempfile
 
 import chip_smoke as cs
 
-# name: (what the fault does, the text it replaces, its replacement)
+# name: (what the fault does, the text it replaces, its replacement), in
+# the bf16 (tensor-core) kernels
 FAULTS = {
     "fwd_no_rescale_last_tile": (
         "K3 skips the alpha rescale of its output sums at the last k tile",
@@ -75,22 +84,130 @@ FAULTS = {
         "const int qstart = nqb;"),
 }
 
+# the same, in the f32 (CUDA-core) kernels
+F32_FAULTS = {
+    "fwd_f32_no_rescale_last_tile": (
+        "K3 f32 skips the alpha rescale of its output sums at the last k "
+        "tile",
+        "      for (int h = 0; h < NH; ++h) {\n        acc[i][h].x *= alpha;",
+        "      for (int h = 0; h < (kt + 1 < kt_end ? NH : 0); ++h) {\n"
+        "        acc[i][h].x *= alpha;"),
+    "fwd_f32_drop_last_k_tile": (
+        "K3 f32 leaves out the last k tile where no causal bound applies",
+        "causal && !has_delta ? min(nkt, (q0 + BM - 1) / BN + 1) : nkt;",
+        "causal && !has_delta ? min(nkt, (q0 + BM - 1) / BN + 1) : nkt - 1;"),
+    "fwd_f32_stage_one_tile_late": (
+        "K3 f32 reads V from the other stage of its double buffer (the "
+        "previous tile's, or the next one's while it arrives) after the "
+        "first tile",
+        "const float* tV = sV + st * BN * LD;\n    const int k0 = kt * BN;\n\n"
+        "    float s[4][NJ];",
+        "const float* tV = sV + (kt ? st ^ 1 : st) * BN * LD;\n"
+        "    const int k0 = kt * BN;\n\n    float s[4][NJ];"),
+    "dq_f32_no_delta": (
+        "K4-dQ f32 leaves delta out of dS",
+        "sw[4 * i * LP + lc + 8 * j] = p * (dp[i][j] - delta_r[i]) * scale;",
+        "sw[4 * i * LP + lc + 8 * j] = p * dp[i][j] * scale;"),
+    "dkv_f32_last_tile_10pct": (
+        "K4-dKV f32 writes dK and dV of the last k/v tile 10% small",
+        "  const float unit[4] = {1.f, 1.f, 1.f, 1.f};\n  store_f32<NW>(dk",
+        "  const float tenth = k0 + BKV >= Sk ? 1.f / 0.9f : 1.f;\n"
+        "  const float unit[4] = {tenth, tenth, tenth, tenth};\n"
+        "  store_f32<NW>(dk"),
+    "f32_4byte_path_off_by_one": (
+        "the f32 4-byte load path (D % 4 != 0 or an unaligned row) reads "
+        "each value from the next column",
+        "ok ? src + (long long)(row0 + r) * D + d : src, ok ? 4 : 0);",
+        "ok && d + 1 < D ? src + (long long)(row0 + r) * D + d + 1 : src,\n"
+        "                ok && d + 1 < D ? 4 : 0);"),
+}
+
+_K3_PV = ("    mul_acc<BN, NH, DMAX>(acc, pw, tV + 4 * lc, 0, D);  "
+          "// acc += P V\n")
+_K3_SCORES = ("    scores<NJ, DMAX>(s, sQ + wr * LD, tK + lc * LD, D);  "
+              "// Q K^T\n")
+_K3_NO_SCORES = ("    for (int i = 0; i < 4; ++i)\n"
+                 "      for (int j = 0; j < NJ; ++j) s[i][j] = tK[lc * LD + j];"
+                 "\n")
+_DKV_PREFETCH = """    if (qt + 1 < nqt) {
+      const int nq0 = (qt + 1) * BQ;
+      load_tile_f32<BQ, DMAX>(sQ + (st ^ 1) * BQ * LD, qb, nq0, Sq, D, vec);
+      load_tile_f32<BQ, DMAX>(sG + (st ^ 1) * BQ * LD, gb, nq0, Sq, D, vec);
+      load_rows<BQ>(sL + (st ^ 1) * BQ, lb, nq0, Sq);
+      load_rows<BQ>(sD + (st ^ 1) * BQ, db, nq0, Sq);
+      cp_async_commit();
+    }
+"""
+_DKV_LAST = ("    mul_acc<BQ, NW, DMAX>(dk_acc, dsw, tQ + c0 + 4 * lc, c0, D);  "
+             "// dS^T Q\n")
+# dK/dV with Q, dO, lse and delta in one stage, reloaded after a barrier
+_DKV_ONE_STAGE = [
+    (_DKV_PREFETCH, ""),
+    ("const int st = (qt - qt0) & 1;", "const int st = 0;"),
+    ("float* sG = sQ + 2 * BQ * LD;", "float* sG = sQ + BQ * LD;"),
+    ("float* sPt = sG + 2 * BQ * LD;", "float* sPt = sG + BQ * LD;"),
+    (_DKV_LAST, _DKV_LAST + "    __syncthreads();\n"
+     + _DKV_PREFETCH.replace(" + (st ^ 1) * BQ * LD", "")
+     .replace(" + (st ^ 1) * BQ", "")),
+    ("((2 * C::BKV + 4 * C::BQ) * C::LD +",
+     "((2 * C::BKV + 2 * C::BQ) * C::LD +"),
+]
+
+# design alternatives, timed against the sound kernels with --alternatives:
+# name: (what it changes, [(text, replacement), ...]); the first three take
+# work out of K3 to show where its time goes (their outputs are wrong)
+ALTERNATIVES = {
+    "k3_no_pv": ("K3 without its P V loop", [(_K3_PV, "")]),
+    "k3_no_scores": ("K3 without its score loop",
+                     [(_K3_SCORES, _K3_NO_SCORES)]),
+    "k3_no_loops": ("K3 with neither loop: copies, softmax, barriers and "
+                    "stores", [(_K3_PV, ""), (_K3_SCORES, _K3_NO_SCORES)]),
+    "exp2f": ("the softmax of K3, K4-dQ and K4-dKV in exp2f of "
+              "log2e-scaled arguments, as the bf16 kernels, not expf", [
+                  ("ok[j] ? expf(s[i][j] - m_new) : 0.f;",
+                   "ok[j] ? exp2f((s[i][j] - m_new) * kLog2e) : 0.f;"),
+                  ("const float alpha = expf(m[i] - m_new);",
+                   "const float alpha = exp2f((m[i] - m_new) * kLog2e);"),
+                  ("ok ? expf(s[i][j] * scale - lse_r[i]) : 0.f;",
+                   "ok ? exp2f((s[i][j] * scale - lse_r[i]) * kLog2e) : 0.f;"),
+                  ("ok ? expf(s[i][j] * scale - tL[qc]) : 0.f;",
+                   "ok ? exp2f((s[i][j] * scale - tL[qc]) * kLog2e) : 0.f;")]),
+    "unroll_full": ("every d and key loop unrolled in full, not by 4",
+                    [("#pragma unroll 4\n", "#pragma unroll\n")]),
+    "k3_bn32": ("K3 k tiles of 32 keys at DMAX 64 (3 blocks per SM)",
+                [("static constexpr int BN = DMAX == 64 ? 64 : 32;",
+                  "static constexpr int BN = 32;")]),
+    "dkv_one_stage": ("dKV with Q, dO, lse and delta in one stage (3 "
+                      "blocks per SM)", _DKV_ONE_STAGE),
+    "dkv_one_stage_bq64": ("dKV with one stage of 64-row q tiles (4 x 8 "
+                           "score tiles, 2 blocks per SM)", _DKV_ONE_STAGE + [
+                               ("static constexpr int BQ = 32;",
+                                "static constexpr int BQ = "
+                                "DMAX == 64 ? 64 : 32;")]),
+}
+
 # the shapes of tests/test_torch_cuda_kernels.py (B2 H3, seed 0)
 TEST_SHAPES = [(128, 128, 64), (72, 72, 16), (100, 100, 100), (40, 130, 130),
                (130, 40, 32), (64, 64, 256)]
 
 
-def build_faults(workdir):
-    """Each fault's library, built from an edited copy of the source."""
+def build_copies(edits, workdir):
+    """``{name: library}``, each built from a copy of the source edited by
+    ``edits[name]``, a list of ``(text, replacement)``: each text must be
+    found in the source, a fault's once."""
     from singa_tpu_torch import cuda_build
     src = (cuda_build.CSRC_DIR / "flash_attention.cu").read_text()
     procs = {}
-    for name, (_, old, new) in FAULTS.items():
-        cs.check(src.count(old) == 1,
-                 f"fault {name}: its text is not found once in the source")
+    for name, pairs in edits.items():
+        text = src
+        for old, new in pairs:
+            n = text.count(old)
+            cs.check(n == 1 or (n > 1 and name in ALTERNATIVES),
+                     f"{name}: its text is found {n} times in the source")
+            text = text.replace(old, new)
         cu = os.path.join(workdir, f"{name}.cu")
         with open(cu, "w") as f:
-            f.write(src.replace(old, new))
+            f.write(text)
         so = os.path.join(workdir, f"lib{name}.so")
         procs[name] = (so, subprocess.Popen(
             [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o", so, cu],
@@ -98,9 +215,59 @@ def build_faults(workdir):
     libs = {}
     for name, (so, proc) in procs.items():
         log, _ = proc.communicate()
-        cs.check(proc.returncode == 0, f"fault {name} did not build:\n{log}")
+        cs.check(proc.returncode == 0, f"{name} did not build:\n{log}")
         libs[name] = so
     return libs
+
+
+def build_faults(workdir):
+    """Each fault's library, built from an edited copy of the source."""
+    return build_copies({name: [(old, new)] for name, (_, old, new)
+                         in {**FAULTS, **F32_FAULTS}.items()}, workdir)
+
+
+def time_alternatives(dev, workdir):
+    """K3, K4-dQ and K4-dKV f32 at the LM shape, causal and not: device
+    ms of the sound build and of each alternative, in turns (sound,
+    alternative, alternative, sound)."""
+    import statistics
+    import torch
+    from singa_tpu_torch import cuda_build
+    from singa_tpu_torch.ops import attention as at
+    libs = build_copies({n: e for n, (_, e) in ALTERNATIVES.items()},
+                        workdir)
+    sound = str(cuda_build.library_path("flash_attention"))
+    B, H, S = cs.LM["batch"], cs.LM["heads"], cs.LM["seq"]
+    D = cs.LM["d_model"] // cs.LM["heads"]
+    names = cs.FLASH_KERNEL_NAME["float32"]
+    out = {}
+    for causal in (True, False):
+        _, inputs = cs.flash_run(dev, B, H, S, S, D, torch.float32, causal)
+        q, k, v, g, o, lse, scale = inputs
+        delta = (g * o).sum(-1)
+        calls = {
+            "flash_fwd": lambda: at.flash_fwd(q, k, v, causal, scale),
+            "flash_bwd_dq": lambda: at.flash_bwd_dq(q, k, v, g, lse, delta,
+                                                    causal, scale),
+            "flash_bwd_dkv": lambda: at.flash_bwd_dkv(q, k, v, g, lse, delta,
+                                                      causal, scale)}
+        for name, so in libs.items():
+            rec = {}
+            for kind, fn in calls.items():
+                r = {"sound": [], "alternative": []}
+                for which in ("sound", "alternative", "alternative",
+                              "sound"):
+                    use_library(sound if which == "sound" else so)
+                    r[which].append(cs.device_ms(fn, names[kind]))
+                rec[kind] = {w: statistics.mean(x) for w, x in r.items()}
+            use_library(sound)
+            out.setdefault(name, {})["causal" if causal else "full"] = rec
+            print(f"alternative {name} ({ALTERNATIVES[name][0]}), "
+                  f"{'causal' if causal else 'not causal'}, device ms "
+                  "sound -> alternative: " + "; ".join(
+                      f"{kind} {r['sound']:.4f} -> {r['alternative']:.4f}"
+                      for kind, r in rec.items()), flush=True)
+    return out
 
 
 def use_library(path):
@@ -118,6 +285,7 @@ def smoke_cases(dtypes):
         for causal in (True, False):
             yield (B, H, S, S, D, dtype, causal, None, 0)
         yield (2, 4, 1000, 1000, 32, dtype, True, None, 1)
+        yield (2, 4, 333, 333, 30, dtype, True, None, 3)
         yield (B, H, S, S, D, dtype, True, -300, 2)
 
 
@@ -220,6 +388,14 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     cuda_build.build()
     dev = device.create_cuda_gpu(0)
+    out_dir = os.path.join(cs.HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    if "--alternatives" in sys.argv[1:]:
+        with tempfile.TemporaryDirectory() as work:
+            alts = time_alternatives(dev, work)
+        with open(os.path.join(out_dir, "flash_alternatives.json"), "w") as f:
+            json.dump(alts, f, indent=1)
+        return 0
     sound_lib = str(cuda_build.library_path("flash_attention"))
     with tempfile.TemporaryDirectory() as work:
         libs = build_faults(work)
@@ -250,33 +426,37 @@ def main():
         record["faults"] = {}
         for name, so in libs.items():
             use_library(so)
+            bf16 = name in FAULTS
+            what = (FAULTS if bf16 else F32_FAULTS)[name][0]
             fc = [case_readings(dev, c) for c in
-                  smoke_cases((torch.bfloat16,))]
-            f_lm = lm()
+                  smoke_cases((torch.bfloat16 if bf16 else torch.float32,))]
+            f_lm = lm() if bf16 else None
             caught = {"FLASH_TOL": [c["case"] for c in fc
                                     if c["fails_max_gate"]],
                       "FLASH_ELEM_TOL": [c["case"] for c in fc
                                          if c["fails_elem_gate"]],
-                      "LM": f_lm["failed"]}
-            record["faults"][name] = {"what": FAULTS[name][0], "cases": fc,
+                      "LM": f_lm["failed"] if bf16 else []}
+            record["faults"][name] = {"what": what, "cases": fc,
                                       "lm": f_lm, "caught": caught}
-            print(f"fault {name} ({FAULTS[name][0]}):", flush=True)
+            print(f"fault {name} ({what}):", flush=True)
             for c in fc:
                 print(f"  {describe(c)}", flush=True)
-            print(f"  LM bf16: final loss rel {f_lm['final_loss_rel']:.3g} "
-                  f"decrease rel {f_lm['decrease_rel']:.3g} updates rel max "
-                  f"{f_lm['update_rel_max']:.3g} ({f_lm['update_rel_at']})"
-                  f" -> {'FAILS' if f_lm['failed'] else 'passes'}",
-                  flush=True)
+            if bf16:
+                print(f"  LM bf16: final loss rel "
+                      f"{f_lm['final_loss_rel']:.3g} decrease rel "
+                      f"{f_lm['decrease_rel']:.3g} updates rel max "
+                      f"{f_lm['update_rel_max']:.3g} "
+                      f"({f_lm['update_rel_at']}) -> "
+                      f"{'FAILS' if f_lm['failed'] else 'passes'}",
+                      flush=True)
             print(f"  caught by FLASH_TOL in {len(caught['FLASH_TOL'])} of "
                   f"{len(fc)} cases, by FLASH_ELEM_TOL in "
                   f"{len(caught['FLASH_ELEM_TOL'])}, by the LM gates: "
-                  f"{bool(caught['LM'])}", flush=True)
+                  f"{bool(caught['LM']) if bf16 else 'not run (f32)'}",
+                  flush=True)
             if not any(caught.values()):
                 bad.append(f"fault {name} passed every gate")
         use_library(sound_lib)
-    out_dir = os.path.join(cs.HERE, "chiprun_out")
-    os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "flash_gate_check.json"), "w") as f:
         json.dump(record, f, indent=1)
     print("flash_gate_check: " + ("; ".join(bad) if bad else "the sound "

@@ -28,18 +28,74 @@
 // k (q) tiles wholly above the diagonal are never loaded.
 //
 // f32 (flash_*_kernel). Every product is an f32 FMA on the CUDA cores (the
-// JAX kernels compute in f32; TF32 would change the result). Bound: at the
-// LM shape (B8 H8 S1024 D64, causal) the work is f32 arithmetic, not
-// bytes: K3 does 4*D flops per unmasked (q, k) pair (8.6 GFLOP) against
-// 34-67 MB of traffic, 0.128 ms at the data sheet's 67 TFLOP/s f32 against
-// 0.010-0.020 ms at 3.35 TB/s; K4 does 6*D (dQ) and 8*D (dK/dV) flops per
-// pair. Design: the TPU grid's sequential k (or q) dimension is a loop
-// inside one block of 256 threads. A block owns a 64-row tile (32 when
-// D > 128); the far-side tiles are staged through shared memory as f32,
-// rows padded to an odd stride so that the column walks are free of bank
-// conflicts; each thread holds a 4x4 (2x2) register tile of scores and
-// RD = DMAX/16 output columns of its rows. The kernels are
-// instruction-bound short of the f32 peak.
+// JAX kernels compute in f32; TF32, or 3xTF32 on the tensor cores, would
+// change the rounding). Bound: at the LM shape (B8 H8 S1024 D64, causal)
+// the work is f32 arithmetic, not bytes: K3 does 4*D flops per unmasked
+// (q, k) pair (8.6 GFLOP, 0.128 ms at the data sheet's 67 TFLOP/s against
+// 0.010-0.020 ms for its 34-67 MB at 3.35 TB/s), K4-dQ 6*D (0.193 ms) and
+// K4-dKV 8*D (0.257 ms). An SM's shared memory hands out 32 floats per
+// clock while the SM does 128 FMAs, so a lane has to do 4 FMAs per float
+// it loads from shared memory to keep the FMA units busy. The timings
+// below behave as if a 16-byte load costs 4 of those clocks (one per
+// quarter-warp) however many lanes share its address: what counts is FMAs
+// per float loaded, and that is set by a lane's register tile.
+// Design:
+// - The TPU grid's sequential k (or q) dimension is a loop inside one block
+//   of 128 threads (4 warps). A lane (lane = 8 lr + lc) owns 4 rows of its
+//   warp's 16 (rows lr + 4 i), keys lc + 8 j of each score tile, and 16-byte
+//   column groups 32 h + 4 lc of the output. Its score tile is 4 x 8 (K3
+//   at DMAX 64) or 4 x 4 (a 32-wide tile), its output tile 4 rows x DMAX/8
+//   columns. FMAs per float loaded: 2.67 in the 4 x 8 score loop, 2 in
+//   the 4 x 4 ones, 2.67 / 3.2 / 3.6 in the P V style products at DMAX 64 /
+//   128 / 256 (the earlier 4 x 4 design: 2 everywhere). 8 x 8 lane tiles
+//   (4 FMAs per float) need nearly all 255 registers and 2-warp blocks at
+//   DMAX 64, which halves the warps per SM; tried, they ran slower. The
+//   4-row tiles keep 8 warps per SM (2 blocks).
+// - Tiles: K3 64 q rows x 64 keys (32 keys above DMAX 64); dQ 64 q rows x
+//   32 keys (16 at DMAX 256); dKV 64 key rows (32 at DMAX 256, where the 4
+//   warps are 2 row groups x 2 halves of the head dim, each warp computing
+//   its row group's P^T and dS^T) x 32 q rows.
+// - Operands are read from shared memory as float4 along the head dim (Q,
+//   K, V, dO tiles) or along the keys (P, dS). Rows have stride DMAX + 4
+//   floats, so every row is 16-byte aligned and rows r and r + 1 start 4
+//   banks apart: in a quarter-warp the 8 lanes read one Q row (one
+//   address) and 8 K rows lc = 0..7 (banks 4 lc..4 lc + 3, all 32), or one
+//   P row and 8 consecutive float4 of a V row. P and dS tiles have stride
+//   BN + 8, 8 banks apart, so a warp's scalar P stores (bank 8 lr + lc +
+//   8 j) hit 32 banks. No access has a bank conflict (counted by hand).
+//   Each warp keeps its own
+//   16 rows of P and dS, so only __syncwarp separates their stores from
+//   their loads.
+// - Loops run to DMAX (steps of 4 at or past D are skipped: their columns
+//   are zero) and over the whole tile (keys past S have p = 0 and zero
+//   rows), unrolled by 4 steps; full unrolling ran slower.
+// - K and V (K3, dQ), Q, dO, lse and delta (dKV) are double-buffered with
+//   16-byte cp.async: one barrier per tile, after which the next tile's
+//   copy goes into the stage the previous tile used. Where D % 4 != 0 or a
+//   pointer is not 16-byte aligned, the tiles are copied by 4-byte
+//   cp.async and the outputs stored as floats (chosen per launch); else
+//   out, dq, dk and dv are stored as float4, 8 lanes per 128-byte row.
+// - p is expf of the same argument as in the plain version, so that both
+//   compute the same p; tiles that need no mask skip it. (exp2f of
+//   log2e-scaled arguments, as in the bf16 kernels, is faster, but dq and
+//   dk, sums that cancel, amplify its last-bit differences: at D = 1 a
+//   value moved past the per-element gate.)
+// - Dynamic shared memory, DMAX 64 / 128 / 256: K3 105,472 / 111,616 /
+//   209,920 bytes; dQ 79,872 / 145,408 / 205,824; dKV 90,624 / 156,160 /
+//   220,672 (2 blocks per SM at DMAX 64). Registers per thread
+//   (cudaFuncGetAttributes, sm_90a; no local memory): K3 163 / 165 / 221,
+//   dQ 128 / 168 / 222, dKV 168 / 250 / 250.
+// - Measured at the LM shape, causal, on an H100 80GB HBM3 at 700 W
+//   (chip_smoke.py; flash_gate_check.py --alternatives, device time): K3
+//   0.3022, dQ 0.4623, dKV 0.6607 ms, 0.43 / 0.42 / 0.39 of the f32 bound
+//   (the earlier design 0.3922 / 0.6049 / 0.7339). Taking K3's score loop or
+//   its P V loop out saves 0.115 ms each (about 40 TFLOP/s in each loop);
+//   taking both out leaves 0.097 ms of copies, softmax, barriers and
+//   stores. Those two, 2-2.67 FMAs per float and the work between the
+//   loops, hold the kernels under half the bound. dKV with Q, dO, lse and
+//   delta in one stage (3 blocks per SM): 0.6581 ms against 0.6888 causal
+//   but 1.3346 against 1.2841 not causal; in one stage of 64-row q tiles
+//   (2 blocks per SM): 0.6594 and 1.2362. Double buffering is kept.
 //
 // bf16 (flash_*_mma_kernel), FlashAttention-2 in shape. Bound at the LM
 // shape: K3 0.0101 ms by bytes (33.8 MB at 3.35 TB/s; 8.6 GFLOP take
@@ -104,407 +160,6 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 256;  // a 16 x 16 grid of threads
-
-struct F32 {
-  using T = float;
-  static __device__ __forceinline__ float to_f(T v) { return v; }
-  static __device__ __forceinline__ T from_f(float f) { return f; }
-};
-
-// tile rows by head-dim bucket: 64 up to D = 128, 32 above (shared memory)
-template <int DMAX>
-struct Cfg {
-  static constexpr int B = DMAX > 128 ? 32 : 64;  // rows of a q or k tile
-  static constexpr int R = B / 16;                // tile rows per thread
-  static constexpr int RD = DMAX / 16;            // head columns per thread
-  static constexpr int LD = DMAX + 1;             // padded row stride
-  static constexpr int LP = B + 1;                // stride of a B x B tile
-};
-
-// rows [row0, row0 + rows) of one (S, D) slice into smem as f32, stride
-// ld; rows past S are zero. The rows are contiguous in memory.
-template <class P>
-__device__ __forceinline__ void load_tile(float* dst,
-                                          const typename P::T* src,
-                                          int row0, int rows, int S, int D,
-                                          int ld) {
-  const int valid = min(rows, S - row0);
-  const int n = rows * D;
-  const int nvalid = valid > 0 ? valid * D : 0;
-  const typename P::T* base = src + (long long)row0 * D;
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    const int r = i / D, d = i - r * D;
-    dst[r * ld + d] = i < nvalid ? P::to_f(base[i]) : 0.f;
-  }
-}
-
-// sum / max over the 16 lanes of a tile row (lanes tx = 0..15 of one ty)
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// ---------------------------------------------------------------- K3 -----
-// grid (B*H, q tiles); the heaviest causal q tiles are dispatched first.
-template <class P, int DMAX>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
-    const typename P::T* __restrict__ q, const typename P::T* __restrict__ k,
-    const typename P::T* __restrict__ v, typename P::T* __restrict__ out,
-    float* __restrict__ lse, int Sq, int Sk, int D, float scale, int causal,
-    int has_delta, int pos_delta) {
-  using C = Cfg<DMAX>;
-  constexpr int BT = C::B, R = C::R, RD = C::RD, LD = C::LD, LP = C::LP;
-  extern __shared__ float smem[];
-  float* sQ = smem;            // BT x LD
-  float* sK = sQ + BT * LD;    // BT x LD
-  float* sV = sK + BT * LD;    // BT x LD
-  float* sP = sV + BT * LD;    // BT x LP
-
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const long long bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BT;
-  const typename P::T* kb = k + bh * Sk * D;
-  const typename P::T* vb = v + bh * Sk * D;
-  load_tile<P>(sQ, q + bh * Sq * D, q0, BT, Sq, D, LD);
-
-  float m[R], l[R], acc[R][RD];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < RD; ++c) acc[i][c] = 0.f;
-  }
-  const int delta = has_delta ? pos_delta : 0;
-  const int nkb = (Sk + BT - 1) / BT;
-  const int kend =
-      (causal && !has_delta) ? min(nkb, (q0 + BT - 1) / BT + 1) : nkb;
-
-  for (int kt = 0; kt < kend; ++kt) {
-    const int k0 = kt * BT;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<P>(sK, kb, k0, BT, Sk, D, LD);
-    load_tile<P>(sV, vb, k0, BT, Sk, D, LD);
-    __syncthreads();
-
-    float s[R][R];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[R], kv[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) qv[i] = sQ[(ty + 16 * i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < R; ++j) kv[j] = sK[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int qpos = q0 + ty + 16 * i + delta;
-      bool ok[R];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        ok[j] = kp < Sk && (!causal || kp <= qpos);
-        s[i][j] = ok[j] ? s[i][j] * scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        sP[(ty + 16 * i) * LP + tx + 16 * j] = p;
-        sum += p;
-      }
-      const float alpha = expf(m[i] - m_new);
-      l[i] = l[i] * alpha + row_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < RD; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
-    const int kn = min(BT, Sk - k0);  // keys past Sk have p = 0
-    for (int c = 0; c < kn; ++c) {
-      float vv[RD];
-#pragma unroll
-      for (int cc = 0; cc < RD; ++cc) vv[cc] = sV[c * LD + tx + 16 * cc];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const float p = sP[(ty + 16 * i) * LP + c];
-#pragma unroll
-        for (int cc = 0; cc < RD; ++cc) acc[i][cc] = fmaf(p, vv[cc], acc[i][cc]);
-      }
-    }
-  }
-
-  const long long obase = bh * Sq;
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= Sq) continue;
-    const float ls = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int cc = 0; cc < RD; ++cc) {
-      const int d = tx + 16 * cc;
-      if (d < D) out[(obase + row) * D + d] = P::from_f(acc[i][cc] / ls);
-    }
-    if (tx == 0) lse[obase + row] = m[i] + logf(ls);
-  }
-}
-
-// ------------------------------------------------------------- K4-dQ -----
-// grid (B*H, q tiles): loops over k tiles up to the diagonal.
-template <class P, int DMAX>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
-    const typename P::T* __restrict__ q, const typename P::T* __restrict__ k,
-    const typename P::T* __restrict__ v, const typename P::T* __restrict__ g,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    typename P::T* __restrict__ dq, int Sq, int Sk, int D, float scale,
-    int causal) {
-  using C = Cfg<DMAX>;
-  constexpr int BT = C::B, R = C::R, RD = C::RD, LD = C::LD, LP = C::LP;
-  extern __shared__ float smem[];
-  float* sQ = smem;            // BT x LD
-  float* sG = sQ + BT * LD;    // BT x LD (dO)
-  float* sK = sG + BT * LD;    // BT x LD
-  float* sV = sK + BT * LD;    // BT x LD
-  float* sS = sV + BT * LD;    // BT x LP (dS)
-
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const long long bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BT;
-  const typename P::T* kb = k + bh * Sk * D;
-  const typename P::T* vb = v + bh * Sk * D;
-  load_tile<P>(sQ, q + bh * Sq * D, q0, BT, Sq, D, LD);
-  load_tile<P>(sG, g + bh * Sq * D, q0, BT, Sq, D, LD);
-
-  float lse_r[R], delta_r[R], acc[R][RD];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = q0 + ty + 16 * i;
-    lse_r[i] = row < Sq ? lse[bh * Sq + row] : 0.f;
-    delta_r[i] = row < Sq ? delta[bh * Sq + row] : 0.f;
-#pragma unroll
-    for (int c = 0; c < RD; ++c) acc[i][c] = 0.f;
-  }
-  const int nkb = (Sk + BT - 1) / BT;
-  const int kend = causal ? min(nkb, (q0 + BT - 1) / BT + 1) : nkb;
-
-  for (int kt = 0; kt < kend; ++kt) {
-    const int k0 = kt * BT;
-    __syncthreads();
-    load_tile<P>(sK, kb, k0, BT, Sk, D, LD);
-    load_tile<P>(sV, vb, k0, BT, Sk, D, LD);
-    __syncthreads();
-
-    float s[R][R], dp[R][R];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[R], gv[R], kv[R], vv[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        qv[i] = sQ[(ty + 16 * i) * LD + d];
-        gv[i] = sG[(ty + 16 * i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        kv[j] = sK[(tx + 16 * j) * LD + d];
-        vv[j] = sV[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        const bool ok = kp < Sk && (!causal || kp <= qpos);
-        const float p = ok ? expf(s[i][j] * scale - lse_r[i]) : 0.f;
-        sS[(ty + 16 * i) * LP + tx + 16 * j] = p * (dp[i][j] - delta_r[i]) * scale;
-      }
-    }
-    __syncthreads();
-
-    const int kn = min(BT, Sk - k0);
-    for (int c = 0; c < kn; ++c) {
-      float kv[RD];
-#pragma unroll
-      for (int cc = 0; cc < RD; ++cc) kv[cc] = sK[c * LD + tx + 16 * cc];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const float ds = sS[(ty + 16 * i) * LP + c];
-#pragma unroll
-        for (int cc = 0; cc < RD; ++cc) acc[i][cc] = fmaf(ds, kv[cc], acc[i][cc]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= Sq) continue;
-#pragma unroll
-    for (int cc = 0; cc < RD; ++cc) {
-      const int d = tx + 16 * cc;
-      if (d < D) dq[(bh * Sq + row) * D + d] = P::from_f(acc[i][cc]);
-    }
-  }
-}
-
-// ------------------------------------------------------------ K4-dKV -----
-// grid (B*H, k tiles): loops over q tiles from the diagonal. Here a thread
-// owns key rows ty + 16 i and query columns tx + 16 j of each score tile.
-template <class P, int DMAX>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
-    const typename P::T* __restrict__ q, const typename P::T* __restrict__ k,
-    const typename P::T* __restrict__ v, const typename P::T* __restrict__ g,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    typename P::T* __restrict__ dk, typename P::T* __restrict__ dv, int Sq,
-    int Sk, int D, float scale, int causal) {
-  using C = Cfg<DMAX>;
-  constexpr int BT = C::B, R = C::R, RD = C::RD, LD = C::LD, LP = C::LP;
-  extern __shared__ float smem[];
-  float* sK = smem;            // BT x LD
-  float* sV = sK + BT * LD;    // BT x LD
-  float* sQ = sV + BT * LD;    // BT x LD
-  float* sG = sQ + BT * LD;    // BT x LD (dO)
-  float* sPt = sG + BT * LD;   // BT x LP (P^T: key rows, query columns)
-  float* sSt = sPt + BT * LP;  // BT x LP (dS^T)
-  float* sLse = sSt + BT * LP; // BT
-  float* sDelta = sLse + BT;   // BT
-
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const long long bh = blockIdx.x;
-  const int k0 = blockIdx.y * BT;
-  const typename P::T* qb = q + bh * Sq * D;
-  const typename P::T* gb = g + bh * Sq * D;
-  load_tile<P>(sK, k + bh * Sk * D, k0, BT, Sk, D, LD);
-  load_tile<P>(sV, v + bh * Sk * D, k0, BT, Sk, D, LD);
-
-  float dk_acc[R][RD], dv_acc[R][RD];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int c = 0; c < RD; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
-  const int nqb = (Sq + BT - 1) / BT;
-  const int qstart = causal ? k0 / BT : 0;
-
-  for (int qt = qstart; qt < nqb; ++qt) {
-    const int q0 = qt * BT;
-    __syncthreads();
-    load_tile<P>(sQ, qb, q0, BT, Sq, D, LD);
-    load_tile<P>(sG, gb, q0, BT, Sq, D, LD);
-    for (int r = threadIdx.x; r < BT; r += kThreads) {
-      const bool in = q0 + r < Sq;
-      sLse[r] = in ? lse[bh * Sq + q0 + r] : 0.f;
-      sDelta[r] = in ? delta[bh * Sq + q0 + r] : 0.f;
-    }
-    __syncthreads();
-
-    float s[R][R], dp[R][R];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float kv[R], vv[R], qv[R], gv[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        kv[i] = sK[(ty + 16 * i) * LD + d];
-        vv[i] = sV[(ty + 16 * i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        qv[j] = sQ[(tx + 16 * j) * LD + d];
-        gv[j] = sG[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          s[i][j] = fmaf(qv[j], kv[i], s[i][j]);
-          dp[i][j] = fmaf(gv[j], vv[i], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int kp = k0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int r = tx + 16 * j;
-        const int qpos = q0 + r;
-        const bool ok = qpos < Sq && kp < Sk && (!causal || kp <= qpos);
-        const float p = ok ? expf(s[i][j] * scale - sLse[r]) : 0.f;
-        sPt[(ty + 16 * i) * LP + r] = p;
-        sSt[(ty + 16 * i) * LP + r] = p * (dp[i][j] - sDelta[r]) * scale;
-      }
-    }
-    __syncthreads();
-
-    const int qn = min(BT, Sq - q0);  // rows past Sq have p = dS = 0
-    for (int r = 0; r < qn; ++r) {
-      float qv[RD], gv[RD];
-#pragma unroll
-      for (int cc = 0; cc < RD; ++cc) {
-        qv[cc] = sQ[r * LD + tx + 16 * cc];
-        gv[cc] = sG[r * LD + tx + 16 * cc];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const float p = sPt[(ty + 16 * i) * LP + r];
-        const float ds = sSt[(ty + 16 * i) * LP + r];
-#pragma unroll
-        for (int cc = 0; cc < RD; ++cc) {
-          dv_acc[i][cc] = fmaf(p, gv[cc], dv_acc[i][cc]);
-          dk_acc[i][cc] = fmaf(ds, qv[cc], dk_acc[i][cc]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = k0 + ty + 16 * i;
-    if (row >= Sk) continue;
-#pragma unroll
-    for (int cc = 0; cc < RD; ++cc) {
-      const int d = tx + 16 * cc;
-      if (d < D) {
-        dk[(bh * Sk + row) * D + d] = P::from_f(dk_acc[i][cc]);
-        dv[(bh * Sk + row) * D + d] = P::from_f(dv_acc[i][cc]);
-      }
-    }
-  }
-}
 
 // ==================================================== bf16: tensor cores ==
 
@@ -1073,24 +728,509 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dkv_mma_kernel(
   store_rows<NW>(dv + bh * Sk * D, dv_acc, keys, one, c0, Sk, D);
 }
 
+// ===================================================== f32: CUDA cores ==
+
+constexpr int kF32Threads = 128;  // 4 warps; lane = 8 lr + lc
+
+// tile shapes by head-dim bucket (the source note gives the reasons)
+template <int DMAX>
+struct F32Tile {
+  static constexpr int LD = DMAX + 4;              // Q, K, V, dO row stride
+  static constexpr int NH = DMAX / 32;             // float4 columns of a lane
+  static constexpr int BM = 64;                    // q rows (K3, dQ)
+  static constexpr int BN = DMAX == 64 ? 64 : 32;  // keys of a K3 k tile
+  static constexpr int BNQ = DMAX == 256 ? 16 : 32;  // keys of a dQ k tile
+  static constexpr int WN = DMAX == 256 ? 2 : 1;   // dKV head-dim groups
+  static constexpr int BKV = 64 / WN;              // key rows (dKV)
+  static constexpr int BQ = 32;                    // q rows of a dKV q tile
+};
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+template <int E>
+__device__ __forceinline__ float elem(float4 v) {
+  return E == 0 ? v.x : E == 1 ? v.y : E == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ void fma4(float4& acc, float a, float4 b) {
+  acc.x = fmaf(a, b.x, acc.x);
+  acc.y = fmaf(a, b.y, acc.y);
+  acc.z = fmaf(a, b.z, acc.z);
+  acc.w = fmaf(a, b.w, acc.w);
+}
+
+// max / sum over the 8 lanes (lc = 0..7) that share a row
+__device__ __forceinline__ float lane8_max(float v) {
+#pragma unroll
+  for (int off = 1; off < 8; off <<= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float lane8_sum(float v) {
+#pragma unroll
+  for (int off = 1; off < 8; off <<= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// rows [row0, row0 + ROWS) of one (S, D) f32 slice into a ROWS x (DMAX + 4)
+// tile, asynchronously; columns past D and rows past S are zero. vec:
+// 16-byte cp.async (D % 4 == 0 and 16-byte aligned rows), else 4-byte.
+template <int ROWS, int DMAX>
+__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
+                                              int row0, int S, int D,
+                                              bool vec) {
+  constexpr int LD = DMAX + 4;
+  if (vec) {
+    constexpr int CH = DMAX / 4;  // 16-byte chunks of a row
+    for (int i = threadIdx.x; i < ROWS * CH; i += kF32Threads) {
+      const int r = i / CH, c = i - r * CH;
+      const bool ok = row0 + r < S && c * 4 < D;
+      cp_async16(dst + r * LD + c * 4,
+                 ok ? src + (long long)(row0 + r) * D + c * 4 : src,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * DMAX; i += kF32Threads) {
+      const int r = i / DMAX, d = i - r * DMAX;
+      const bool ok = row0 + r < S && d < D;
+      cp_async4(dst + r * LD + d,
+                ok ? src + (long long)(row0 + r) * D + d : src, ok ? 4 : 0);
+    }
+  }
+}
+
+// s[i][j] = a_(4 i) . b_(8 j) over the head dim: a and b point at a lane's
+// first row of two tiles of stride DMAX + 4; steps of 4 at or past D are
+// skipped (their columns are zero). Each sum runs over d in order.
+template <int NJ, int DMAX>
+__device__ __forceinline__ void scores(float (&s)[4][NJ], const float* a,
+                                       const float* b, int D) {
+  constexpr int LD = DMAX + 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < DMAX; d += 4) {
+    if (d < D) {
+      float4 av[4], bv[NJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = ld4(a + 4 * i * LD + d);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) bv[j] = ld4(b + 8 * j * LD + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          s[i][j] = fmaf(av[i].x, bv[j].x, s[i][j]);
+          s[i][j] = fmaf(av[i].y, bv[j].y, s[i][j]);
+          s[i][j] = fmaf(av[i].z, bv[j].z, s[i][j]);
+          s[i][j] = fmaf(av[i].w, bv[j].w, s[i][j]);
+        }
+    }
+  }
+}
+
+// acc[i][h] += sum over the BN keys c of p[4 i][c] t[c][32 h]: p points at
+// a lane's first row of a BN-wide tile of stride BN + 8, t at a lane's
+// first column of a tile of stride DMAX + 4; column groups whose first
+// column c0 + 32 h is at or past D are skipped.
+template <int BN, int NH, int DMAX>
+__device__ __forceinline__ void mul_acc(float4 (&acc)[4][NH], const float* p,
+                                        const float* t, int c0, int D) {
+  constexpr int LD = DMAX + 4, LP = BN + 8;
+#pragma unroll 4
+  for (int c = 0; c < BN; c += 4) {
+    float4 pv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pv[i] = ld4(p + 4 * i * LP + c);
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      if (c0 + 32 * h < D) {
+        const float4 t0 = ld4(t + c * LD + 32 * h);
+        const float4 t1 = ld4(t + (c + 1) * LD + 32 * h);
+        const float4 t2 = ld4(t + (c + 2) * LD + 32 * h);
+        const float4 t3 = ld4(t + (c + 3) * LD + 32 * h);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          fma4(acc[i][h], elem<0>(pv[i]), t0);
+          fma4(acc[i][h], elem<1>(pv[i]), t1);
+          fma4(acc[i][h], elem<2>(pv[i]), t2);
+          fma4(acc[i][h], elem<3>(pv[i]), t3);
+        }
+      }
+    }
+  }
+}
+
+// acc[i][h] / div[i] into row rows[i] (where < S) of an (S, D) slice,
+// columns c0 + 32 h + 4 lc (where < D): one 16-byte store each where vec
+template <int NH>
+__device__ __forceinline__ void store_f32(float* dst,
+                                          const float4 (&acc)[4][NH],
+                                          const int (&rows)[4],
+                                          const float (&div)[4], int c0,
+                                          int S, int D, bool vec) {
+  const int lc = threadIdx.x & 7;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (rows[i] >= S) continue;
+    float* row = dst + (long long)rows[i] * D;
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      const int d = c0 + 32 * h + 4 * lc;
+      const float4 a = acc[i][h];
+      const float4 o = make_float4(a.x / div[i], a.y / div[i], a.z / div[i],
+                                   a.w / div[i]);
+      if (vec) {
+        if (d < D) *reinterpret_cast<float4*>(row + d) = o;
+      } else {
+        if (d < D) row[d] = o.x;
+        if (d + 1 < D) row[d + 1] = o.y;
+        if (d + 2 < D) row[d + 2] = o.z;
+        if (d + 3 < D) row[d + 3] = o.w;
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------- K3 f32 -----
+// grid (B*H, q tiles of 64); the heaviest causal q tiles are dispatched
+// first. Warp w owns rows [16 w, 16 w + 16) of the q tile; a lane owns rows
+// 16 w + lr + 4 i (i < 4), keys lc + 8 j of each k tile and head columns
+// 32 h + 4 lc.
+template <int DMAX>
+__global__ void __launch_bounds__(kF32Threads) flash_fwd_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ out,
+    float* __restrict__ lse, int Sq, int Sk, int D, float scale, int causal,
+    int has_delta, int pos_delta, int vec) {
+  using C = F32Tile<DMAX>;
+  constexpr int BM = C::BM, BN = C::BN, LD = C::LD, NH = C::NH;
+  constexpr int NJ = BN / 8, LP = BN + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sQ = reinterpret_cast<float*>(smem_raw);  // BM x LD
+  float* sK = sQ + BM * LD;                         // 2 x BN x LD
+  float* sV = sK + 2 * BN * LD;                     // 2 x BN x LD
+  float* sP = sV + 2 * BN * LD;                     // BM x LP
+
+  const int lane = threadIdx.x & 31, lr = lane >> 3, lc = lane & 7;
+  const int wr = (threadIdx.x >> 5) * 16 + lr;  // the lane's first tile row
+  const long long bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  const float* kb = k + bh * Sk * D;
+  const float* vb = v + bh * Sk * D;
+  const int shift = has_delta ? pos_delta : 0;
+  const int nkt = (Sk + BN - 1) / BN;
+  const int kt_end =
+      causal && !has_delta ? min(nkt, (q0 + BM - 1) / BN + 1) : nkt;
+  int rows[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) rows[i] = q0 + wr + 4 * i;
+
+  load_tile_f32<BM, DMAX>(sQ, q + bh * Sq * D, q0, Sq, D, vec);
+  load_tile_f32<BN, DMAX>(sK, kb, 0, Sk, D, vec);
+  load_tile_f32<BN, DMAX>(sV, vb, 0, Sk, D, vec);
+  cp_async_commit();
+
+  float4 acc[4][NH];
+  float m[4], l[4];  // l: this lane's part of the row sum
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int h = 0; h < NH; ++h) acc[i][h] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  for (int kt = 0; kt < kt_end; ++kt) {
+    const int st = kt & 1;
+    cp_async_wait<0>();
+    // tile kt has arrived, and every warp is done with tile kt - 1, whose
+    // stage the next copy overwrites
+    __syncthreads();
+    if (kt + 1 < kt_end) {
+      load_tile_f32<BN, DMAX>(sK + (st ^ 1) * BN * LD, kb, (kt + 1) * BN,
+                              Sk, D, vec);
+      load_tile_f32<BN, DMAX>(sV + (st ^ 1) * BN * LD, vb, (kt + 1) * BN,
+                              Sk, D, vec);
+      cp_async_commit();
+    }
+    const float* tK = sK + st * BN * LD;
+    const float* tV = sV + st * BN * LD;
+    const int k0 = kt * BN;
+
+    float s[4][NJ];
+    scores<NJ, DMAX>(s, sQ + wr * LD, tK + lc * LD, D);  // Q K^T
+    float* pw = sP + wr * LP;
+    // only a ragged last tile and tiles across the diagonal are masked
+    const bool masked = k0 + BN > Sk || (causal && k0 + BN - 1 > q0 + shift);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qpos = rows[i] + shift;
+      bool ok[NJ];
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int kp = k0 + lc + 8 * j;
+        ok[j] = !masked || (kp < Sk && (!causal || kp <= qpos));
+        s[i][j] = ok[j] ? s[i][j] * scale : kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], lane8_max(mx));
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
+        pw[4 * i * LP + lc + 8 * j] = p;
+        sum += p;
+      }
+      const float alpha = expf(m[i] - m_new);
+      l[i] = l[i] * alpha + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        acc[i][h].x *= alpha;
+        acc[i][h].y *= alpha;
+        acc[i][h].z *= alpha;
+        acc[i][h].w *= alpha;
+      }
+    }
+    __syncwarp();  // a row's P comes from its 8 lanes
+    mul_acc<BN, NH, DMAX>(acc, pw, tV + 4 * lc, 0, D);  // acc += P V
+  }
+
+  float ls[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    ls[i] = fmaxf(lane8_sum(l[i]), 1e-30f);
+    if (lc == 0 && rows[i] < Sq) lse[bh * Sq + rows[i]] = m[i] + logf(ls[i]);
+  }
+  store_f32<NH>(out + bh * Sq * D, acc, rows, ls, 0, Sq, D, vec);
+}
+
+// ---------------------------------------------------------- K4-dQ f32 -----
+// grid (B*H, q tiles of 64): loops over k tiles up to the diagonal; rows,
+// keys and columns of a lane as in K3.
+template <int DMAX>
+__global__ void __launch_bounds__(kF32Threads) flash_bwd_dq_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ g,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dq, int Sq, int Sk, int D, float scale, int causal,
+    int vec) {
+  using C = F32Tile<DMAX>;
+  constexpr int BM = C::BM, BN = C::BNQ, LD = C::LD, NH = C::NH;
+  constexpr int NJ = BN / 8, LP = BN + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sQ = reinterpret_cast<float*>(smem_raw);  // BM x LD
+  float* sG = sQ + BM * LD;                         // BM x LD (dO)
+  float* sK = sG + BM * LD;                         // 2 x BN x LD
+  float* sV = sK + 2 * BN * LD;                     // 2 x BN x LD
+  float* sS = sV + 2 * BN * LD;                     // BM x LP (dS)
+
+  const int lane = threadIdx.x & 31, lr = lane >> 3, lc = lane & 7;
+  const int wr = (threadIdx.x >> 5) * 16 + lr;
+  const long long bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  const float* kb = k + bh * Sk * D;
+  const float* vb = v + bh * Sk * D;
+  const int nkt = (Sk + BN - 1) / BN;
+  const int kt_end = causal ? min(nkt, (q0 + BM - 1) / BN + 1) : nkt;
+  int rows[4];
+  float lse_r[4], delta_r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    rows[i] = q0 + wr + 4 * i;
+    lse_r[i] = rows[i] < Sq ? lse[bh * Sq + rows[i]] : 0.f;
+    delta_r[i] = rows[i] < Sq ? delta[bh * Sq + rows[i]] : 0.f;
+  }
+
+  load_tile_f32<BM, DMAX>(sQ, q + bh * Sq * D, q0, Sq, D, vec);
+  load_tile_f32<BM, DMAX>(sG, g + bh * Sq * D, q0, Sq, D, vec);
+  load_tile_f32<BN, DMAX>(sK, kb, 0, Sk, D, vec);
+  load_tile_f32<BN, DMAX>(sV, vb, 0, Sk, D, vec);
+  cp_async_commit();
+
+  float4 acc[4][NH];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < NH; ++h) acc[i][h] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int kt = 0; kt < kt_end; ++kt) {
+    const int st = kt & 1;
+    cp_async_wait<0>();
+    // tile kt has arrived, and every warp is done with tile kt - 1, whose
+    // stage the next copy overwrites
+    __syncthreads();
+    if (kt + 1 < kt_end) {
+      load_tile_f32<BN, DMAX>(sK + (st ^ 1) * BN * LD, kb, (kt + 1) * BN,
+                              Sk, D, vec);
+      load_tile_f32<BN, DMAX>(sV + (st ^ 1) * BN * LD, vb, (kt + 1) * BN,
+                              Sk, D, vec);
+      cp_async_commit();
+    }
+    const float* tK = sK + st * BN * LD;
+    const float* tV = sV + st * BN * LD;
+    const int k0 = kt * BN;
+
+    float s[4][NJ], dp[4][NJ];
+    scores<NJ, DMAX>(s, sQ + wr * LD, tK + lc * LD, D);   // Q K^T
+    scores<NJ, DMAX>(dp, sG + wr * LD, tV + lc * LD, D);  // dO V^T
+    float* sw = sS + wr * LP;
+    const bool masked = k0 + BN > Sk || (causal && k0 + BN - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int kp = k0 + lc + 8 * j;
+        const bool ok = !masked || (kp < Sk && (!causal || kp <= rows[i]));
+        const float p =
+            ok ? expf(s[i][j] * scale - lse_r[i]) : 0.f;
+        sw[4 * i * LP + lc + 8 * j] = p * (dp[i][j] - delta_r[i]) * scale;
+      }
+    __syncwarp();
+    mul_acc<BN, NH, DMAX>(acc, sw, tK + 4 * lc, 0, D);  // dQ += dS K
+  }
+
+  const float unit[4] = {1.f, 1.f, 1.f, 1.f};
+  store_f32<NH>(dq + bh * Sq * D, acc, rows, unit, 0, Sq, D, vec);
+}
+
+// --------------------------------------------------------- K4-dKV f32 -----
+// grid (B*H, k tiles of BKV): loops over q tiles of 32 from the diagonal.
+// Warp w owns key rows [16 (w % RG), +16) and head columns [DW (w / RG),
+// +DW) of dK and dV (RG = 4 / WN, DW = DMAX / WN); a lane owns key rows
+// lr + 4 i of its warp's 16, queries lc + 8 j of each q tile and columns
+// 32 h + 4 lc of its warp's DW. Where WN = 2 the two warps of a row group
+// compute the same P^T and dS^T, each into its own rows of sPt / sSt.
+template <int DMAX>
+__global__ void __launch_bounds__(kF32Threads) flash_bwd_dkv_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ g,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk, int D,
+    float scale, int causal, int vec) {
+  using C = F32Tile<DMAX>;
+  constexpr int BKV = C::BKV, BQ = C::BQ, LD = C::LD;
+  constexpr int RG = 4 / C::WN, DW = DMAX / C::WN, NW = DW / 32;
+  constexpr int NJ = BQ / 8, LQ = BQ + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sK = reinterpret_cast<float*>(smem_raw);  // BKV x LD
+  float* sV = sK + BKV * LD;                        // BKV x LD
+  float* sQ = sV + BKV * LD;                        // 2 x BQ x LD
+  float* sG = sQ + 2 * BQ * LD;                     // 2 x BQ x LD (dO)
+  float* sPt = sG + 2 * BQ * LD;                    // 64 x LQ (P^T)
+  float* sSt = sPt + 64 * LQ;                       // 64 x LQ (dS^T)
+  float* sL = sSt + 64 * LQ;                        // 2 x BQ
+  float* sD = sL + 2 * BQ;                          // 2 x BQ
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int lr = lane >> 3, lc = lane & 7;
+  const int kr = (warp % RG) * 16 + lr, c0 = (warp / RG) * DW;
+  const long long bh = blockIdx.x;
+  const int k0 = blockIdx.y * BKV;
+  const float* qb = q + bh * Sq * D;
+  const float* gb = g + bh * Sq * D;
+  const float* lb = lse + bh * Sq;
+  const float* db = delta + bh * Sq;
+  const int nqt = (Sq + BQ - 1) / BQ;
+  const int qt0 = causal ? k0 / BQ : 0;
+  int keys[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) keys[i] = k0 + kr + 4 * i;
+
+  load_tile_f32<BKV, DMAX>(sK, k + bh * Sk * D, k0, Sk, D, vec);
+  load_tile_f32<BKV, DMAX>(sV, v + bh * Sk * D, k0, Sk, D, vec);
+  if (qt0 < nqt) {
+    load_tile_f32<BQ, DMAX>(sQ, qb, qt0 * BQ, Sq, D, vec);
+    load_tile_f32<BQ, DMAX>(sG, gb, qt0 * BQ, Sq, D, vec);
+    load_rows<BQ>(sL, lb, qt0 * BQ, Sq);
+    load_rows<BQ>(sD, db, qt0 * BQ, Sq);
+  }
+  cp_async_commit();
+
+  float4 dk_acc[4][NW], dv_acc[4][NW];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < NW; ++h)
+      dk_acc[i][h] = dv_acc[i][h] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int qt = qt0; qt < nqt; ++qt) {
+    const int st = (qt - qt0) & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // as in K3: one barrier per tile
+    if (qt + 1 < nqt) {
+      const int nq0 = (qt + 1) * BQ;
+      load_tile_f32<BQ, DMAX>(sQ + (st ^ 1) * BQ * LD, qb, nq0, Sq, D, vec);
+      load_tile_f32<BQ, DMAX>(sG + (st ^ 1) * BQ * LD, gb, nq0, Sq, D, vec);
+      load_rows<BQ>(sL + (st ^ 1) * BQ, lb, nq0, Sq);
+      load_rows<BQ>(sD + (st ^ 1) * BQ, db, nq0, Sq);
+      cp_async_commit();
+    }
+    const float* tQ = sQ + st * BQ * LD;
+    const float* tG = sG + st * BQ * LD;
+    const float* tL = sL + st * BQ;
+    const float* tD = sD + st * BQ;
+    const int q0 = qt * BQ;
+
+    float s[4][NJ], dp[4][NJ];
+    scores<NJ, DMAX>(s, sK + kr * LD, tQ + lc * LD, D);   // K Q^T
+    scores<NJ, DMAX>(dp, sV + kr * LD, tG + lc * LD, D);  // V dO^T
+    float* pt = sPt + (warp * 16 + lr) * LQ;
+    float* dsw = sSt + (warp * 16 + lr) * LQ;
+    const bool masked =
+        q0 + BQ > Sq || k0 + BKV > Sk || (causal && k0 + BKV - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int qc = lc + 8 * j, qpos = q0 + qc;
+        const bool ok = !masked || (qpos < Sq && keys[i] < Sk &&
+                                    (!causal || keys[i] <= qpos));
+        const float p =
+            ok ? expf(s[i][j] * scale - tL[qc]) : 0.f;
+        pt[4 * i * LQ + qc] = p;                                // P^T
+        dsw[4 * i * LQ + qc] = p * (dp[i][j] - tD[qc]) * scale;  // dS^T
+      }
+    __syncwarp();
+    mul_acc<BQ, NW, DMAX>(dv_acc, pt, tG + c0 + 4 * lc, c0, D);   // P^T dO
+    mul_acc<BQ, NW, DMAX>(dk_acc, dsw, tQ + c0 + 4 * lc, c0, D);  // dS^T Q
+  }
+  cp_async_wait<0>();  // no copy is left in flight where no q tile ran
+
+  const float unit[4] = {1.f, 1.f, 1.f, 1.f};
+  store_f32<NW>(dk + bh * Sk * D, dk_acc, keys, unit, c0, Sk, D, vec);
+  store_f32<NW>(dv + bh * Sk * D, dv_acc, keys, unit, c0, Sk, D, vec);
+}
+
 // -- host side -------------------------------------------------------------
 
 template <int DMAX>
 inline size_t fwd_smem() {
-  using C = Cfg<DMAX>;
-  return sizeof(float) * (3 * C::B * C::LD + C::B * C::LP);
+  using C = F32Tile<DMAX>;
+  return sizeof(float) *
+         ((C::BM + 4 * C::BN) * C::LD + C::BM * (C::BN + 8));
 }
 
 template <int DMAX>
 inline size_t dq_smem() {
-  using C = Cfg<DMAX>;
-  return sizeof(float) * (4 * C::B * C::LD + C::B * C::LP);
+  using C = F32Tile<DMAX>;
+  return sizeof(float) *
+         ((2 * C::BM + 4 * C::BNQ) * C::LD + C::BM * (C::BNQ + 8));
 }
 
 template <int DMAX>
 inline size_t dkv_smem() {
-  using C = Cfg<DMAX>;
-  return sizeof(float) * (4 * C::B * C::LD + 2 * C::B * C::LP + 2 * C::B);
+  using C = F32Tile<DMAX>;
+  return sizeof(float) * ((2 * C::BKV + 4 * C::BQ) * C::LD +
+                          2 * 64 * (C::BQ + 8) + 4 * C::BQ);
 }
 
 // Each kernel needs more than the default 48 KB of dynamic shared memory;
@@ -1105,68 +1245,76 @@ inline bool shapes_ok(int bh, int sq, int sk, int d) {
   return bh > 0 && sq > 0 && sk > 0 && d >= 1 && d <= 256;
 }
 
-template <class P, int DMAX>
+// 16-byte cp.async and stores need every f32 row 16-byte aligned
+inline int vec_f32(int d, std::initializer_list<const void*> ptrs) {
+  if (d % 4) return 0;
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return 0;
+  return 1;
+}
+
+template <int DMAX>
 int fwd(const void* q, const void* k, const void* v, void* out, void* lse,
         int bh, int sq, int sk, int d, float scale, int causal,
         int has_delta, int pos_delta, cudaStream_t st) {
-  using T = typename P::T;
   const size_t bytes = fwd_smem<DMAX>();
-  auto kernel = flash_fwd_kernel<P, DMAX>;
+  auto kernel = flash_fwd_kernel<DMAX>;
   int err = allow_smem(kernel, bytes);
   if (err) return err;
-  const dim3 grid(bh, (sq + Cfg<DMAX>::B - 1) / Cfg<DMAX>::B);
-  kernel<<<grid, kThreads, bytes, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, (float*)lse, sq, sk,
-      d, scale, causal, has_delta, pos_delta);
+  const dim3 grid(bh, (sq + F32Tile<DMAX>::BM - 1) / F32Tile<DMAX>::BM);
+  kernel<<<grid, kF32Threads, bytes, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out,
+      (float*)lse, sq, sk, d, scale, causal, has_delta, pos_delta,
+      vec_f32(d, {q, k, v, out}));
   return (int)cudaGetLastError();
 }
 
-template <class P, int DMAX>
+template <int DMAX>
 int bwd_dq(const void* q, const void* k, const void* v, const void* g,
            const void* lse, const void* delta, void* dq, int bh, int sq,
            int sk, int d, float scale, int causal, cudaStream_t st) {
-  using T = typename P::T;
   const size_t bytes = dq_smem<DMAX>();
-  auto kernel = flash_bwd_dq_kernel<P, DMAX>;
+  auto kernel = flash_bwd_dq_kernel<DMAX>;
   int err = allow_smem(kernel, bytes);
   if (err) return err;
-  const dim3 grid(bh, (sq + Cfg<DMAX>::B - 1) / Cfg<DMAX>::B);
-  kernel<<<grid, kThreads, bytes, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)g, (const float*)lse,
-      (const float*)delta, (T*)dq, sq, sk, d, scale, causal);
+  const dim3 grid(bh, (sq + F32Tile<DMAX>::BM - 1) / F32Tile<DMAX>::BM);
+  kernel<<<grid, kF32Threads, bytes, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)g,
+      (const float*)lse, (const float*)delta, (float*)dq, sq, sk, d, scale,
+      causal, vec_f32(d, {q, k, v, g, dq}));
   return (int)cudaGetLastError();
 }
 
-template <class P, int DMAX>
+template <int DMAX>
 int bwd_dkv(const void* q, const void* k, const void* v, const void* g,
             const void* lse, const void* delta, void* dk, void* dv, int bh,
             int sq, int sk, int d, float scale, int causal,
             cudaStream_t st) {
-  using T = typename P::T;
   const size_t bytes = dkv_smem<DMAX>();
-  auto kernel = flash_bwd_dkv_kernel<P, DMAX>;
+  auto kernel = flash_bwd_dkv_kernel<DMAX>;
   int err = allow_smem(kernel, bytes);
   if (err) return err;
-  const dim3 grid(bh, (sk + Cfg<DMAX>::B - 1) / Cfg<DMAX>::B);
-  kernel<<<grid, kThreads, bytes, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)g, (const float*)lse,
-      (const float*)delta, (T*)dk, (T*)dv, sq, sk, d, scale, causal);
+  const dim3 grid(bh, (sk + F32Tile<DMAX>::BKV - 1) / F32Tile<DMAX>::BKV);
+  kernel<<<grid, kF32Threads, bytes, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)g,
+      (const float*)lse, (const float*)delta, (float*)dk, (float*)dv, sq, sk,
+      d, scale, causal, vec_f32(d, {q, k, v, g, dk, dv}));
   return (int)cudaGetLastError();
 }
 
-// Calls f(P(), std::integral_constant-like DMAX tag) for f32 (dtype 0) and
-// the head dim, or returns cudaErrorInvalidValue.
 template <int DMAX>
 struct Dim {
   static constexpr int value = DMAX;
 };
 
+// Calls f(DMAX tag) for the head dim's bucket of the f32 kernels (dtype
+// 0), or returns cudaErrorInvalidValue.
 template <class F>
 int dispatch(int dtype, int d, F f) {
   if (dtype == 0) {
-    if (d <= 64) return f(F32(), Dim<64>());
-    if (d <= 128) return f(F32(), Dim<128>());
-    return f(F32(), Dim<256>());
+    if (d <= 64) return f(Dim<64>());
+    if (d <= 128) return f(Dim<128>());
+    return f(Dim<256>());
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1277,10 +1425,9 @@ extern "C" int singa_flash_fwd(int dtype, const void* q, const void* k,
                                            scale, causal, has_delta,
                                            pos_delta, st);
     });
-  return dispatch(dtype, d, [&](auto p, auto dim) {
-    return fwd<decltype(p), decltype(dim)::value>(
-        q, k, v, out, lse, bh, sq, sk, d, scale, causal, has_delta,
-        pos_delta, st);
+  return dispatch(dtype, d, [&](auto dim) {
+    return fwd<decltype(dim)::value>(q, k, v, out, lse, bh, sq, sk, d, scale,
+                                     causal, has_delta, pos_delta, st);
   });
 }
 
@@ -1296,9 +1443,9 @@ extern "C" int singa_flash_bwd_dq(int dtype, const void* q, const void* k,
       return bwd_dq_mma<decltype(dim)::value>(q, k, v, g, lse, delta, dq, bh,
                                               sq, sk, d, scale, causal, st);
     });
-  return dispatch(dtype, d, [&](auto p, auto dim) {
-    return bwd_dq<decltype(p), decltype(dim)::value>(
-        q, k, v, g, lse, delta, dq, bh, sq, sk, d, scale, causal, st);
+  return dispatch(dtype, d, [&](auto dim) {
+    return bwd_dq<decltype(dim)::value>(q, k, v, g, lse, delta, dq, bh, sq,
+                                        sk, d, scale, causal, st);
   });
 }
 
@@ -1316,8 +1463,37 @@ extern "C" int singa_flash_bwd_dkv(int dtype, const void* q, const void* k,
                                                bh, sq, sk, d, scale, causal,
                                                st);
     });
-  return dispatch(dtype, d, [&](auto p, auto dim) {
-    return bwd_dkv<decltype(p), decltype(dim)::value>(
-        q, k, v, g, lse, delta, dk, dv, bh, sq, sk, d, scale, causal, st);
+  return dispatch(dtype, d, [&](auto dim) {
+    return bwd_dkv<decltype(dim)::value>(q, k, v, g, lse, delta, dk, dv, bh,
+                                         sq, sk, d, scale, causal, st);
+  });
+}
+
+// The f32 kernel `which` (0 K3, 1 K4-dQ, 2 K4-dKV) of head dim d's bucket:
+// out[0] registers per thread, out[1] local memory per thread in bytes
+// (spills), out[2] dynamic shared memory per block in bytes. Returns the
+// error of cudaFuncGetAttributes.
+extern "C" int singa_flash_f32_resources(int which, int d, int* out) {
+  if (which < 0 || which > 2 || d < 1 || d > 256)
+    return (int)cudaErrorInvalidValue;
+  return dispatch(0, d, [&](auto dim) {
+    constexpr int DMAX = decltype(dim)::value;
+    cudaFuncAttributes a;
+    cudaError_t err;
+    size_t bytes;
+    if (which == 0) {
+      err = cudaFuncGetAttributes(&a, flash_fwd_kernel<DMAX>);
+      bytes = fwd_smem<DMAX>();
+    } else if (which == 1) {
+      err = cudaFuncGetAttributes(&a, flash_bwd_dq_kernel<DMAX>);
+      bytes = dq_smem<DMAX>();
+    } else {
+      err = cudaFuncGetAttributes(&a, flash_bwd_dkv_kernel<DMAX>);
+      bytes = dkv_smem<DMAX>();
+    }
+    out[0] = a.numRegs;
+    out[1] = (int)a.localSizeBytes;
+    out[2] = (int)bytes;
+    return (int)err;
   });
 }

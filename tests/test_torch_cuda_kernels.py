@@ -400,6 +400,73 @@ def test_flash_fwd_bf16_pos_delta_matches_plain_version(delta):
         assert torch.all(lse[:, :, :-delta] <= -1e29)
 
 
+# -- K3, K4 in f32: the edges of the CUDA-core kernels ------------------------
+
+def _flash_all(q, k, v, g, causal, scale):
+    """(out, lse, dq, dk, dv) through the kernels, and through the plain
+    versions on the same inputs."""
+    out, lse = tat.flash_fwd(q, k, v, causal, scale)
+    got = (out, lse) + tuple(tat.flash_bwd(q, k, v, out, lse, g, causal,
+                                           scale))
+    ro, rl = tat._scan_flash_fwd(q, k, v, causal, scale)
+    want = (ro, rl) + tuple(tat._scan_flash_bwd(q, k, v, out, lse, g,
+                                                causal, scale))
+    torch.cuda.synchronize()
+    return got, want
+
+
+def _held(got, want):
+    """Both gates on out, dq, dk, dv; the f32 gate on lse."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        _near(a, b, torch.float32)
+        if i != 1:
+            _near_each(a, b, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("Sq,Sk,D", [(64, 64, 1), (72, 72, 3),
+                                     (40, 40, 250), (200, 70, 64),
+                                     (1000, 1000, 64)], ids=str)
+def test_flash_f32_edges_match_plain_version(Sq, Sk, D, causal):
+    """The f32 kernels where D % 4 != 0 (the 4-byte load path, D = 1 and
+    3), where most head columns of the bucket are zero padding (D = 250),
+    where Sq > Sk, and at a long ragged length (1000 = 15 x 64 + 40)."""
+    _need_card()
+    q, k, v, g = _attn_inputs(1, 2, Sq, Sk, D, torch.float32, seed=3)
+    _held(*_flash_all(q, k, v, g, causal, D ** -0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 100])
+def test_flash_f32_misaligned_views_match_plain_version(D):
+    """q, k, v and dO as views at a storage offset of one float: no row
+    is 16-byte aligned, so the kernels take their 4-byte load path."""
+    _need_card()
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+        buf[1:].copy_(t.flatten())
+        return buf[1:].view(t.shape)
+    q, k, v, g = [shifted(t) for t in
+                  _attn_inputs(2, 2, 96, 96, D, torch.float32, seed=4)]
+    assert all(t.data_ptr() % 16 for t in (q, k, v, g))
+    _held(*_flash_all(q, k, v, g, True, D ** -0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_are_deterministic(dtype):
+    """Two calls on the same inputs give bitwise-equal outputs: each
+    output tile is written by one block, with no atomics."""
+    _need_card()
+    q, k, v, g = _attn_inputs(2, 4, 300, 300, 64, dtype, seed=5)
+    first, _ = _flash_all(q, k, v, g, True, 0.125)
+    second, _ = _flash_all(q, k, v, g, True, 0.125)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 _KERNEL_NAMES = {
     torch.bfloat16: ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
                      "flash_bwd_dkv_mma_kernel"),
