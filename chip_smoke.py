@@ -13,8 +13,9 @@ failure exits nonzero:
 3. kernels: each variant of kernel K2 (plain/residual x NCHW/NHWC) in f32
    and bf16 at ResNet-50 batch-32 shapes (the stem, 32x64x112x112, and the
    layer1 residual tail, 32x256x56x56), held bitwise against its plain
-   PyTorch version on the same inputs and timed with CUDA events beside
-   the plain version and the HBM-bytes bound;
+   PyTorch version on the same inputs and timed with CUDA events and on
+   the device alone (``torch.profiler``) beside the plain version and the
+   HBM-bytes bound;
 4. serve: ResNet-50 (224 px, widths 64..2048, 10 classes, weights and
    non-trivial BN running statistics from a numpy seed) through
    ``Model.compile_serving(batch=32)`` -> ``BatchServingEngine``, 96
@@ -34,12 +35,14 @@ failure exits nonzero:
    ``torch.optim.SGD/Adam(fused=True).step()`` on the same tensor; then
    each timed over a whole ResNet-50 update (its 161 parameter tensors,
    one launch each) in the same four ways and on the host clock; then
-   the multi-tensor launches of K1 (and with nesterov) and K5 over the
-   161 shapes (both chunk capacities crossed), with two lr tensors and
-   three weight decays in turn, in f32 and with bf16 parameters and f32
-   state, held bitwise against the loop of plain versions, versions and
-   launches (one per chunk, none per tensor) checked, and each whole
-   update timed the same five ways beside the per-tensor loop;
+   the multi-tensor launches of K1 (and with nesterov), K5, K6 and K7
+   over the 161 shapes (both chunk capacities crossed), with two lr
+   tensors and three weight decays in turn, in f32 and with bf16
+   parameters and f32 state, held bitwise against the loop of plain
+   versions, versions and launches (one per chunk, none per tensor)
+   checked, and each whole update timed the same five ways beside the
+   per-tensor loop (K6 and K7 have no ``torch.optim`` yardstick: it adds
+   eps outside the square root);
 6. train: ResNet-50, 224 px, batch 32, f32, TF32 off, NCHW, weights and BN
    statistics from a numpy seed and one fixed synthetic batch, through
    ``Model.compile(is_train=True)`` and ``model(x, y)`` with ``SGD(lr=0.1,
@@ -59,10 +62,11 @@ failure exits nonzero:
    moves) and the two paths must still agree: a fold that K1's in-place
    writes did not invalidate would not;
 8. train (other optimizers): 3 steps each of ``Adam``, ``RMSProp`` and
-   ``AdaGrad``, fused against unfused from the same start, held bitwise:
-   K5's multi-tensor launch (3 per step), 161 launches of K6 or K7 per
-   step; after Adam, the BN-only update of phase 7 through the
-   per-tensor K5 (106 launches);
+   ``AdaGrad``, fused, unfused and through the per-tensor kernel (the
+   earlier design, 161 launches per step) from the same start, the three
+   held bitwise: K5's multi-tensor launch (3 per step), K6's or K7's (2
+   per step), none per tensor; after each, the BN-only update of phase 7
+   through its per-tensor kernel (106 launches);
 9. kernels (flash attention): the built library's SASS (``cuobjdump``)
    holds HMMA (tensor-core) instructions in each bf16 kernel (one at
    least of each of the three) and in no f32 one; each f32 kernel
@@ -144,6 +148,8 @@ REPLACES = {
     "adam_multi": "singa_tpu/ops/fused_optim.py:206",
     "rmsprop": "singa_tpu/ops/fused_optim.py:263",
     "adagrad": "singa_tpu/ops/fused_optim.py:316",
+    "rmsprop_multi": "singa_tpu/ops/fused_optim.py:263",
+    "adagrad_multi": "singa_tpu/ops/fused_optim.py:316",
     "flash_fwd": "singa_tpu/ops/attention.py:324",
     "flash_bwd_dq": "singa_tpu/ops/attention.py:388",
     "flash_bwd_dkv": "singa_tpu/ops/attention.py:424",
@@ -224,7 +230,9 @@ KERNEL_NAME = {"sgd": "sgd_kernel", "sgd_nesterov": "sgd_kernel",
                "adam": "adam_kernel", "rmsprop": "scaled_kernel",
                "adagrad": "scaled_kernel", "sgd_multi": "sgd_multi_kernel",
                "sgd_multi_nesterov": "sgd_multi_kernel",
-               "adam_multi": "adam_multi_kernel"}
+               "adam_multi": "adam_multi_kernel",
+               "rmsprop_multi": "scaled_multi_kernel",
+               "adagrad_multi": "scaled_multi_kernel"}
 OPTIM_CASES = {
     "sgd": ("sgd_momentum_update",
             dict(momentum=0.9, weight_decay=1e-5), 1, 20, 7),
@@ -236,15 +244,25 @@ OPTIM_CASES = {
     "rmsprop": ("rmsprop_update", dict(rho=0.9, epsilon=1e-8), 1, 20, 8),
     "adagrad": ("adagrad_update", dict(epsilon=1e-8), 1, 20, 6),
 }
-# the multi-tensor launches of K1 and K5: the per-tensor case whose
-# tensors, scalars, bytes and operations they share, and the wrapper's
-# shared keyword arguments (lr and weight decay are per entry)
+# the multi-tensor launches of K1, K5, K6 and K7: the per-tensor case
+# whose tensors, scalars, bytes and operations they share, the wrapper,
+# and its shared keyword arguments (lr and weight decay are per entry)
 MULTI_CASES = {
-    "sgd_multi": ("sgd", dict(momentum=0.9)),
-    "sgd_multi_nesterov": ("sgd_nesterov", dict(momentum=0.9,
-                                                nesterov=True)),
-    "adam_multi": ("adam", dict(beta_1=0.9, beta_2=0.999, epsilon=1e-8)),
+    "sgd_multi": ("sgd", "sgd_momentum_update_multi", dict(momentum=0.9)),
+    "sgd_multi_nesterov": ("sgd_nesterov", "sgd_momentum_update_multi",
+                           dict(momentum=0.9, nesterov=True)),
+    "adam_multi": ("adam", "adam_update_multi",
+                   dict(beta_1=0.9, beta_2=0.999, epsilon=1e-8)),
+    "rmsprop_multi": ("rmsprop", "rmsprop_update_multi",
+                      dict(rho=0.9, epsilon=1e-8)),
+    "adagrad_multi": ("adagrad", "adagrad_update_multi",
+                      dict(epsilon=1e-8)),
 }
+# why an optimizer case has no PyTorch call timed beside it
+NO_LIBRARY = {"sgd_nesterov": "torch.optim is timed in the sgd case",
+              "rmsprop": "torch.optim adds eps outside the square root",
+              "adagrad": "torch.optim adds eps outside the square root"}
+
 
 
 class SmokeFailure(RuntimeError):
@@ -280,13 +298,15 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_kernels(fn, match="", iters=20, attempts=3):
+def device_kernels(fn, match="", iters=20, attempts=5, launches=None):
     """Device ms per call of ``fn``, by kernel name, for the kernels whose
     name contains ``match`` (every kernel by default), from
     ``torch.profiler`` over ``iters`` calls after a warm-up one. Host time
     between launches is not in it. A profiler session that records no such
-    kernel (a session with no device event at all is seen now and then on
-    the card's machine) is repeated, up to ``attempts`` sessions."""
+    kernel, or other than ``launches`` of them per call where the caller
+    knows that count (sessions with no device event, or with some of a
+    call's kernels missing, are seen now and then on the card's machine),
+    is repeated, up to ``attempts`` sessions."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -297,24 +317,27 @@ def device_kernels(fn, match="", iters=20, attempts=3):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        ms = {}
+        ms, seen = {}, 0
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA \
                     and match in e.name:
                 ms[e.name] = ms.get(e.name, 0.0) \
                     + e.time_range.elapsed_us() / 1e3 / iters
-        if ms:
+                seen += 1
+        if ms and (launches is None or seen == launches * iters):
             return ms
-        print(f"profiler session {attempt + 1} saw no {match} kernel",
-              flush=True)
-    raise SmokeFailure(f"the profiler saw no {match} kernel in {attempts} "
-                       "sessions")
+        print(f"profiler session {attempt + 1} saw {seen} {match} kernels"
+              + ("" if launches is None else
+                 f", expected {launches} x {iters}"), flush=True)
+    raise SmokeFailure(f"the profiler saw no complete session of {match} "
+                       f"kernels in {attempts} sessions")
 
 
-def device_ms(fn, match, iters=20, attempts=3):
+def device_ms(fn, match, iters=20, attempts=5, launches=None):
     """Mean device time per call of ``fn`` in the kernels whose name
     contains ``match`` (:func:`device_kernels`)."""
-    return sum(device_kernels(fn, match, iters, attempts).values())
+    return sum(device_kernels(fn, match, iters, attempts,
+                              launches).values())
 
 
 def bound(n, c, itemsize, residual):
@@ -371,14 +394,20 @@ def kernel_phase(dev):
                       f"{name} {dtype}: kernel differs from its plain "
                       f"version (max abs err {err})")
                 bms, by = bound(x.numel(), c, x.element_size(), residual)
+                # x alone exceeds the 50 MB L2 in f32 and bf16: each call
+                # finds its input in HBM
+                dms = device_ms(kern, "affine_relu_kernel", launches=1)
                 rec = {"name": name, "dtype": str(dtype).split(".")[-1],
                        "shape": list(shape), "max_abs_err": err,
-                       "ms": time_ms(kern), "plain_ms": time_ms(plain),
+                       "ms": time_ms(kern), "device_ms": dms,
+                       "device_share_of_bound": bms / dms,
+                       "plain_ms": time_ms(plain),
                        "bound_ms": bms, "bound_by": by,
                        "library_ms": None}
                 cases.append(rec)
                 print(f"kernel {name} {rec['dtype']} {tuple(shape)}: "
-                      f"kernel_ms={rec['ms']:.4f} plain_ms="
+                      f"kernel_ms={rec['ms']:.4f} (device {dms:.4f}, "
+                      f"{bms / dms:.3f} of the bound) plain_ms="
                       f"{rec['plain_ms']:.4f} bound_ms={bms:.4f} ({by}, "
                       f"{HBM_BYTES_PER_S / 1e12} TB/s H100 SXM data-sheet "
                       f"rate) library_ms=null (no single PyTorch call "
@@ -424,7 +453,7 @@ def multi_entries(mkind, tensors, scalars, mixed):
     ``mkind`` over ``tensors``: as the optimizer sends them on the main
     path (one lr, the per-tensor case's weight decay everywhere), or
     ``mixed``: two lr tensors and three weight decays in turn."""
-    base, _ = MULTI_CASES[mkind]
+    base = MULTI_CASES[mkind][0]
     lr = scalars[0]
     if not mixed:
         wd = OPTIM_CASES[base][1].get("weight_decay", 0.0)
@@ -437,13 +466,12 @@ def multi_update(mkind, entries, scalars, plain=False):
     """One multi-tensor update (``plain``: its plain version, a loop of
     the per-tensor plain versions)."""
     from singa_tpu_torch.ops import fused_optim as fo
-    _, kw = MULTI_CASES[mkind]
-    suffix = "_reference" if plain else ""
+    _, name, kw = MULTI_CASES[mkind]
+    fn = getattr(fo, name + ("_reference" if plain else ""))
     if mkind == "adam_multi":
-        getattr(fo, "adam_update_multi" + suffix)(entries, *scalars[1:],
-                                                  **kw)
+        fn(entries, *scalars[1:], **kw)
     else:
-        getattr(fo, "sgd_momentum_update_multi" + suffix)(entries, **kw)
+        fn(entries, **kw)
 
 
 def clone_entries(entries):
@@ -540,14 +568,16 @@ def optim_kernel_phase(dev, param_shapes):
                 lib()               # past torch's first-step momentum init
             rec = {"name": kind, "shape": list(shape), "max_abs_err": err,
                    "ms": time_ms(kern),
-                   "device_ms": device_ms(kern_cold, KERNEL_NAME[kind]),
+                   "device_ms": device_ms(kern_cold, KERNEL_NAME[kind],
+                                          launches=1),
                    "plain_ms": time_ms(lambda: optim_update(
                        kind, [plain], scalars, plain=True)),
                    "bound_ms": bms, "bound_by": by,
                    "library_ms": time_ms(lib) if lib else None}
             cases.append(rec)
             del ring
-            lib_s = f"{rec['library_ms']:.4f}" if lib else "null"
+            lib_s = f"{rec['library_ms']:.4f}" if lib else \
+                f"null ({NO_LIBRARY[kind]})"
             print(f"kernel {kind} {shape}: kernel_ms={rec['ms']:.4f} "
                   f"(device {rec['device_ms']:.4f}) plain_ms="
                   f"{rec['plain_ms']:.4f} bound_ms={bms:.5f} ({by}) "
@@ -566,13 +596,15 @@ def optim_kernel_phase(dev, param_shapes):
             optim_update(kind, tensors, scalars)
         rec = {"name": kind, "tensors": len(tensors), "elements": n,
                "ms": time_ms(step, iters=10), "host_ms": host_ms(step),
-               "device_ms": device_ms(step, KERNEL_NAME[kind], iters=5),
+               "device_ms": device_ms(step, KERNEL_NAME[kind], iters=5,
+                                      launches=len(tensors)),
                "plain_ms": time_ms(lambda: optim_update(
                    kind, plain, scalars, plain=True), iters=10),
                "bound_ms": bms, "bound_by": by,
                "library_ms": time_ms(lib, iters=10) if lib else None}
         steps[kind] = rec
-        lib_s = f"{rec['library_ms']:.4f}" if lib else "null"
+        lib_s = f"{rec['library_ms']:.4f}" if lib else \
+            f"null ({NO_LIBRARY[kind]})"
         print(f"step {kind} over {len(tensors)} ResNet-50 tensors ({n} "
               f"elements, one launch each): kernel_ms={rec['ms']:.4f} "
               f"(host {rec['host_ms']:.4f}, device "
@@ -585,19 +617,19 @@ def optim_kernel_phase(dev, param_shapes):
 
 
 def multi_phase(dev, param_shapes, gen, per_tensor):
-    """K1's and K5's multi-tensor launches over the 161 ResNet-50
+    """The multi-tensor launches of K1, K5, K6 and K7 over the 161 ResNet-50
     parameter shapes (both chunk capacities crossed): bitwise against the
     loop of plain versions with mixed per-tensor lr and weight decay, in
     f32 and with bf16 parameters and f32 state, every written tensor's
     version checked, one launch per chunk and none per tensor; then each
     whole update timed as the optimizer sends it (one lr, one weight
-    decay), four ways, beside ``torch.optim``'s fused step and the
-    per-tensor loop of the same run (``per_tensor``)."""
+    decay), four ways, beside ``torch.optim``'s fused step (K1, K5) and
+    the per-tensor loop of the same run (``per_tensor``)."""
     import torch
     from singa_tpu_torch.ops import fused_optim as fo
     cases, steps = [], {}
-    for mkind, (base, _) in MULTI_CASES.items():
-        key = "adam_multi" if mkind == "adam_multi" else "sgd_multi"
+    for mkind, (base, _, _) in MULTI_CASES.items():
+        key = mkind.replace("_nesterov", "")
         chunks = multi_chunks(key, len(param_shapes))
         for p_dtype in (torch.float32, torch.bfloat16):
             tensors, scalars = optim_args(base, param_shapes, gen, dev,
@@ -649,7 +681,8 @@ def multi_phase(dev, param_shapes, gen, per_tensor):
         rec = {"name": mkind, "tensors": len(tensors), "elements": n,
                "launches_per_update": chunks,
                "ms": time_ms(step, iters=10), "host_ms": host_ms(step),
-               "device_ms": device_ms(step, KERNEL_NAME[mkind], iters=5),
+               "device_ms": device_ms(step, KERNEL_NAME[mkind], iters=5,
+                                      launches=chunks),
                "plain_ms": time_ms(lambda: multi_update(
                    mkind, plain, scalars, plain=True), iters=10),
                "bound_ms": bms, "bound_by": by,
@@ -657,7 +690,8 @@ def multi_phase(dev, param_shapes, gen, per_tensor):
                "per_tensor_ms": per_tensor[base]["ms"],
                "per_tensor_host_ms": per_tensor[base]["host_ms"]}
         steps[mkind] = rec
-        lib_s = f"{rec['library_ms']:.4f}" if lib else "null"
+        lib_s = f"{rec['library_ms']:.4f}" if lib else \
+            f"null ({NO_LIBRARY[base]})"
         print(f"step {mkind} over {len(tensors)} ResNet-50 tensors ({n} "
               f"elements, {chunks} launches): kernel_ms={rec['ms']:.4f} "
               f"(host {rec['host_ms']:.4f}, device "
@@ -1023,51 +1057,68 @@ def bn_only_update(dev, model, inputs, kernel, ref):
 
 
 def other_optimizers_phase(dev, models, tx, ty, start, inputs):
-    """Adam (K5's multi-tensor launch), RMSProp (K6), AdaGrad (K7): 3
-    steps fused against unfused from the same start; after Adam, a BN-only
-    per-tensor K5 update through ``Optimizer.apply``."""
+    """Adam, RMSProp and AdaGrad (the multi-tensor launches of K5, K6 and
+    K7): 3 steps each fused, unfused and through the per-tensor kernel
+    (the earlier design) from the same start, the three held bitwise;
+    after each, a BN-only per-tensor update through ``Optimizer.apply``
+    (:func:`bn_only_update`)."""
     import numpy as np
     from singa_tpu_torch import opt
     makers = {"adam": lambda f: opt.Adam(lr=1e-3, fused=f),
               "rmsprop": lambda f: opt.RMSProp(lr=1e-3, fused=f),
               "adagrad": lambda f: opt.AdaGrad(lr=1e-2, fused=f)}
-    kernels = {"adam": "adam_multi", "rmsprop": "rmsprop",
-               "adagrad": "adagrad"}
-    per_step = {"adam": multi_chunks("adam_multi", PARAMS_PER_STEP),
-                "rmsprop": PARAMS_PER_STEP, "adagrad": PARAMS_PER_STEP}
+    fused, plain = models
     out = {}
+
+    def ms(v):
+        return " ".join(f"{x:.3f}" for x in v)
     for kind, make in makers.items():
+        key = f"{kind}_multi"
+        per_step = multi_chunks(key, PARAMS_PER_STEP)
         res = {}
-        for m, fused in zip(models, (True, False)):
-            res[fused] = train_run(m, make(fused), start, tx, ty,
-                                   OTHER_STEPS, kernels[kind])
-        losses, times, n, other, update_ms = res[True]
-        check(per_step[kind] <= (4 if kind == "adam" else PARAMS_PER_STEP)
-              and n == per_step[kind] * OTHER_STEPS and other == 0,
-              f"{kind}: {n} {kernels[kind]} launches (expected "
-              f"{per_step[kind]} x {OTHER_STEPS}), {other} of other kernels")
-        check(res[False][2] + res[False][3] == 0,
+        for name, m in (("fused", fused), ("unfused", plain),
+                        ("per_tensor", plain)):
+            optimizer = make(name != "unfused")
+            if name == "per_tensor":
+                # the unfused run is held first: this run overwrites its
+                # model
+                n_states = held_equal(fused, plain, kind)
+                optimizer = per_tensor(optimizer)
+            res[name] = train_run(m, optimizer, start, tx, ty, OTHER_STEPS,
+                                  kind if name == "per_tensor" else key)
+        losses, times, n, other, update_ms = res["fused"]
+        check(per_step <= 4 and n == per_step * OTHER_STEPS and other == 0,
+              f"{kind}: {n} {key} launches (expected {per_step} x "
+              f"{OTHER_STEPS}), {other} of other kernels (per-tensor "
+              f"{kind} included)")
+        check(res["unfused"][2] + res["unfused"][3] == 0,
               f"{kind}: the unfused run launched a kernel")
+        pt = res["per_tensor"]
+        check(pt[2] == PARAMS_PER_STEP * OTHER_STEPS and pt[3] == 0,
+              f"{kind} per-tensor run: {pt[2]} {kind} launches (expected "
+              f"{PARAMS_PER_STEP} x {OTHER_STEPS}), {pt[3]} others")
         check(all(np.isfinite(losses)), f"{kind}: loss not finite")
-        n_states = held_equal(models[0], models[1], kind)
-        out[kind] = {"kernel": kernels[kind], "launches": n,
-                     "losses": losses, "step_ms": times,
-                     "update_host_ms": update_ms,
-                     "unfused_update_host_ms": res[False][4],
+        held_equal(fused, plain, f"{kind} multi-tensor against per-tensor")
+        out[kind] = {"kernel": key, "launches": n,
+                     "launches_per_step": per_step, "losses": losses,
+                     "step_ms": times, "update_host_ms": update_ms,
+                     "unfused_update_host_ms": res["unfused"][4],
+                     "per_tensor_step_ms": pt[1],
+                     "per_tensor_update_host_ms": pt[4],
                      "states_held": n_states}
-        print(f"train resnet50 {kind} x{OTHER_STEPS}: {n} {kernels[kind]} "
-              f"launches ({per_step[kind]}/step), update host ms "
-              + " ".join(f"{v:.3f}" for v in update_ms) + " (unfused "
-              + " ".join(f"{v:.3f}" for v in res[False][4]) + "), losses "
+        print(f"train resnet50 {kind} x{OTHER_STEPS}: {n} {key} launches "
+              f"({per_step}/step, no per-tensor {kind}), update host ms "
+              f"{ms(update_ms)} (unfused {ms(res['unfused'][4])}, "
+              f"per-tensor {ms(pt[4])}), step ms {ms(times)} (per-tensor "
+              f"{ms(pt[1])}), losses "
               + " ".join(f"{v:.6f}" for v in losses)
-              + f"; fused == unfused bitwise over {n_states} states",
-              flush=True)
-        if kind == "adam":
-            models[0].eval()
-            ref, _, _, _, _ = serve(models[0], dev, inputs, None, False)
-            serve(models[0], dev, inputs, None, True)
-            out["adam_bn_only"] = bn_only_update(dev, models[0], inputs,
-                                                 "adam", ref)
+              + f"; fused == unfused == per-tensor {kind} bitwise over "
+              f"{n_states} states", flush=True)
+        fused.eval()
+        ref, _, _, _, _ = serve(fused, dev, inputs, None, False)
+        serve(fused, dev, inputs, None, True)
+        out[f"{kind}_bn_only"] = bn_only_update(dev, fused, inputs, kind,
+                                                ref)
     return out
 
 
@@ -1824,14 +1875,13 @@ def main():
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": None})
     # launches of each optimizer kernel on the path that drives it: the
-    # fused training steps (multi-tensor K1 and K5, per-tensor K6 and K7),
-    # the BN-only Optimizer.apply loops (per-tensor K1 and K5)
+    # fused training steps (the multi-tensor kernels), the BN-only
+    # Optimizer.apply loops (the per-tensor ones)
     launches = {"sgd": evaluated["bn_only_k1_launches"],
-                "adam": others["adam_bn_only"]["launches"],
-                "rmsprop": others["rmsprop"]["launches"],
-                "adagrad": others["adagrad"]["launches"],
-                "sgd_multi": train["k1_launches"],
-                "adam_multi": others["adam"]["launches"]}
+                "sgd_multi": train["k1_launches"]}
+    for kind in ("adam", "rmsprop", "adagrad"):
+        launches[kind] = others[f"{kind}_bn_only"]["launches"]
+        launches[f"{kind}_multi"] = others[kind]["launches"]
     for kind, n in launches.items():
         step = optim_steps[kind]
         kernels.append({

@@ -3,6 +3,7 @@
 NVIDIA card.
 
     python3 profile_training.py [--model resnet50|lm] [--steps 3] [--warmup 3]
+                                [--optimizer sgd|rmsprop|adagrad]
 
 ``--model resnet50`` (the default) builds chip_smoke.py's ResNet training
 setup (ResNet-50, 224 px, batch 32, f32, TF32 off, NCHW, weights and BN
@@ -12,7 +13,12 @@ statistics from the same numpy seed, one fixed synthetic batch,
 (fused, unfused, unfused, fused), with cuDNN deterministic as in
 chip_smoke.py's comparison and again without it, prints one JSON line per
 run of ``--steps`` steps under ``torch.profiler`` (CPU + CUDA activities),
-after ``--warmup`` untraced steps:
+after ``--warmup`` untraced steps. ``--optimizer rmsprop`` or ``adagrad``
+trains the same model with ``RMSProp(lr=1e-3)`` or ``AdaGrad(lr=1e-2)``
+(chip_smoke.py's phase 8) and traces the fused step through the
+multi-tensor K6 or K7 launch and through the per-tensor kernel (the
+earlier design) in turns (multi, per-tensor, per-tensor, multi), cuDNN
+deterministic. Each line holds:
 
 - wall ms per step (host clock, the steps end in a synchronize), device
   busy ms per step (the sum of kernel times) and the device's idle share;
@@ -20,7 +26,8 @@ after ``--warmup`` untraced steps:
   convolutions (forward, data and weight gradients), the matrix products
   of the fc layer, reductions (the BN batch moments and the sums of their
   backward), elementwise passes (BN normalisation, ReLU, residual add,
-  and their backward; the unfused optimizer chain), pooling, K1, the rest;
+  and their backward; the unfused optimizer chain), pooling, K1, K6/K7,
+  the rest;
 - the kernels that take the most device time.
 
 ``--model lm`` builds chip_smoke.py's Transformer LM training setup
@@ -53,6 +60,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # kind of kernel -> substrings of its name (first match wins, in order)
 KINDS = (
     ("k1", ("sgd_kernel", "sgd_multi_kernel")),
+    ("k6_k7", ("scaled_kernel", "scaled_multi_kernel")),
     ("conv", ("conv", "xmma", "implicit", "wgrad", "dgrad", "cudnn",
               "winograd", "fft", "precomputed")),
     ("matmul", ("gemm", "cutlass", "gemv")),
@@ -108,24 +116,39 @@ def traced_steps(model, tx, ty, steps, kinds_table=KINDS):
     return wall, kernels, kinds
 
 
-def run(model, tx, ty, start, fused, deterministic, steps, warmup):
+# the optimizers of the ResNet traces, by --optimizer: fused or not
+OPTIMIZERS = {
+    "sgd": lambda opt, fused: opt.SGD(lr=0.1, momentum=0.9,
+                                      weight_decay=1e-5, fused=fused),
+    "rmsprop": lambda opt, fused: opt.RMSProp(lr=1e-3, fused=fused),
+    "adagrad": lambda opt, fused: opt.AdaGrad(lr=1e-2, fused=fused),
+}
+
+
+def run(model, tx, ty, start, optimizer, update, deterministic, steps,
+        warmup):
+    """``steps`` traced ResNet steps of ``optimizer`` after ``warmup``
+    untraced ones; ``update`` is ``"fused"`` (the multi-tensor launch),
+    ``"unfused"`` or ``"per_tensor"`` (the fused per-tensor kernel)."""
     import torch
     from singa_tpu_torch import opt
     from singa_tpu_torch.model import load_numpy_states
     from singa_tpu_torch.ops import fused_optim as fo
     torch.backends.cudnn.deterministic = deterministic
     load_numpy_states(model, start)
-    model.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5,
-                                fused=fused))
+    o = OPTIMIZERS[optimizer](opt, update != "unfused")
+    model.set_optimizer(chip_smoke.per_tensor(o) if update == "per_tensor"
+                        else o)
     model.train()
     for _ in range(warmup):
         model(tx, ty)
     fo.reset_counts()
     wall, kernels, kinds = traced_steps(model, tx, ty, steps)
-    rec = {"trace": "train", "fused": fused, "deterministic": deterministic,
-           "steps": steps, "batch": chip_smoke.BATCH,
-           "k1_launches_per_step": fo.launches["sgd"] / steps,
-           "k1_multi_launches_per_step": fo.launches["sgd_multi"] / steps}
+    rec = {"trace": "train", "optimizer": optimizer, "update": update,
+           "deterministic": deterministic, "steps": steps,
+           "batch": chip_smoke.BATCH,
+           "optimizer_launches_per_step": {
+               k: v / steps for k, v in fo.launches.items() if v}}
     rec.update(summary(wall, kernels, kinds, steps, chip_smoke.BATCH,
                        "img_per_s"))
     print(json.dumps(rec), flush=True)
@@ -202,6 +225,8 @@ def main(argv=None):
                     default="resnet50")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--warmup", type=int, default=3)
+    ap.add_argument("--optimizer", choices=sorted(OPTIMIZERS),
+                    default="sgd")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -219,12 +244,16 @@ def main(argv=None):
         name = "profile_training_lm.json"
     else:
         (model, _), tx, ty, start = chip_smoke.train_models(dev)
-        recs = []
-        for deterministic in (True, False):
-            for fused in (True, False, False, True):
-                recs.append(run(model, tx, ty, start, fused, deterministic,
-                                args.steps, args.warmup))
-        name = "profile_training.json"
+        if args.optimizer == "sgd":
+            turns = [(d, u) for d in (True, False)
+                     for u in ("fused", "unfused", "unfused", "fused")]
+            name = "profile_training.json"
+        else:
+            turns = [(True, u) for u in ("fused", "per_tensor",
+                                         "per_tensor", "fused")]
+            name = f"profile_training_{args.optimizer}.json"
+        recs = [run(model, tx, ty, start, args.optimizer, u, d, args.steps,
+                    args.warmup) for d, u in turns]
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, name), "w") as f:

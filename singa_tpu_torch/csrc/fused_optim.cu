@@ -41,14 +41,16 @@
 // kernel's (rows, 128) tiles and zero padding are Mosaic details with no
 // counterpart here.
 //
-// Design, multi-tensor (singa_sgd_update_multi, singa_adam_update_multi:
-// K1 and K5 over all of a step's parameters at once): the host passes an
-// array of per-tensor entries (pointers, n, the tensor's own lr pointer
-// and weight decay). The table reaches the device BY VALUE, as the
-// kernel's one parameter (a __grid_constant__ struct of at most 4 KB, the
-// limit every toolkit and card take): SGD_MULTI_MAX (83) SGD entries or
-// ADAM_MULTI_MAX (70) Adam entries per launch, so a ResNet-50 step is 2
-// (K1) or 3 (K5) launches in place of 161. No device table, no copy and
+// Design, multi-tensor (singa_sgd_update_multi, singa_adam_update_multi,
+// singa_rmsprop_update_multi, singa_adagrad_update_multi: K1, K5, K6 and
+// K7 over all of a step's parameters at once): the host passes an array
+// of per-tensor entries (pointers, n, the tensor's own lr pointer and
+// weight decay). The table reaches the device BY VALUE, as the kernel's
+// one parameter (a __grid_constant__ struct of at most 4 KB, the limit
+// every toolkit and card take). K1, K6 and K7 carry one state each and
+// share one table (OneStateTable, SGD_MULTI_MAX = 83 entries per launch);
+// K5 has its own (ADAM_MULTI_MAX = 70). So a ResNet-50 step is 2 (K1,
+// K6, K7) or 3 (K5) launches in place of 161. No device table, no copy and
 // no allocation, so stream order alone orders one step's launch after the
 // last; the table is rebuilt from the current gradients every call. Each
 // tensor gets ceil(n / TILE) blocks of 256 threads, TILE = 4096 elements;
@@ -57,9 +59,10 @@
 // blocks, so a 64-element BN vector and a 2.36 M-element conv weight share
 // one grid. The 4-wide path is chosen per tensor from its own pointers'
 // alignment (a tile starts at a multiple of TILE, so it keeps it). Both
-// designs run the same per-element update (sgd_elem / adam_elem) through
-// the same span loop (sgd_span / adam_span), so a multi-tensor launch is
-// bitwise-equal to one launch per tensor and to the plain version.
+// designs run the same per-element update (sgd_elem / adam_elem /
+// scaled_elem) through the same span loop (sgd_span / adam_span /
+// scaled_span), so a multi-tensor launch is bitwise-equal to one launch
+// per tensor and to the plain version.
 //
 // Numerics: __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn / __fsqrt_rn
 // keep the compiler from contracting a multiply and an add into an FMA,
@@ -80,7 +83,8 @@
 
 // One tensor of a multi-tensor update, as the host passes it: its
 // pointers, its element count (> 0), a device pointer to its own f32
-// learning rate and its own weight decay.
+// learning rate and its own weight decay. SingaSgdEntry serves every
+// one-state kernel: m is K1's momentum, K6's mean square or K7's history.
 struct SingaSgdEntry {
   void* p;
   const void* g;
@@ -100,7 +104,8 @@ struct SingaAdamEntry {
   float weight_decay;
 };
 
-// entries per multi-tensor launch: as many as fit the 4 KB table
+// entries per multi-tensor launch: as many as fit the 4 KB table (one
+// state: K1, K6, K7; two states: K5)
 #define SGD_MULTI_MAX 83
 #define ADAM_MULTI_MAX 70
 
@@ -185,14 +190,21 @@ struct RmsArgs {
   float rho, one_minus_rho, eps, weight_decay;
 };
 
-// K6 and K7 share the tail p - lr*g / sqrt(stored + eps); the state is
-// rounded to its own type before it is read back
-template <class S>
-__device__ __forceinline__ float scaled_step(float p, float g, float lr,
-                                             typename S::T stored,
-                                             float eps) {
+// K6 (ADAGRAD = false) and K7 (ADAGRAD = true): returns the new
+// parameter; r is replaced by the new state, rounded to its own type,
+// and the step reads that stored value back
+template <class S, bool ADAGRAD>
+__device__ __forceinline__ float scaled_elem(float p, float g,
+                                             typename S::T& r, float lr,
+                                             const RmsArgs& a) {
+  if (a.weight_decay != 0.f) g = __fadd_rn(g, __fmul_rn(a.weight_decay, p));
+  const float rf = S::to_f(r);
+  r = S::from_f(ADAGRAD ? __fadd_rn(rf, __fmul_rn(g, g))
+                        : __fadd_rn(__fmul_rn(a.rho, rf),
+                                    __fmul_rn(__fmul_rn(a.one_minus_rho, g),
+                                              g)));
   return __fsub_rn(p, __fdiv_rn(__fmul_rn(lr, g),
-                                __fsqrt_rn(__fadd_rn(S::to_f(stored), eps))));
+                                __fsqrt_rn(__fadd_rn(S::to_f(r), a.eps))));
 }
 
 // -- the span loops -----------------------------------------------------
@@ -263,6 +275,32 @@ __device__ __forceinline__ void adam_span(
   }
 }
 
+template <class P, class S, bool ADAGRAD>
+__device__ __forceinline__ void scaled_span(
+    typename P::T* __restrict__ p, const typename P::T* __restrict__ g,
+    typename S::T* __restrict__ r, float lr, long long n,
+    const RmsArgs& a, bool vec, long long tid, long long stride) {
+  const long long nvec = vec ? n / V : 0;
+  for (long long i = tid; i < nvec; i += stride) {
+    Vec<typename P::T> pv = reinterpret_cast<Vec<typename P::T>*>(p)[i];
+    const Vec<typename P::T> gv =
+        reinterpret_cast<const Vec<typename P::T>*>(g)[i];
+    Vec<typename S::T> rv = reinterpret_cast<Vec<typename S::T>*>(r)[i];
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+      pv.e[k] = P::from_f(scaled_elem<S, ADAGRAD>(
+          P::to_f(pv.e[k]), P::to_f(gv.e[k]), rv.e[k], lr, a));
+    reinterpret_cast<Vec<typename P::T>*>(p)[i] = pv;
+    reinterpret_cast<Vec<typename S::T>*>(r)[i] = rv;
+  }
+  for (long long i = nvec * V + tid; i < n; i += stride) {
+    typename S::T rs = r[i];
+    p[i] = P::from_f(
+        scaled_elem<S, ADAGRAD>(P::to_f(p[i]), P::to_f(g[i]), rs, lr, a));
+    r[i] = rs;
+  }
+}
+
 // -- the kernels --------------------------------------------------------
 
 template <class P, class S>
@@ -273,6 +311,17 @@ __global__ void __launch_bounds__(256) sgd_kernel(
   sgd_span<P, S>(p, g, m, __ldg(lr_ptr), n, a, vec,
                  (long long)blockIdx.x * blockDim.x + threadIdx.x,
                  (long long)gridDim.x * blockDim.x);
+}
+
+// RMSProp (ADAGRAD = false) and AdaGrad (ADAGRAD = true): one state r
+template <class P, class S, bool ADAGRAD>
+__global__ void __launch_bounds__(256) scaled_kernel(
+    typename P::T* __restrict__ p, const typename P::T* __restrict__ g,
+    typename S::T* __restrict__ r, const float* __restrict__ lr_ptr,
+    long long n, RmsArgs a, bool vec) {
+  scaled_span<P, S, ADAGRAD>(p, g, r, __ldg(lr_ptr), n, a, vec,
+                             (long long)blockIdx.x * blockDim.x + threadIdx.x,
+                             (long long)gridDim.x * blockDim.x);
 }
 
 template <class P, class S>
@@ -293,7 +342,18 @@ __global__ void __launch_bounds__(256) adam_kernel(
 
 constexpr int TILE = 4096;  // elements per block of a multi-tensor launch
 
-struct SgdTable {
+// K1, K6 and K7: one state per entry (m: the momentum, the mean square or
+// the history); the hyperparameters the entries share follow the entries
+struct SgdShared {
+  float momentum, one_minus_dampening;
+  int nesterov;
+};
+
+struct ScaledShared {
+  float rho, one_minus_rho, eps;
+};
+
+struct OneStateTable {
   void* p[SGD_MULTI_MAX];
   const void* g[SGD_MULTI_MAX];
   void* m[SGD_MULTI_MAX];
@@ -303,8 +363,10 @@ struct SgdTable {
   int block_end[SGD_MULTI_MAX];
   unsigned char vec[SGD_MULTI_MAX];
   int count;
-  float momentum, one_minus_dampening;
-  int nesterov;
+  union {
+    SgdShared sgd;        // K1
+    ScaledShared scaled;  // K6, K7 (rho unused by K7)
+  } shared;
 };
 
 struct AdamTable {
@@ -323,7 +385,7 @@ struct AdamTable {
   float beta1, one_minus_beta1, beta2, one_minus_beta2, eps;
 };
 
-static_assert(sizeof(SgdTable) <= 4096 && sizeof(AdamTable) <= 4096,
+static_assert(sizeof(OneStateTable) <= 4096 && sizeof(AdamTable) <= 4096,
               "a multi-tensor table must fit the 4 KB kernel parameter "
               "space");
 
@@ -353,19 +415,37 @@ __device__ __forceinline__ void tile_of(const int (&block_end)[N],
 
 template <class P, class S>
 __global__ void __launch_bounds__(256) sgd_multi_kernel(
-    const __grid_constant__ SgdTable t) {
+    const __grid_constant__ OneStateTable t) {
   using PT = typename P::T;
   using ST = typename S::T;
   const int b = blockIdx.x;
   const int e = find_entry(t.block_end, t.count, b);
   long long begin, len;
   tile_of(t.block_end, t.n, e, b, begin, len);
-  const SgdArgs a{t.momentum, t.one_minus_dampening, t.weight_decay[e],
-                  t.nesterov};
+  const SgdArgs a{t.shared.sgd.momentum, t.shared.sgd.one_minus_dampening,
+                  t.weight_decay[e], t.shared.sgd.nesterov};
   sgd_span<P, S>(static_cast<PT*>(t.p[e]) + begin,
                  static_cast<const PT*>(t.g[e]) + begin,
                  static_cast<ST*>(t.m[e]) + begin, __ldg(t.lr[e]), len, a,
                  t.vec[e] != 0, threadIdx.x, blockDim.x);
+}
+
+template <class P, class S, bool ADAGRAD>
+__global__ void __launch_bounds__(256) scaled_multi_kernel(
+    const __grid_constant__ OneStateTable t) {
+  using PT = typename P::T;
+  using ST = typename S::T;
+  const int b = blockIdx.x;
+  const int e = find_entry(t.block_end, t.count, b);
+  long long begin, len;
+  tile_of(t.block_end, t.n, e, b, begin, len);
+  const RmsArgs a{t.shared.scaled.rho, t.shared.scaled.one_minus_rho,
+                  t.shared.scaled.eps, t.weight_decay[e]};
+  scaled_span<P, S, ADAGRAD>(static_cast<PT*>(t.p[e]) + begin,
+                             static_cast<const PT*>(t.g[e]) + begin,
+                             static_cast<ST*>(t.m[e]) + begin,
+                             __ldg(t.lr[e]), len, a, t.vec[e] != 0,
+                             threadIdx.x, blockDim.x);
 }
 
 template <class P, class S>
@@ -385,49 +465,6 @@ __global__ void __launch_bounds__(256) adam_multi_kernel(
                   static_cast<ST*>(t.v[e]) + begin, __ldg(t.lr[e]),
                   __ldg(t.bc1), __ldg(t.bc2), len, a, t.vec[e] != 0,
                   threadIdx.x, blockDim.x);
-}
-
-// RMSProp (ADAGRAD = false) and AdaGrad (ADAGRAD = true): one state r
-template <class P, class S, bool ADAGRAD>
-__global__ void __launch_bounds__(256) scaled_kernel(
-    typename P::T* __restrict__ p, const typename P::T* __restrict__ g,
-    typename S::T* __restrict__ r, const float* __restrict__ lr_ptr,
-    long long n, RmsArgs a, bool vec) {
-  const float lr = __ldg(lr_ptr);
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long nvec = vec ? n / V : 0;
-  auto state = [&](float rf, float gf) {
-    return ADAGRAD ? __fadd_rn(rf, __fmul_rn(gf, gf))
-                   : __fadd_rn(__fmul_rn(a.rho, rf),
-                               __fmul_rn(__fmul_rn(a.one_minus_rho, gf), gf));
-  };
-  for (long long i = tid; i < nvec; i += stride) {
-    Vec<typename P::T> pv = reinterpret_cast<Vec<typename P::T>*>(p)[i];
-    const Vec<typename P::T> gv =
-        reinterpret_cast<const Vec<typename P::T>*>(g)[i];
-    Vec<typename S::T> rv = reinterpret_cast<Vec<typename S::T>*>(r)[i];
-#pragma unroll
-    for (int k = 0; k < V; ++k) {
-      const float pf = P::to_f(pv.e[k]);
-      float gf = P::to_f(gv.e[k]);
-      if (a.weight_decay != 0.f)
-        gf = __fadd_rn(gf, __fmul_rn(a.weight_decay, pf));
-      rv.e[k] = S::from_f(state(S::to_f(rv.e[k]), gf));
-      pv.e[k] = P::from_f(scaled_step<S>(pf, gf, lr, rv.e[k], a.eps));
-    }
-    reinterpret_cast<Vec<typename P::T>*>(p)[i] = pv;
-    reinterpret_cast<Vec<typename S::T>*>(r)[i] = rv;
-  }
-  for (long long i = nvec * V + tid; i < n; i += stride) {
-    const float pf = P::to_f(p[i]);
-    float gf = P::to_f(g[i]);
-    if (a.weight_decay != 0.f)
-      gf = __fadd_rn(gf, __fmul_rn(a.weight_decay, pf));
-    const typename S::T rs = S::from_f(state(S::to_f(r[i]), gf));
-    r[i] = rs;
-    p[i] = P::from_f(scaled_step<S>(pf, gf, lr, rs, a.eps));
-  }
 }
 
 int max_resident_blocks() {
@@ -490,19 +527,17 @@ struct Launch {
         (PT*)p, (const PT*)g, (ST*)r, lr, n, a, vec);
     return (int)cudaGetLastError();
   }
-  // one launch over `count` entries (1..SGD_MULTI_MAX)
-  static int sgd_multi(const SingaSgdEntry* es, int count, float momentum,
-                       float one_minus_dampening, int nesterov,
-                       cudaStream_t st) {
+  // the entries of a one-state table; the grid's block count, or -1 for
+  // a count or an entry the kernels do not take
+  static long long fill(OneStateTable& t, const SingaSgdEntry* es,
+                        int count) {
     using PT = typename P::T;
     using ST = typename S::T;
-    if (count < 1 || count > SGD_MULTI_MAX)
-      return (int)cudaErrorInvalidValue;
-    SgdTable t{};
+    if (count < 1 || count > SGD_MULTI_MAX) return -1;
     long long blocks = 0;
     for (int i = 0; i < count; ++i) {
       const SingaSgdEntry& e = es[i];
-      if (e.n <= 0) return (int)cudaErrorInvalidValue;
+      if (e.n <= 0) return -1;
       t.p[i] = e.p;
       t.g[i] = e.g;
       t.m[i] = e.m;
@@ -512,14 +547,30 @@ struct Launch {
       t.vec[i] = aligned((PT*)e.p) && aligned((const PT*)e.g) &&
                  aligned((ST*)e.m);
       blocks += (e.n + TILE - 1) / TILE;
-      if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+      if (blocks > INT_MAX) return -1;
       t.block_end[i] = (int)blocks;
     }
     t.count = count;
-    t.momentum = momentum;
-    t.one_minus_dampening = one_minus_dampening;
-    t.nesterov = nesterov;
+    return blocks;
+  }
+  // one launch over `count` entries (1..SGD_MULTI_MAX)
+  static int sgd_multi(const SingaSgdEntry* es, int count, SgdShared a,
+                       cudaStream_t st) {
+    OneStateTable t{};
+    const long long blocks = fill(t, es, count);
+    if (blocks < 1) return (int)cudaErrorInvalidValue;
+    t.shared.sgd = a;
     sgd_multi_kernel<P, S><<<(unsigned)blocks, 256, 0, st>>>(t);
+    return (int)cudaGetLastError();
+  }
+  template <bool ADAGRAD>
+  static int scaled_multi(const SingaSgdEntry* es, int count,
+                          ScaledShared a, cudaStream_t st) {
+    OneStateTable t{};
+    const long long blocks = fill(t, es, count);
+    if (blocks < 1) return (int)cudaErrorInvalidValue;
+    t.shared.scaled = a;
+    scaled_multi_kernel<P, S, ADAGRAD><<<(unsigned)blocks, 256, 0, st>>>(t);
     return (int)cudaGetLastError();
   }
   // one launch over `count` entries (1..ADAM_MULTI_MAX)
@@ -651,7 +702,8 @@ extern "C" int singa_adagrad_update(int p_dtype, int s_dtype, void* p,
 }
 
 // entries: a host array of `count` entries of one (p, state) dtype pair;
-// any count > 0, at most SGD_MULTI_MAX / ADAM_MULTI_MAX, each with n > 0.
+// any count > 0, at most SGD_MULTI_MAX (K1, K6, K7) / ADAM_MULTI_MAX (K5),
+// each with n > 0.
 // One launch each; the hyperparameters shared by the entries are
 // arguments, as for the per-tensor functions.
 
@@ -660,10 +712,10 @@ extern "C" int singa_sgd_update_multi(int p_dtype, int s_dtype,
                                       int count, float momentum,
                                       float one_minus_dampening,
                                       int nesterov, void* stream) {
+  const SgdShared a{momentum, one_minus_dampening, nesterov};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return with_types(p_dtype, s_dtype, [&](auto l) {
-    return l.sgd_multi(entries, count, momentum, one_minus_dampening,
-                       nesterov, st);
+    return l.sgd_multi(entries, count, a, st);
   });
 }
 
@@ -682,7 +734,38 @@ extern "C" int singa_adam_update_multi(int p_dtype, int s_dtype,
   });
 }
 
-// the most entries one multi-tensor launch takes: 0 = SGD, 1 = Adam
+// entries: SingaSgdEntry, m the mean square (K6) or the history (K7)
+extern "C" int singa_rmsprop_update_multi(int p_dtype, int s_dtype,
+                                          const SingaSgdEntry* entries,
+                                          int count, float rho,
+                                          float one_minus_rho, float eps,
+                                          void* stream) {
+  const ScaledShared a{rho, one_minus_rho, eps};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_types(p_dtype, s_dtype, [&](auto l) {
+    return l.template scaled_multi<false>(entries, count, a, st);
+  });
+}
+
+extern "C" int singa_adagrad_update_multi(int p_dtype, int s_dtype,
+                                          const SingaSgdEntry* entries,
+                                          int count, float eps,
+                                          void* stream) {
+  const ScaledShared a{0.f, 0.f, eps};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_types(p_dtype, s_dtype, [&](auto l) {
+    return l.template scaled_multi<true>(entries, count, a, st);
+  });
+}
+
+// the most entries one multi-tensor launch takes, by kind: 0 = SGD (K1),
+// 1 = Adam (K5), 2 = RMSProp (K6), 3 = AdaGrad (K7); 0 for another code
 extern "C" int singa_optim_multi_capacity(int kind) {
-  return kind == 0 ? SGD_MULTI_MAX : kind == 1 ? ADAM_MULTI_MAX : 0;
+  switch (kind) {
+    case 0: return SGD_MULTI_MAX;
+    case 1: return ADAM_MULTI_MAX;
+    case 2: return SGD_MULTI_MAX;
+    case 3: return SGD_MULTI_MAX;
+    default: return 0;
+  }
 }

@@ -14,11 +14,13 @@ the state once, in place:
   for the step (K6);
 - :func:`adagrad_update` -- the new history is stored, then read back
   (K7);
-- :func:`sgd_momentum_update_multi`, :func:`adam_update_multi` -- K1 and
-  K5 over many parameters at once, each with its own lr and weight decay:
-  on the card one launch per chunk of up to ``MULTI_CAPACITY`` tensors
-  (the table travels as the kernel's parameter), so a whole ResNet-50
-  step is 2 or 3 launches in place of 161. ``opt.SGD/Adam(fused=True)``
+- :func:`sgd_momentum_update_multi`, :func:`adam_update_multi`,
+  :func:`rmsprop_update_multi`, :func:`adagrad_update_multi` -- K1, K5,
+  K6 and K7 over many parameters at once, each with its own lr and
+  weight decay: on the card one launch per chunk of up to
+  ``MULTI_CAPACITY`` tensors (the table travels as the kernel's
+  parameter), so a whole ResNet-50 step is 2 (K1, K6, K7) or 3 (K5)
+  launches in place of 161. ``opt.SGD/Adam/RMSProp/AdaGrad(fused=True)``
   update a step's eligible parameters this way; ``Optimizer.apply`` keeps
   the per-tensor wrappers.
 
@@ -34,10 +36,11 @@ plain version only for a tensor on the CPU. A CUDA tensor always goes to
 the hand-written kernel in ``csrc/fused_optim.cu`` (built at first use by
 :mod:`..cuda_build`) or raises: no fallback and no size gate (the JAX
 package's ``MIN_FUSED_ELEMS`` is a TPU launch-cost gate and is not carried
-over). ``launches`` counts kernel launches by kernel: ``"sgd"`` and
-``"adam"`` per-tensor launches, ``"sgd_multi"`` and ``"adam_multi"``
-multi-tensor ones. On the CPU a multi-tensor wrapper calls the per-tensor
-wrapper of this module for each entry, so it counts no launch either.
+over). ``launches`` counts kernel launches by kernel: ``"sgd"``,
+``"adam"``, ``"rmsprop"`` and ``"adagrad"`` per-tensor launches, the same
+names with ``"_multi"`` multi-tensor ones. On the CPU a multi-tensor
+wrapper calls the per-tensor wrapper of this module for each entry
+(looked up when called), so it counts no launch either.
 
 The kernel writes through raw pointers, which PyTorch's version counter
 does not see. Each launch therefore bumps the version of every tensor it
@@ -56,7 +59,8 @@ import torch
 
 # kernel launches, by kernel (only where the CUDA kernel runs)
 launches = {"sgd": 0, "adam": 0, "rmsprop": 0, "adagrad": 0,
-            "sgd_multi": 0, "adam_multi": 0}
+            "sgd_multi": 0, "adam_multi": 0, "rmsprop_multi": 0,
+            "adagrad_multi": 0}
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -153,7 +157,7 @@ _VP, _INT, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 
 class _SgdEntry(ctypes.Structure):
     """``SingaSgdEntry`` of ``csrc/fused_optim.cu``: one tensor of a
-    multi-tensor K1 launch."""
+    multi-tensor K1, K6 or K7 launch (``m`` its one state)."""
     _fields_ = [("p", _VP), ("g", _VP), ("m", _VP), ("lr", _VP),
                 ("n", _LL), ("weight_decay", _F)]
 
@@ -166,13 +170,18 @@ class _AdamEntry(ctypes.Structure):
 
 # a chunk's table is built as a numpy array of these structs: one
 # conversion of a list of tuples, cheaper than filling a ctypes array
-_ENTRIES = {"sgd_multi": _SgdEntry, "adam_multi": _AdamEntry}
+_ENTRIES = {"sgd_multi": _SgdEntry, "adam_multi": _AdamEntry,
+            "rmsprop_multi": _SgdEntry, "adagrad_multi": _SgdEntry}
 _ROWS = {kind: np.dtype(entry) for kind, entry in _ENTRIES.items()}
 
 # entries per multi-tensor launch: as many as fit the kernel's 4 KB
-# parameter table (SGD_MULTI_MAX, ADAM_MULTI_MAX in the source, checked
-# against the library when it loads)
-MULTI_CAPACITY = {"sgd_multi": 83, "adam_multi": 70}
+# parameter table (SGD_MULTI_MAX for the one-state kernels, ADAM_MULTI_MAX
+# in the source, checked against the library when it loads)
+MULTI_CAPACITY = {"sgd_multi": 83, "adam_multi": 70, "rmsprop_multi": 83,
+                  "adagrad_multi": 83}
+# the kind code singa_optim_multi_capacity takes for each
+_CAPACITY_CODE = {"sgd_multi": 0, "adam_multi": 1, "rmsprop_multi": 2,
+                  "adagrad_multi": 3}
 
 _SIGNATURES = {
     # name: (C function, argument types after the two dtype codes)
@@ -185,6 +194,10 @@ _SIGNATURES = {
         ctypes.POINTER(_SgdEntry), _INT, _F, _F, _INT, _VP]),
     "adam_multi": ("singa_adam_update_multi", [
         ctypes.POINTER(_AdamEntry), _INT, _VP, _VP] + [_F] * 5 + [_VP]),
+    "rmsprop_multi": ("singa_rmsprop_update_multi", [
+        ctypes.POINTER(_SgdEntry), _INT] + [_F] * 3 + [_VP]),
+    "adagrad_multi": ("singa_adagrad_update_multi", [
+        ctypes.POINTER(_SgdEntry), _INT, _F, _VP]),
 }
 
 
@@ -195,7 +208,7 @@ def _function(kind):
     fn = getattr(lib, name)
     if fn.argtypes is None:
         if kind in MULTI_CAPACITY:
-            cap = lib.singa_optim_multi_capacity(kind != "sgd_multi")
+            cap = lib.singa_optim_multi_capacity(_CAPACITY_CODE[kind])
             if cap != MULTI_CAPACITY[kind]:
                 raise RuntimeError(
                     f"{name} takes {cap} entries per launch, the wrapper "
@@ -340,7 +353,7 @@ def adagrad_update(p, g, h, lr, *, epsilon, weight_decay=0.0):
     return p, h
 
 
-# -- multi-tensor updates: K1 and K5 over many parameters in few launches ---
+# -- multi-tensor updates: K1, K5, K6, K7 over many parameters in few launches
 
 def sgd_momentum_update_multi_reference(entries, *, momentum, dampening=0.0,
                                         nesterov=False):
@@ -359,6 +372,20 @@ def adam_update_multi_reference(entries, bias_corr1, bias_corr2, *, beta_1,
         adam_update_reference(p, g, m, v, lr, bias_corr1, bias_corr2,
                               beta_1=beta_1, beta_2=beta_2, epsilon=epsilon,
                               weight_decay=wd)
+
+
+def rmsprop_update_multi_reference(entries, *, rho, epsilon):
+    """Plain version of :func:`rmsprop_update_multi`."""
+    for p, g, r, lr, wd in entries:
+        rmsprop_update_reference(p, g, r, lr, rho=rho, epsilon=epsilon,
+                                 weight_decay=wd)
+
+
+def adagrad_update_multi_reference(entries, *, epsilon):
+    """Plain version of :func:`adagrad_update_multi`."""
+    for p, g, h, lr, wd in entries:
+        adagrad_update_reference(p, g, h, lr, epsilon=epsilon,
+                                 weight_decay=wd)
 
 
 def _on_cpu(entries):
@@ -463,3 +490,37 @@ def adam_update_multi(entries, bias_corr1, bias_corr2, *, beta_1, beta_2,
                (bc1.data_ptr(), bc2.data_ptr(), float(beta_1),
                 float(1.0 - beta_1), float(beta_2), float(1.0 - beta_2),
                 float(epsilon)))
+
+
+def rmsprop_update_multi(entries, *, rho, epsilon):
+    """Fused ``opt.RMSProp`` update of many parameters, in place.
+    ``entries`` holds one ``(p, g, r, lr, weight_decay)`` per parameter,
+    ``r`` its mean square; rho and epsilon are shared. On the card, kernel
+    K6's multi-tensor launch, one per chunk of
+    ``MULTI_CAPACITY["rmsprop_multi"]`` entries of one dtype pair,
+    bitwise-equal to one :func:`rmsprop_update` per entry; on the CPU,
+    :func:`rmsprop_update` for each entry."""
+    if not entries:
+        return
+    if _on_cpu(entries):
+        for p, g, r, lr, wd in entries:
+            rmsprop_update(p, g, r, lr, rho=rho, epsilon=epsilon,
+                           weight_decay=wd)
+        return
+    _run_multi("rmsprop_multi", entries, 1,
+               (float(rho), float(1.0 - rho), float(epsilon)))
+
+
+def adagrad_update_multi(entries, *, epsilon):
+    """Fused ``opt.AdaGrad`` update of many parameters, in place.
+    ``entries`` holds one ``(p, g, h, lr, weight_decay)`` per parameter,
+    ``h`` its history. On the card, kernel K7's multi-tensor launch, one
+    per chunk of ``MULTI_CAPACITY["adagrad_multi"]`` entries of one dtype
+    pair; on the CPU, :func:`adagrad_update` for each entry."""
+    if not entries:
+        return
+    if _on_cpu(entries):
+        for p, g, h, lr, wd in entries:
+            adagrad_update(p, g, h, lr, epsilon=epsilon, weight_decay=wd)
+        return
+    _run_multi("adagrad_multi", entries, 1, (float(epsilon),))

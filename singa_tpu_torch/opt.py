@@ -21,11 +21,12 @@ chain below, per parameter, as the JAX package does. Unlike the JAX
 package there is no size gate (``MIN_FUSED_ELEMS``): on the card every
 eligible parameter goes to the kernel. A training step
 (:meth:`Optimizer.backward_and_update`) gathers the eligible parameters of
-``SGD`` (with momentum) and ``Adam`` (without amsgrad) into one
-multi-tensor call (``sgd_momentum_update_multi`` / ``adam_update_multi``:
-a few launches for the whole model), and sends every other parameter
-through :meth:`Optimizer.apply`, which updates one parameter and keeps
-the per-tensor kernels.
+``SGD`` (with momentum), ``Adam`` (without amsgrad), ``RMSProp`` and
+``AdaGrad`` into one multi-tensor call (``sgd_momentum_update_multi``,
+``adam_update_multi``, ``rmsprop_update_multi``,
+``adagrad_update_multi``: a few launches for the whole model), and sends
+every other parameter through :meth:`Optimizer.apply`, which updates one
+parameter and keeps the per-tensor kernels.
 
 The loss scale is held at 1.0: dynamic loss scaling
 (``resilience.GuardedOptimizer``) comes with ``bf16_mixed`` training
@@ -387,7 +388,9 @@ class SGD(Optimizer):
 
 
 class RMSProp(Optimizer):
-    """RMSProp. ``fused=True``: kernel K6 for each eligible param."""
+    """RMSProp. ``fused=True``: kernel K6 for each eligible param, a
+    training step's all in one multi-tensor call. The weight decay applies
+    to every param, as in the JAX package."""
 
     def __init__(self, lr=0.1, rho=0.9, epsilon=1e-8, weight_decay=0.0,
                  fused=False):
@@ -396,6 +399,19 @@ class RMSProp(Optimizer):
         self.epsilon = epsilon
         self.weight_decay = weight_decay
         self.fused = bool(fused)
+
+    def _multi_entry(self, name, p, grad):
+        if not self._fused_ok(name, p):
+            return None
+        self._bound(p)
+        return (p.data, _grad_as(grad, p),
+                self._get_aux(f"{name}:rms", p).data,
+                self._scaled_lr(name), self.weight_decay)
+
+    def _update_multi(self, entries):
+        from .ops import fused_optim
+        fused_optim.rmsprop_update_multi(entries, rho=self.rho,
+                                         epsilon=self.epsilon)
 
     def _update(self, name, p, grad):
         if self._fused_ok(name, p):
@@ -416,7 +432,9 @@ class RMSProp(Optimizer):
 
 
 class AdaGrad(Optimizer):
-    """AdaGrad. ``fused=True``: kernel K7 for each eligible param."""
+    """AdaGrad. ``fused=True``: kernel K7 for each eligible param, a
+    training step's all in one multi-tensor call. The weight decay applies
+    to every param, as in the JAX package."""
 
     def __init__(self, lr=0.1, epsilon=1e-8, weight_decay=0.0,
                  fused=False):
@@ -424,6 +442,18 @@ class AdaGrad(Optimizer):
         self.epsilon = epsilon
         self.weight_decay = weight_decay
         self.fused = bool(fused)
+
+    def _multi_entry(self, name, p, grad):
+        if not self._fused_ok(name, p):
+            return None
+        self._bound(p)
+        return (p.data, _grad_as(grad, p),
+                self._get_aux(f"{name}:history", p).data,
+                self._scaled_lr(name), self.weight_decay)
+
+    def _update_multi(self, entries):
+        from .ops import fused_optim
+        fused_optim.adagrad_update_multi(entries, epsilon=self.epsilon)
 
     def _update(self, name, p, grad):
         if self._fused_ok(name, p):

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: K2 (``ops/fused_epilogue.py``), K1, K5, K6, K7 and the
-multi-tensor K1 and K5 launches (``ops/fused_optim.py``) and K3, K4
+card: K2 (``ops/fused_epilogue.py``), K1, K5, K6, K7 and their
+multi-tensor launches (``ops/fused_optim.py``) and K3, K4
 (``ops/attention.py``).
 
 Marked ``cuda``: the kernels have no CPU mode, so each case skips with a
@@ -22,6 +22,8 @@ f32 result to bf16, so a value may land one bf16 step away), and each
 value within 1e-5 (f32) or 0.025 (bf16) of its own size plus its row's
 rms (chip_smoke.py's per-element gate).
 """
+
+import math
 
 import pytest
 import torch
@@ -504,3 +506,111 @@ def test_each_wrapper_runs_the_kernel_of_its_dtype(dtype):
         ours = [n for n in names if "flash_" in n]
         assert len(ours) == 1 and want + "<" in ours[0], (want, names)
         assert not any(o + "<" in n for o in other for n in names), names
+
+
+# -- K6 and K7 multi-tensor launches -----------------------------------------
+
+_SCALED_KW = {"rmsprop": dict(rho=0.9, epsilon=1e-8),
+              "adagrad": dict(epsilon=1e-8)}
+
+
+def _scaled_entries(shapes, p_dtype, s_dtype, gen, misaligned=False):
+    """Entries ``(p, g, state, lr, weight_decay)`` of a K6/K7 update with
+    two lr tensors and three weight decays in turn, the state positive,
+    and their clones. ``misaligned``: p, g and the state of every other
+    entry are views one element into a larger buffer, so their pointers
+    miss the 4-wide vector alignment and those entries take the scalar
+    path inside the same launch."""
+    lrs = [torch.tensor(0.05, device="cuda"),
+           torch.tensor(0.01, device="cuda")]
+    wds = [1e-5, 0.0, 1e-3]
+    mine = []
+    for i, shape in enumerate(shapes):
+        shift = 1 if misaligned and i % 2 else 0
+
+        def rand(dtype, positive=False):
+            n = math.prod(shape)
+            t = torch.randn(n + shift, generator=gen, device="cuda")
+            t = (t.abs() if positive else t).to(dtype)
+            return t[shift:].view(shape)
+        mine.append((rand(p_dtype), rand(torch.float32),
+                     rand(s_dtype, positive=True), lrs[i % 2], wds[i % 3]))
+    plain = [tuple(t.clone() if isinstance(t, torch.Tensor) and t.dim()
+                   else t for t in e) for e in mine]
+    return mine, plain
+
+
+def _check_scaled_multi(kind, mine, plain):
+    """One multi update of ``kind`` against the loop of plain versions:
+    bitwise, every written tensor's version up, one launch per chunk and
+    none of another kernel."""
+    written = [(e[0], e[2]) for e in mine]
+    versions = [[t._version for t in w] for w in written]
+    key = f"{kind}_multi"
+    before = dict(tfo.launches)
+    getattr(tfo, f"{kind}_update_multi")(mine, **_SCALED_KW[kind])
+    getattr(tfo, f"{kind}_update_multi_reference")(plain,
+                                                   **_SCALED_KW[kind])
+    torch.cuda.synchronize()
+    chunks = math.ceil(len(mine) / tfo.MULTI_CAPACITY[key])
+    assert {k: tfo.launches[k] - before[k] for k in before} == \
+        {**{k: 0 for k in before}, key: chunks}
+    for w, vs, want in zip(written, versions, plain):
+        assert all(t._version > v for t, v in zip(w, vs))
+        for got, ref in zip(w, (want[0], want[2])):
+            assert torch.equal(got, ref), \
+                (got.float() - ref.float()).abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(_SCALED_KW))
+@pytest.mark.parametrize("shapes", sorted(_MULTI_SETS))
+@pytest.mark.parametrize("p_dtype,s_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)])
+def test_scaled_multi_kernel_matches_the_loop_of_plain_versions(
+        kind, shapes, p_dtype, s_dtype):
+    """K6 and K7 multi-tensor: bitwise against the plain version of each
+    entry over the 161 ResNet-50 shapes and a chunk-crossing set; each
+    written tensor's version goes up; one launch per chunk."""
+    _need_card()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    _check_scaled_multi(kind, *_scaled_entries(
+        _MULTI_SETS[shapes](), p_dtype, s_dtype, gen))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(_SCALED_KW))
+@pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16])
+def test_scaled_multi_kernel_on_misaligned_views(kind, p_dtype):
+    """Every other entry a view one element into its buffer (the 4-wide
+    path off for it, on for its neighbours, in one launch): still bitwise
+    with the loop of plain versions."""
+    _need_card()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    mine, plain = _scaled_entries(_MULTI_SETS["chunk_boundary"](), p_dtype,
+                                  torch.float32, gen, misaligned=True)
+    assert mine[1][2].data_ptr() % 16 and not mine[0][2].data_ptr() % 16
+    _check_scaled_multi(kind, mine, plain)
+
+
+@pytest.mark.cuda
+def test_a_cuda_scaled_multi_update_never_reaches_a_per_tensor_path(
+        monkeypatch):
+    _need_card()
+    for name in ("rmsprop_update", "adagrad_update",
+                 "rmsprop_update_reference", "adagrad_update_reference"):
+        def refuse(*a, _name=name, **k):
+            raise AssertionError(f"a CUDA multi update reached {_name}")
+        monkeypatch.setattr(tfo, name, refuse)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    for kind in sorted(_SCALED_KW):
+        mine, _ = _scaled_entries([(1000,), (7,)], torch.float32,
+                                  torch.float32, gen)
+        before = tfo.launches[f"{kind}_multi"]
+        getattr(tfo, f"{kind}_update_multi")(mine, **_SCALED_KW[kind])
+        assert tfo.launches[f"{kind}_multi"] == before + 1
+    torch.cuda.synchronize()
