@@ -42,7 +42,11 @@ failure exits nonzero:
    versions, versions and launches (one per chunk, none per tensor)
    checked, and each whole update timed the same five ways beside the
    per-tensor loop (K6 and K7 have no ``torch.optim`` yardstick: it adds
-   eps outside the square root);
+   eps outside the square root); then the same multi-tensor launches with
+   a guarded step's skip flag over the 161 shapes and a set that crosses
+   both chunk capacities: with ok = 1 bitwise with the call without a
+   flag and with the plain version, with ok = 0 every byte unchanged,
+   each whole update timed with ok = 1 and ok = 0;
 6. train: ResNet-50, 224 px, batch 32, f32, TF32 off, NCHW, weights and BN
    statistics from a numpy seed and one fixed synthetic batch, through
    ``Model.compile(is_train=True)`` and ``model(x, y)`` with ``SGD(lr=0.1,
@@ -67,6 +71,21 @@ failure exits nonzero:
    held bitwise: K5's multi-tensor launch (3 per step), K6's or K7's (2
    per step), none per tensor; after each, the BN-only update of phase 7
    through its per-tensor kernel (106 launches);
+8b. train (bf16_mixed): the same ResNet-50, weights and batch through
+   ``Model.compile(policy="bf16_mixed")``, the optimizer wrapped in
+   ``resilience.GuardedOptimizer``, 12 SGD steps fused (K1's multi-tensor
+   launch with the skip flag) and unfused, step 6 on a batch holding a
+   NaN: (a) the two runs' parameters, momenta, BN statistics and guard
+   states bitwise after the steps; (b) step 6 a bitwise no-op on every
+   parameter, momentum, the step counter and every BN statistic, the loss
+   scale halved, one skip, the later losses finite and moving; (c) the
+   first loss within 2% of the f32 phase's, and the trained states served
+   under the policy within the serving gate of their f32 serve; (d) one
+   guarded step makes no more synchronizing calls
+   (``torch.cuda.set_sync_debug_mode("warn")``) than one f32 step; step
+   p50/p99, img/s, peak memory and the update's host time beside the f32
+   phase's p50; then 2 guarded steps each of Adam, RMSProp and AdaGrad
+   (their flagged launches, 3 / 2 / 2 per step);
 9. kernels (flash attention): the built library's SASS (``cuobjdump``)
    holds HMMA (tensor-core) instructions in each bf16 kernel (one at
    least of each of the three) and in no f32 one; each f32 kernel
@@ -258,6 +277,19 @@ MULTI_CASES = {
     "adagrad_multi": ("adagrad", "adagrad_update_multi",
                       dict(epsilon=1e-8)),
 }
+# the multi-tensor kernels' skip flag: the set of shapes that crosses both
+# chunk capacities beside ResNet-50's 161 (tests/test_torch_cuda_kernels.py)
+CHUNK_SET = [(4099,), (64,), (1,), (3, 3, 3, 5)] * 45
+# ResNet-50 training under bf16_mixed (GuardedOptimizer): the fused and the
+# unfused SGD run BF16_STEPS steps each, step POISON_STEP's batch holding a
+# NaN; then BF16_OTHER_STEPS guarded steps each of Adam, RMSProp, AdaGrad
+BF16_STEPS = 12
+POISON_STEP = 6
+BF16_OTHER_STEPS = 2
+# the first bf16_mixed step's loss against the f32 phase's on the same
+# weights and batch, relative: bf16 convolutions round each output to 8
+# bits of mantissa, which moves a loss near ln(10) by well under 1%
+BF16_LOSS_TOL = 0.02
 # why an optimizer case has no PyTorch call timed beside it
 NO_LIBRARY = {"sgd_nesterov": "torch.optim is timed in the sgd case",
               "rmsprop": "torch.optim adds eps outside the square root",
@@ -462,12 +494,15 @@ def multi_entries(mkind, tensors, scalars, mixed):
     return [(*t, lrs[i % 2], wds[i % 3]) for i, t in enumerate(tensors)]
 
 
-def multi_update(mkind, entries, scalars, plain=False):
+def multi_update(mkind, entries, scalars, plain=False, ok=None):
     """One multi-tensor update (``plain``: its plain version, a loop of
-    the per-tensor plain versions)."""
+    the per-tensor plain versions), with the skip flag ``ok`` when it is
+    given."""
     from singa_tpu_torch.ops import fused_optim as fo
     _, name, kw = MULTI_CASES[mkind]
     fn = getattr(fo, name + ("_reference" if plain else ""))
+    if ok is not None:
+        kw = dict(kw, ok=ok)
     if mkind == "adam_multi":
         fn(entries, *scalars[1:], **kw)
     else:
@@ -613,7 +648,101 @@ def optim_kernel_phase(dev, param_shapes):
               f"library_ms={lib_s}", flush=True)
         del tensors, plain
     multi_cases, multi_steps = multi_phase(dev, param_shapes, gen, steps)
-    return cases + multi_cases, {**steps, **multi_steps}
+    flag_cases, flag_steps = flag_phase(dev, param_shapes, gen, steps)
+    return cases + multi_cases + flag_cases, \
+        {**steps, **multi_steps, **flag_steps}
+
+
+def flag_phase(dev, param_shapes, gen, per_tensor):
+    """The multi-tensor launches of K1 (and with nesterov), K5, K6 and K7
+    with a guarded step's skip flag, over the 161 ResNet-50 shapes and
+    :data:`CHUNK_SET`, two lr tensors and three weight decays in turn:
+    with ok = 1 bitwise with the same call without a flag and with the
+    plain version given the flag, with ok = 0 every byte of every
+    parameter and state unchanged; every launch counted and every written
+    tensor's version bumped, skipped or not. Then each whole ResNet-50
+    update timed with ok = 1 and ok = 0 (CUDA events and device time)
+    beside the plain version with the flag."""
+    import torch
+    from singa_tpu_torch.ops import fused_optim as fo
+    ok1 = torch.ones((), device=dev.torch_device)
+    ok0 = torch.zeros((), device=dev.torch_device)
+    cases, steps = [], {}
+    for mkind, (base, _, _) in MULTI_CASES.items():
+        key = mkind.replace("_nesterov", "")
+        n_states = OPTIM_CASES[base][2]
+        for set_name, shapes in (("resnet50", param_shapes),
+                                 ("chunk_boundary", CHUNK_SET)):
+            tensors, scalars = optim_args(base, shapes, gen, dev)
+            start = multi_entries(mkind, tensors, scalars, mixed=True)
+            bare, one, zero, plain = (clone_entries(start)
+                                      for _ in range(4))
+
+            def written(entries):
+                return [t for e in entries for t in (e[0],
+                                                     *e[2:2 + n_states])]
+            versions = [t._version for t in written(zero)]
+            fo.reset_counts()
+            multi_update(mkind, bare, scalars)
+            multi_update(mkind, one, scalars, ok=ok1)
+            multi_update(mkind, zero, scalars, ok=ok0)
+            counts = dict(fo.launches)
+            multi_update(mkind, plain, scalars, plain=True, ok=ok1)
+            torch.cuda.synchronize()
+            chunks = multi_chunks(key, len(shapes))
+            check(counts == {**{k: 0 for k in counts}, key: 3 * chunks},
+                  f"{mkind} {set_name} with the flag: launches {counts}, "
+                  f"expected 3 x {chunks} of {key}")
+            err = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(written(one), written(plain)))
+            check(all(torch.equal(a, b) and torch.equal(b, c) for a, b, c
+                      in zip(written(bare), written(one), written(plain))),
+                  f"{mkind} {set_name}: ok = 1 differs from the launch "
+                  f"without a flag or from the plain version (max abs err "
+                  f"{err})")
+            check(all(torch.equal(a, b) for a, b in
+                      zip(written(zero), written(start))),
+                  f"{mkind} {set_name}: ok = 0 wrote")
+            check(all(t._version > v for t, v in zip(written(zero),
+                                                      versions)),
+                  f"{mkind} {set_name}: a skipped launch kept a version")
+            cases.append({"name": mkind, "flag": True, "shapes": set_name,
+                          "tensors": len(shapes), "launches": 3 * chunks,
+                          "max_abs_err": err})
+            print(f"kernel {mkind} with the skip flag over {len(shapes)} "
+                  f"{set_name} tensors: ok=1 bitwise with no flag and with "
+                  f"the plain version, ok=0 wrote nothing, {chunks} "
+                  f"launches each, versions bumped", flush=True)
+            del tensors, start, bare, one, zero, plain
+        tensors, scalars = optim_args(base, param_shapes, gen, dev)
+        entries = multi_entries(mkind, tensors, scalars, mixed=False)
+        plain = clone_entries(entries)
+        chunks = multi_chunks(key, len(param_shapes))
+        rec = {"name": mkind, "flag": True, "tensors": len(tensors),
+               "launches_per_update": chunks}
+        for label, ok in (("ok1", ok1), ("ok0", ok0)):
+            def step(ok=ok):
+                multi_update(mkind, entries, scalars, ok=ok)
+            rec[f"ms_{label}"] = time_ms(step, iters=10)
+            rec[f"host_ms_{label}"] = host_ms(step)
+            rec[f"device_ms_{label}"] = device_ms(
+                step, KERNEL_NAME[mkind], iters=5, launches=chunks)
+        rec["plain_ms"] = time_ms(lambda: multi_update(
+            mkind, plain, scalars, plain=True, ok=ok1), iters=10)
+        pt = per_tensor[base]
+        rec.update({"bound_ms": pt["bound_ms"], "bound_by": pt["bound_by"],
+                    "library_ms": pt["library_ms"]})
+        steps[f"{mkind}_flag"] = rec
+        print(f"step {mkind} with the skip flag over {len(tensors)} "
+              f"ResNet-50 tensors ({chunks} launches): ok=1 kernel_ms="
+              f"{rec['ms_ok1']:.4f} (host {rec['host_ms_ok1']:.4f}, device "
+              f"{rec['device_ms_ok1']:.4f}); ok=0 kernel_ms="
+              f"{rec['ms_ok0']:.4f} (host {rec['host_ms_ok0']:.4f}, device "
+              f"{rec['device_ms_ok0']:.4f}); plain_ms={rec['plain_ms']:.4f} "
+              f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']})",
+              flush=True)
+        del tensors, entries, plain
+    return cases, steps
 
 
 def multi_phase(dev, param_shapes, gen, per_tensor):
@@ -837,10 +966,10 @@ def timed_updates(optimizer):
     real = optimizer.update_params
     times = []
 
-    def update_params(pairs):
+    def update_params(pairs, ok=None):
         pairs = list(pairs)
         t0 = time.perf_counter()
-        real(pairs)
+        real(pairs, ok)
         times.append((time.perf_counter() - t0) * 1e3)
     optimizer.update_params = update_params
     return times
@@ -850,9 +979,13 @@ def per_tensor(optimizer):
     """``optimizer`` (``fused=True``) with the earlier design of its fused
     step, for comparison within one run: every parameter through
     ``Optimizer.apply``, one per-tensor launch each."""
-    def update_params(pairs):
+    def update_params(pairs, ok=None):
         for p, g in pairs:
-            optimizer.apply(p.name or f"param/{id(p)}", p, g)
+            name = p.name or f"param/{id(p)}"
+            if ok is None:
+                optimizer.apply(name, p, g)
+            else:
+                optimizer._apply_masked(name, p, g, ok)
     optimizer.update_params = update_params
     return optimizer
 
@@ -1119,6 +1252,282 @@ def other_optimizers_phase(dev, models, tx, ty, start, inputs):
         serve(fused, dev, inputs, None, True)
         out[f"{kind}_bn_only"] = bn_only_update(dev, fused, inputs, kind,
                                                 ref)
+    return out
+
+
+def sync_warnings(fn):
+    """The synchronizing CUDA calls ``fn`` makes, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them (its warning
+    "called a synchronizing CUDA operation"; the mode's one-time notice
+    that it is a prototype is not one): the place (file:line) of each."""
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return [f"{w.filename}:{w.lineno}" for w in seen
+            if "called a synchronizing" in str(w.message)]
+
+
+def live_states(model):
+    """Copies of every state of ``model`` and of its optimizer (a guard's
+    scalars and shadows included), by name."""
+    d = {k: t.data.detach().clone() for k, t in model.get_states().items()}
+    d.update({f"optimizer/{k}": t.data.clone()
+              for k, t in model.optimizer.state_tensor_dict().items()})
+    return d
+
+
+def guarded_run(model, optimizer, start, tx, bad_tx, ty):
+    """``BF16_STEPS`` guarded steps of ``model`` (compiled under
+    ``bf16_mixed``) with ``optimizer`` from ``start``, step ``POISON_STEP``
+    on ``bad_tx``; the launch counts are zeroed just before and read just
+    after. Returns the losses, step times (CUDA events), launches, the
+    update's host ms per step, the loss scale and skipped count after
+    each step, and copies of every state after steps ``POISON_STEP - 1``
+    and ``POISON_STEP``."""
+    import torch
+    from singa_tpu_torch.model import load_numpy_states
+    from singa_tpu_torch.ops import fused_optim as fo
+    load_numpy_states(model, start)
+    model.set_optimizer(optimizer)
+    update_ms = timed_updates(optimizer)
+    guard = model.optimizer
+    guard_ms = timed_guard(guard)
+    model.train()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+              for _ in range(BF16_STEPS)]
+    losses, scales, skipped, snaps = [], [], [], {}
+    own = guard.state_tensor_dict()
+    torch.cuda.synchronize()
+    fo.reset_counts()
+    for i, (begin, end) in enumerate(events, 1):
+        begin.record()
+        _, loss = model(bad_tx if i == POISON_STEP else tx, ty)
+        end.record()
+        losses.append(loss.data.detach())
+        scales.append(own["loss_scale"].data.clone())
+        skipped.append(own["guard/skipped_total"].data.clone())
+        if i in (POISON_STEP - 1, POISON_STEP):
+            snaps[i] = live_states(model)
+    counts = dict(fo.launches)
+    torch.cuda.synchronize()
+    return {"losses": [float(v) for v in losses],
+            "step_ms": [b.elapsed_time(e) for b, e in events],
+            "launches": counts, "update_host_ms": update_ms,
+            "guard_host_ms": guard_ms,
+            "loss_scale": [float(v) for v in scales],
+            "skipped_total": [float(v) for v in skipped],
+            "snapshots": snaps}
+
+
+def timed_guard(guard):
+    """Time the guard's own host work in each step (host clock, no
+    sync): the unscale and norm, the BN shadows and the bookkeeping, the
+    optimizer update not included. Returns the list the times (ms, one per
+    step) go to."""
+    times = []
+    for name in ("_unscale", "_restore_shadows", "_bookkeeping"):
+        real = getattr(guard, name)
+
+        def timed(*args, _real=real, _first=name == "_unscale"):
+            t0 = time.perf_counter()
+            out = _real(*args)
+            ms = (time.perf_counter() - t0) * 1e3
+            if _first:
+                times.append(ms)
+            else:
+                times[-1] += ms
+            return out
+        setattr(guard, name, timed)
+    return times
+
+
+def bf16_train_phase(dev, models, tx, ty, start, f32, inputs):
+    """ResNet-50 b32 under ``Model.compile(policy="bf16_mixed")`` (the
+    optimizer wrapped in ``resilience.GuardedOptimizer``), from the f32
+    phase's weights and batch, step ``POISON_STEP`` on a batch holding a
+    NaN: fused (K1's multi-tensor launch with the skip flag) and unfused,
+    cuDNN deterministic. Gates: (a) the two runs' states bitwise after
+    the steps; (b) the poisoned step a bitwise no-op on every parameter,
+    momentum, the step counter and every BN statistic, the loss scale
+    halved, ``skipped_total`` 1, the later losses finite and moving; (c)
+    the first loss within ``BF16_LOSS_TOL`` of the f32 phase's, and the
+    trained states served under the policy within the serving gate of
+    their f32 serve; (d) one guarded step makes no more synchronizing
+    calls than one f32 step. Then ``BF16_OTHER_STEPS`` guarded steps of
+    Adam, RMSProp and AdaGrad through their flagged launches."""
+    import numpy as np
+    import torch
+    from singa_tpu_torch import opt
+    from singa_tpu_torch.resilience import GuardedOptimizer
+    from singa_tpu_torch.tensor import Tensor
+    fused, plain = models
+    # (d), the f32 side: one step of the f32 phase's fused SGD
+    fused.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5,
+                                fused=True))
+    fused.train()
+    fused(tx, ty)               # the optimizer's states are made here
+    f32_syncs = sync_warnings(lambda: fused(tx, ty))
+    bad = tx.data.clone()
+    bad.view(-1)[0] = float("nan")
+    bad_tx = Tensor(data=bad, device=dev)
+    runs = {}
+    for name, m in (("fused", fused), ("unfused", plain)):
+        m.compile([tx], is_train=True, policy="bf16_mixed")
+        torch.cuda.reset_peak_memory_stats()
+        sgd = opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5,
+                      fused=name == "fused")
+        runs[name] = guarded_run(m, sgd, start, tx, bad_tx, ty)
+        runs[name]["peak_bytes"] = torch.cuda.max_memory_allocated()
+        check(isinstance(m.optimizer, GuardedOptimizer),
+              f"{name}: compile(policy='bf16_mixed') did not wrap the "
+              "optimizer in GuardedOptimizer")
+    f, u = runs["fused"], runs["unfused"]
+    per_step = multi_chunks("sgd_multi", PARAMS_PER_STEP)
+    k1 = f["launches"].pop("sgd_multi", 0)
+    check(k1 == per_step * BF16_STEPS and not any(f["launches"].values()),
+          f"bf16_mixed fused run: {k1} K1 multi-tensor launches (expected "
+          f"{per_step} x {BF16_STEPS}), others {f['launches']}")
+    check(not any(u["launches"].values()),
+          f"bf16_mixed unfused run launched {u['launches']}")
+    # (a)
+    n_states = held_equal(fused, plain, "bf16_mixed SGD")
+    # (b)
+    for name, r in runs.items():
+        before, after = r["snapshots"][POISON_STEP - 1], \
+            r["snapshots"][POISON_STEP]
+        skip = ("optimizer/loss_scale", "optimizer/guard/bad_streak",
+                "optimizer/guard/good_streak", "optimizer/guard/skipped_total",
+                "optimizer/guard/last_grad_norm")
+        moved = [k for k in before if k not in skip
+                 and not torch.equal(before[k], after[k])]
+        check(not moved, f"{name}: the poisoned step {POISON_STEP} moved "
+              f"{len(moved)} states, e.g. {moved[:3]}")
+        check(any(k.startswith("optimizer/guard-shadow/") for k in before)
+              and "optimizer/step_counter" in before,
+              f"{name}: no BN shadows or step counter among the states")
+        i = POISON_STEP - 1
+        check(r["loss_scale"][i] == r["loss_scale"][i - 1] / 2 and
+              r["skipped_total"][-1] == 1 and r["skipped_total"][i] == 1,
+              f"{name}: loss scale {r['loss_scale']}, skipped "
+              f"{r['skipped_total']}: expected a halving at step "
+              f"{POISON_STEP} and one skip")
+        later = r["losses"][POISON_STEP:]
+        check(all(np.isfinite(later)) and len(set(later)) > 1,
+              f"{name}: losses after the poisoned step {later}")
+        check(not np.isfinite(r["losses"][i]),
+              f"{name}: the poisoned step's loss {r['losses'][i]} is finite")
+        del r["snapshots"]
+    # (c)
+    first, f32_first = f["losses"][0], f32["losses"][0]
+    check(abs(first - f32_first) <= BF16_LOSS_TOL * abs(f32_first),
+          f"bf16_mixed first loss {first} against f32 {f32_first}")
+    fused.eval()
+    got, _, _, _, _ = serve(fused, dev, inputs, "bf16_mixed", True)
+    ref, _, _, _, _ = serve(fused, dev, inputs, "float32", True)
+    scale = float(np.abs(ref).max())
+    err = float(np.abs(got - ref).max())
+    check(np.isfinite(got).all() and err <= REL_TOL["bf16_mixed"] * scale,
+          f"bf16_mixed-trained states served under the policy differ from "
+          f"their f32 serve by {err} (max |logit| {scale})")
+    # (d), the guarded side: one more step of the fused run
+    fused.train()
+    guarded_syncs = sync_warnings(lambda: fused(tx, ty))
+    check(len(guarded_syncs) <= len(f32_syncs),
+          f"a guarded step made {len(guarded_syncs)} synchronizing calls "
+          f"({guarded_syncs}), an f32 step {len(f32_syncs)} ({f32_syncs})")
+    rec = {"steps": BF16_STEPS, "batch": BATCH, "poison_step": POISON_STEP,
+           "states_held": n_states, "k1_launches": k1,
+           "k1_launches_per_step": k1 / BF16_STEPS, "losses": f["losses"],
+           "unfused_losses": u["losses"], "loss_scale": f["loss_scale"],
+           "skipped_total": f["skipped_total"], "f32_first_loss": f32_first,
+           "eval_max_abs_err_vs_f32": err, "eval_max_abs_logit": scale,
+           "sync_warnings": guarded_syncs, "f32_sync_warnings": f32_syncs,
+           "f32_step_p50_ms": f32["step_p50_ms"]}
+    for name, r in runs.items():
+        t = np.asarray(r["step_ms"][TIMED_FROM:])
+        h = np.asarray(r["update_host_ms"][TIMED_FROM:])
+        g = np.asarray(r["guard_host_ms"][TIMED_FROM:])
+        pre = "" if name == "fused" else f"{name}_"
+        rec.update({f"{pre}img_per_s": BATCH * len(t) / (t.sum() / 1e3),
+                    f"{pre}step_p50_ms": float(np.percentile(t, 50)),
+                    f"{pre}step_p99_ms": float(np.percentile(t, 99)),
+                    f"{pre}step_ms": r["step_ms"],
+                    f"{pre}update_host_p50_ms": float(np.percentile(h, 50)),
+                    f"{pre}update_host_ms": r["update_host_ms"],
+                    f"{pre}guard_host_p50_ms": float(np.percentile(g, 50)),
+                    f"{pre}guard_host_ms": r["guard_host_ms"],
+                    f"{pre}peak_device_bytes": r["peak_bytes"]})
+    print(f"train resnet50 NCHW bf16_mixed b{BATCH} SGD x{BF16_STEPS} (step "
+          f"{POISON_STEP} poisoned, timed from step {TIMED_FROM}): img/s="
+          f"{rec['img_per_s']:.1f} step p50={rec['step_p50_ms']:.2f} ms "
+          f"p99={rec['step_p99_ms']:.2f} ms (f32 p50 "
+          f"{rec['f32_step_p50_ms']:.2f} ms; unfused p50 "
+          f"{rec['unfused_step_p50_ms']:.2f} ms) update host p50="
+          f"{rec['update_host_p50_ms']:.3f} ms (unfused "
+          f"{rec['unfused_update_host_p50_ms']:.3f} ms) guard host p50="
+          f"{rec['guard_host_p50_ms']:.3f} ms peak="
+          f"{rec['peak_device_bytes'] / 2**30:.2f} GiB; K1 multi-tensor "
+          f"launches with the flag={k1}; fused == unfused bitwise over "
+          f"{n_states} states; step {POISON_STEP} a no-op, loss scale "
+          f"{f['loss_scale'][POISON_STEP - 2]} -> "
+          f"{f['loss_scale'][POISON_STEP - 1]}, skipped "
+          f"{f['skipped_total'][-1]:.0f}; first loss {first:.6f} (f32 "
+          f"{f32_first:.6f}); served under the policy against f32 "
+          f"max_abs_err={err:.3g} (max |logit| {scale:.3g}); synchronizing "
+          f"calls per step {len(guarded_syncs)} {guarded_syncs} (f32 "
+          f"{len(f32_syncs)} {f32_syncs})", flush=True)
+    print("bf16_mixed losses: " + " ".join(f"{v:.6f}" for v in f["losses"]),
+          flush=True)
+    rec["other"] = bf16_other_optimizers(fused, tx, ty, start)
+    return rec
+
+
+def bf16_other_optimizers(model, tx, ty, start):
+    """``BF16_OTHER_STEPS`` guarded steps each of Adam, RMSProp and AdaGrad
+    on the bf16_mixed model: their multi-tensor launches with the skip
+    flag (3, 2, 2 per step), finite losses, no skip."""
+    import numpy as np
+    import torch
+    from singa_tpu_torch import opt
+    from singa_tpu_torch.model import load_numpy_states
+    from singa_tpu_torch.ops import fused_optim as fo
+    makers = {"adam": lambda: opt.Adam(lr=1e-3, fused=True),
+              "rmsprop": lambda: opt.RMSProp(lr=1e-3, fused=True),
+              "adagrad": lambda: opt.AdaGrad(lr=1e-2, fused=True)}
+    out = {}
+    for kind, make in makers.items():
+        load_numpy_states(model, start)
+        model.set_optimizer(make())
+        model.train()
+        torch.cuda.synchronize()
+        fo.reset_counts()
+        losses = [model(tx, ty)[1].data.detach()
+                  for _ in range(BF16_OTHER_STEPS)]
+        counts = dict(fo.launches)
+        torch.cuda.synchronize()
+        key = f"{kind}_multi"
+        n = counts.pop(key, 0)
+        per_step = multi_chunks(key, PARAMS_PER_STEP)
+        losses = [float(v) for v in losses]
+        stats = model.optimizer.stats()
+        check(n == per_step * BF16_OTHER_STEPS and not any(counts.values())
+              and np.isfinite(losses).all() and stats["skipped_total"] == 0,
+              f"bf16_mixed {kind}: {n} {key} launches (expected {per_step} "
+              f"x {BF16_OTHER_STEPS}), others {counts}, losses {losses}, "
+              f"{stats}")
+        out[kind] = {"kernel": key, "launches": n, "losses": losses}
+        print(f"train resnet50 bf16_mixed {kind} x{BF16_OTHER_STEPS}: {n} "
+              f"{key} launches with the skip flag, losses "
+              + " ".join(f"{v:.6f}" for v in losses), flush=True)
     return out
 
 
@@ -1845,6 +2254,7 @@ def main():
     evaluated = eval_after_training(dev, models[0], eval_inputs)
     others = other_optimizers_phase(dev, models, tx, ty, start,
                                     eval_inputs)
+    bf16 = bf16_train_phase(dev, models, tx, ty, start, train, eval_inputs)
     torch.backends.cudnn.deterministic = False
     del models, tx, ty, start
     torch.cuda.empty_cache()
@@ -1890,9 +2300,29 @@ def main():
             "replaces": REPLACES[kind], "launches": n,
             "max_abs_err": max(c["max_abs_err"] for c in optim_cases
                                if c["name"].replace("_nesterov", "")
-                               == kind),
+                               == kind and not c.get("flag")),
             "ms": step["ms"], "plain_ms": step["plain_ms"],
             "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
+            "library_ms": step["library_ms"]})
+    # the same multi-tensor kernels with a guarded step's skip flag:
+    # launches from the bf16_mixed runs, ms with ok = 1 (ms_ok0: skipped)
+    flagged = {"sgd_multi": bf16["k1_launches"]}
+    flagged.update({f"{k}_multi": v["launches"]
+                    for k, v in bf16["other"].items()})
+    for kind, n in flagged.items():
+        step = optim_steps[f"{kind}_flag"]
+        kernels.append({
+            "name": f"{kind}_flag", "route": "cuda",
+            "source": "singa_tpu_torch/csrc/fused_optim.cu",
+            "replaces": REPLACES[kind], "launches": n,
+            "max_abs_err": max(c["max_abs_err"] for c in optim_cases
+                               if c.get("flag") and
+                               c["name"].replace("_nesterov", "") == kind),
+            "ms": step["ms_ok1"], "ms_ok0": step["ms_ok0"],
+            "device_ms_ok1": step["device_ms_ok1"],
+            "device_ms_ok0": step["device_ms_ok0"],
+            "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
+            "bound_by": step["bound_by"],
             "library_ms": step["library_ms"]})
     # K3/K4: the causal timings at the LM's shape, in f32 (launches from the
     # f32 LM training run) and in bf16 (from the bf16 run with the
@@ -1921,6 +2351,7 @@ def main():
               "optim_kernel_cases": optim_cases,
               "optim_steps": optim_steps, "train": train,
               "eval_after_training": evaluated, "train_other": others,
+              "train_bf16_mixed": bf16,
               "flash_cases": flash_cases, "flash_timings": flash_times,
               "flash_sass_hmma": flash_hmma,
               "flash_f32_resources": flash_res,

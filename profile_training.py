@@ -4,6 +4,7 @@ NVIDIA card.
 
     python3 profile_training.py [--model resnet50|lm] [--steps 3] [--warmup 3]
                                 [--optimizer sgd|rmsprop|adagrad]
+                                [--policy float32|bf16_mixed]
 
 ``--model resnet50`` (the default) builds chip_smoke.py's ResNet training
 setup (ResNet-50, 224 px, batch 32, f32, TF32 off, NCHW, weights and BN
@@ -18,7 +19,10 @@ trains the same model with ``RMSProp(lr=1e-3)`` or ``AdaGrad(lr=1e-2)``
 (chip_smoke.py's phase 8) and traces the fused step through the
 multi-tensor K6 or K7 launch and through the per-tensor kernel (the
 earlier design) in turns (multi, per-tensor, per-tensor, multi), cuDNN
-deterministic. Each line holds:
+deterministic. ``--policy bf16_mixed`` compiles the same model under that
+policy (bf16 convolutions and products, f32 masters, the optimizer wrapped
+in ``resilience.GuardedOptimizer``), as chip_smoke.py's bf16_mixed phase
+does, and traces the same turns. Each line holds:
 
 - wall ms per step (host clock, the steps end in a synchronize), device
   busy ms per step (the sum of kernel times) and the device's idle share;
@@ -26,9 +30,11 @@ deterministic. Each line holds:
   convolutions (forward, data and weight gradients), the matrix products
   of the fc layer, reductions (the BN batch moments and the sums of their
   backward), elementwise passes (BN normalisation, ReLU, residual add,
-  and their backward; the unfused optimizer chain), pooling, K1, K6/K7,
-  the rest;
-- the kernels that take the most device time.
+  and their backward; the unfused optimizer chain; in bf16 the casts),
+  pooling, the layout transposes cuDNN adds around bf16 convolutions of
+  NCHW tensors, PyTorch's multi-tensor ``_foreach`` passes (the guard's
+  unscale and norm), K1, K6/K7, the rest;
+- the kernels that take the most device time, overall and in each kind.
 
 ``--model lm`` builds chip_smoke.py's Transformer LM training setup
 (``bench.py``'s ``LM_SHAPE``: d_model 512, 8 heads, 6 layers, seq 1024,
@@ -61,6 +67,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 KINDS = (
     ("k1", ("sgd_kernel", "sgd_multi_kernel")),
     ("k6_k7", ("scaled_kernel", "scaled_multi_kernel")),
+    ("layout", ("nchwtonhwc", "nhwctonchw", "transpose")),
+    ("foreach", ("multi_tensor_apply",)),
     ("conv", ("conv", "xmma", "implicit", "wgrad", "dgrad", "cudnn",
               "winograd", "fft", "precomputed")),
     ("matmul", ("gemm", "cutlass", "gemv")),
@@ -107,10 +115,11 @@ def traced_steps(model, tx, ty, steps, kinds_table=KINDS):
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         ms = evt.time_range.elapsed_us() / 1e3
-        k = kernels.setdefault(evt.name[:90], [0, 0.0])
+        name = kind_of(evt.name, kinds_table)
+        k = kernels.setdefault(evt.name[:90], [0, 0.0, name])
         k[0] += 1
         k[1] += ms
-        kind = kinds.setdefault(kind_of(evt.name, kinds_table), [0, 0.0])
+        kind = kinds.setdefault(name, [0, 0.0])
         kind[0] += 1
         kind[1] += ms
     return wall, kernels, kinds
@@ -145,6 +154,7 @@ def run(model, tx, ty, start, optimizer, update, deterministic, steps,
     fo.reset_counts()
     wall, kernels, kinds = traced_steps(model, tx, ty, steps)
     rec = {"trace": "train", "optimizer": optimizer, "update": update,
+           "policy": model._policy.name if model._policy else "float32",
            "deterministic": deterministic, "steps": steps,
            "batch": chip_smoke.BATCH,
            "optimizer_launches_per_step": {
@@ -159,7 +169,14 @@ def summary(wall, kernels, kinds, steps, per_step, rate):
     """Per-step wall, ``rate`` (``per_step`` items a step over the wall),
     device busy, idle share, ops and ms by kind, the top kernels."""
     busy = sum(v[1] for v in kernels.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:15]
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][1])
+    top = ranked[:15]
+    by_kind = {}
+    for n, (c, ms, kind) in ranked:
+        rows = by_kind.setdefault(kind, [])
+        if len(rows) < 5:
+            rows.append({"name": n, "calls_per_step": c / steps,
+                         "ms_per_step": ms / steps})
     return {"wall_ms_per_step": wall * 1e3 / steps,
             rate: per_step * steps / wall,
             "device_busy_ms_per_step": busy / steps,
@@ -172,7 +189,8 @@ def summary(wall, kernels, kinds, steps, per_step, rate):
                 k: v[0] / steps for k, v in sorted(kinds.items())},
             "top_device_ms_per_step": [
                 {"name": n, "calls_per_step": c / steps,
-                 "ms_per_step": ms / steps} for n, (c, ms) in top]}
+                 "ms_per_step": ms / steps} for n, (c, ms, _) in top],
+            "top_device_ms_per_step_by_kind": by_kind}
 
 
 def run_lm(model, tx, ty, start, plain, steps, warmup):
@@ -227,6 +245,9 @@ def main(argv=None):
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--optimizer", choices=sorted(OPTIMIZERS),
                     default="sgd")
+    ap.add_argument("--policy", choices=("float32", "bf16_mixed"),
+                    default="float32",
+                    help="the ResNet's precision policy")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -244,6 +265,8 @@ def main(argv=None):
         name = "profile_training_lm.json"
     else:
         (model, _), tx, ty, start = chip_smoke.train_models(dev)
+        if args.policy != "float32":
+            model.compile([tx], is_train=True, policy=args.policy)
         if args.optimizer == "sgd":
             turns = [(d, u) for d in (True, False)
                      for u in ("fused", "unfused", "unfused", "fused")]
@@ -252,6 +275,8 @@ def main(argv=None):
             turns = [(True, u) for u in ("fused", "per_tensor",
                                          "per_tensor", "fused")]
             name = f"profile_training_{args.optimizer}.json"
+        if args.policy != "float32":
+            name = name.replace(".json", f"_{args.policy}.json")
         recs = [run(model, tx, ty, start, args.optimizer, u, d, args.steps,
                     args.warmup) for d, u in turns]
     out_dir = os.path.join(HERE, "chiprun_out")

@@ -13,6 +13,9 @@ one pass of a hand-written CUDA kernel in ``csrc/fused_optim.cu``
 Transformer LM (``models.transformer``) on one device, every attention
 call through the hand-written flash-attention kernels in
 ``csrc/flash_attention.cu`` (``ops.attention``, K3 forward, K4 backward).
+Under ``Model.compile(policy="bf16_mixed", is_train=True)`` it trains
+with f32 masters, bf16 convolutions and products and dynamic loss scaling
+(``resilience.GuardedOptimizer``), a bad step skipped on the card.
 
 Entry points run on the card: ``device.get_default_device()`` is
 ``cuda:0`` and raises without CUDA. Pass ``device.create_cpu_device()``
@@ -21,6 +24,6 @@ to run on the CPU, where each kernel's plain PyTorch version stands in.
 
 from . import (device, tensor, mixed_precision, autograd_base,  # noqa: F401
                autograd, initializer, layer, model, ops, models, serving,
-               opt, metric, data, datasets, parallel)
+               opt, resilience, metric, data, datasets, parallel)
 
 __version__ = "0.3.0"

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from .mixed_precision import cast_compute
+from .mixed_precision import accum_f32, cast_compute
 from .tensor import Tensor
 
 # how many times a plain elementwise add actually ran
@@ -90,19 +90,15 @@ def transpose(x, shape=None):
     return Tensor(data=x.data.permute(perm).contiguous(), device=x.device)
 
 
-def _f32(x):
-    return x.float() if x.dtype != torch.float32 else x
-
-
 def softmax_cross_entropy(x, t):
     """Mean cross entropy of softmax(x) over the batch, in f32. ``t`` is
     one-hot rows of x's shape, or integer class ids."""
-    xa = _f32(x.data)
+    xa = accum_f32(x.data)
     ta = t.data if isinstance(t, Tensor) else torch.as_tensor(t)
     ta = ta.detach().to(xa.device)
     logp = torch.log_softmax(xa, dim=-1)
     if tuple(ta.shape) == tuple(xa.shape):
-        ce = -torch.sum(_f32(ta) * logp, dim=-1)
+        ce = -torch.sum(accum_f32(ta) * logp, dim=-1)
     else:
         ids = ta.reshape(ta.shape[0:1]) if ta.dim() > 1 else ta
         ce = -torch.gather(logp, -1, ids.long()[:, None])[:, 0]
@@ -112,9 +108,9 @@ def softmax_cross_entropy(x, t):
 def cross_entropy(x, t):
     """``-sum(t * log(x + 1e-10)) / batch`` for probabilities ``x``, in
     f32."""
-    xa = _f32(x.data)
+    xa = accum_f32(x.data)
     ta = t.data if isinstance(t, Tensor) else torch.as_tensor(t)
-    ta = _f32(ta.detach().to(xa.device))
+    ta = accum_f32(ta.detach().to(xa.device))
     return Tensor(data=-torch.sum(ta * torch.log(xa + 1e-10)) / xa.shape[0],
                   device=x.device)
 
@@ -165,7 +161,7 @@ def astype(x, to):
 def layernorm(x, scale, bias, eps=1e-5):
     """Normalise over the trailing dim, then scale and shift: statistics
     in f32 (biased variance), output in x's dtype."""
-    xf = _f32(x.data)
+    xf = accum_f32(x.data)
     mean = xf.mean(-1, keepdim=True)
     var = xf.var(-1, unbiased=False, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps) * scale.data + bias.data

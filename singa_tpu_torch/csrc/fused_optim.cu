@@ -64,6 +64,17 @@
 // scaled_span), so a multi-tensor launch is bitwise-equal to one launch
 // per tensor and to the plain version.
 //
+// Skip flag (the multi-tensor kernels only): a guarded training step
+// (resilience.GuardedOptimizer, dynamic loss scaling) decides on the card
+// whether its gradients are finite, and the host never reads the verdict.
+// The table carries a pointer to that verdict, a 0-d f32 device tensor
+// `ok` (null: no flag). Each block reads it first and returns at once
+// when it is 0, so a bad step writes nothing, as the reference's
+// where(ok, new, old) leaves every state as it was
+// (singa_tpu/resilience/guards.py:350-362); with ok = 1 or no flag the
+// block runs the element loop unchanged, so the result stays bitwise. A
+// skipped launch costs a launch and one 4-byte read per block.
+//
 // Numerics: __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn / __fsqrt_rn
 // keep the compiler from contracting a multiply and an add into an FMA,
 // and every operation happens in the reference's order, so the result is
@@ -367,6 +378,7 @@ struct OneStateTable {
     SgdShared sgd;        // K1
     ScaledShared scaled;  // K6, K7 (rho unused by K7)
   } shared;
+  const float* ok;        // the skip flag, or null
 };
 
 struct AdamTable {
@@ -382,12 +394,18 @@ struct AdamTable {
   int count;
   const float* bc1;
   const float* bc2;
+  const float* ok;        // the skip flag, or null
   float beta1, one_minus_beta1, beta2, one_minus_beta2, eps;
 };
 
 static_assert(sizeof(OneStateTable) <= 4096 && sizeof(AdamTable) <= 4096,
               "a multi-tensor table must fit the 4 KB kernel parameter "
               "space");
+
+// whether a guarded step's verdict tells the block to write nothing
+__device__ __forceinline__ bool skipped(const float* ok) {
+  return ok != nullptr && __ldg(ok) == 0.f;
+}
 
 // the entry whose blocks hold block b: the first i with b < block_end[i]
 template <int N>
@@ -418,6 +436,7 @@ __global__ void __launch_bounds__(256) sgd_multi_kernel(
     const __grid_constant__ OneStateTable t) {
   using PT = typename P::T;
   using ST = typename S::T;
+  if (skipped(t.ok)) return;
   const int b = blockIdx.x;
   const int e = find_entry(t.block_end, t.count, b);
   long long begin, len;
@@ -435,6 +454,7 @@ __global__ void __launch_bounds__(256) scaled_multi_kernel(
     const __grid_constant__ OneStateTable t) {
   using PT = typename P::T;
   using ST = typename S::T;
+  if (skipped(t.ok)) return;
   const int b = blockIdx.x;
   const int e = find_entry(t.block_end, t.count, b);
   long long begin, len;
@@ -453,6 +473,7 @@ __global__ void __launch_bounds__(256) adam_multi_kernel(
     const __grid_constant__ AdamTable t) {
   using PT = typename P::T;
   using ST = typename S::T;
+  if (skipped(t.ok)) return;
   const int b = blockIdx.x;
   const int e = find_entry(t.block_end, t.count, b);
   long long begin, len;
@@ -555,28 +576,30 @@ struct Launch {
   }
   // one launch over `count` entries (1..SGD_MULTI_MAX)
   static int sgd_multi(const SingaSgdEntry* es, int count, SgdShared a,
-                       cudaStream_t st) {
+                       const float* ok, cudaStream_t st) {
     OneStateTable t{};
     const long long blocks = fill(t, es, count);
     if (blocks < 1) return (int)cudaErrorInvalidValue;
     t.shared.sgd = a;
+    t.ok = ok;
     sgd_multi_kernel<P, S><<<(unsigned)blocks, 256, 0, st>>>(t);
     return (int)cudaGetLastError();
   }
   template <bool ADAGRAD>
   static int scaled_multi(const SingaSgdEntry* es, int count,
-                          ScaledShared a, cudaStream_t st) {
+                          ScaledShared a, const float* ok, cudaStream_t st) {
     OneStateTable t{};
     const long long blocks = fill(t, es, count);
     if (blocks < 1) return (int)cudaErrorInvalidValue;
     t.shared.scaled = a;
+    t.ok = ok;
     scaled_multi_kernel<P, S, ADAGRAD><<<(unsigned)blocks, 256, 0, st>>>(t);
     return (int)cudaGetLastError();
   }
   // one launch over `count` entries (1..ADAM_MULTI_MAX)
   static int adam_multi(const SingaAdamEntry* es, int count,
                         const float* bc1, const float* bc2, AdamArgs a,
-                        cudaStream_t st) {
+                        const float* ok, cudaStream_t st) {
     using PT = typename P::T;
     using ST = typename S::T;
     if (count < 1 || count > ADAM_MULTI_MAX)
@@ -602,6 +625,7 @@ struct Launch {
     t.count = count;
     t.bc1 = bc1;
     t.bc2 = bc2;
+    t.ok = ok;
     t.beta1 = a.beta1;
     t.one_minus_beta1 = a.one_minus_beta1;
     t.beta2 = a.beta2;
@@ -705,17 +729,21 @@ extern "C" int singa_adagrad_update(int p_dtype, int s_dtype, void* p,
 // any count > 0, at most SGD_MULTI_MAX (K1, K6, K7) / ADAM_MULTI_MAX (K5),
 // each with n > 0.
 // One launch each; the hyperparameters shared by the entries are
-// arguments, as for the per-tensor functions.
+// arguments, as for the per-tensor functions. ok: null, or a device
+// pointer to one f32, a guarded step's verdict: where it holds 0 the
+// launch writes nothing.
 
 extern "C" int singa_sgd_update_multi(int p_dtype, int s_dtype,
                                       const SingaSgdEntry* entries,
                                       int count, float momentum,
                                       float one_minus_dampening,
-                                      int nesterov, void* stream) {
+                                      int nesterov, const void* ok,
+                                      void* stream) {
   const SgdShared a{momentum, one_minus_dampening, nesterov};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* okf = static_cast<const float*>(ok);
   return with_types(p_dtype, s_dtype, [&](auto l) {
-    return l.sgd_multi(entries, count, a, st);
+    return l.sgd_multi(entries, count, a, okf, st);
   });
 }
 
@@ -725,12 +753,13 @@ extern "C" int singa_adam_update_multi(int p_dtype, int s_dtype,
                                        const void* bc2, float beta1,
                                        float one_minus_beta1, float beta2,
                                        float one_minus_beta2, float eps,
-                                       void* stream) {
+                                       const void* ok, void* stream) {
   const AdamArgs a{beta1, one_minus_beta1, beta2, one_minus_beta2, eps, 0.f};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* okf = static_cast<const float*>(ok);
   return with_types(p_dtype, s_dtype, [&](auto l) {
     return l.adam_multi(entries, count, static_cast<const float*>(bc1),
-                        static_cast<const float*>(bc2), a, st);
+                        static_cast<const float*>(bc2), a, okf, st);
   });
 }
 
@@ -739,22 +768,24 @@ extern "C" int singa_rmsprop_update_multi(int p_dtype, int s_dtype,
                                           const SingaSgdEntry* entries,
                                           int count, float rho,
                                           float one_minus_rho, float eps,
-                                          void* stream) {
+                                          const void* ok, void* stream) {
   const ScaledShared a{rho, one_minus_rho, eps};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* okf = static_cast<const float*>(ok);
   return with_types(p_dtype, s_dtype, [&](auto l) {
-    return l.template scaled_multi<false>(entries, count, a, st);
+    return l.template scaled_multi<false>(entries, count, a, okf, st);
   });
 }
 
 extern "C" int singa_adagrad_update_multi(int p_dtype, int s_dtype,
                                           const SingaSgdEntry* entries,
                                           int count, float eps,
-                                          void* stream) {
+                                          const void* ok, void* stream) {
   const ScaledShared a{0.f, 0.f, eps};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* okf = static_cast<const float*>(ok);
   return with_types(p_dtype, s_dtype, [&](auto l) {
-    return l.template scaled_multi<true>(entries, count, a, st);
+    return l.template scaled_multi<true>(entries, count, a, okf, st);
   });
 }
 

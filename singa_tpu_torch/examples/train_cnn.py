@@ -7,7 +7,8 @@ CIFAR-10.
 
 The ``resnet`` / ``synthetic|cifar10`` subset of ``examples/train_cnn.py``
 with the same SGD settings (``lr``, momentum 0.9, weight decay 1e-5,
-``fused=--fused-optim``, which sends every update through kernel K1),
+``fused=--fused-optim``, which sends the update through the optimizer
+kernel: K1's multi-tensor launch),
 the same epoch loop (shuffle, batched crop/flip augmentation for CIFAR-10,
 training loss and accuracy, then evaluation accuracy per epoch) and the
 same synthetic data (``--iters`` batches of N(0, 1) images at 224 px,
@@ -16,9 +17,14 @@ from ``--data-dir`` (or ``data/`` of this checkout); nothing is
 downloaded. ``--layout auto`` of the JAX example reads a TPU A/B result,
 so the default here is NCHW.
 
+``-p bf16_mixed`` compiles the model under the mixed-precision policy
+(``Model.compile(policy="bf16_mixed")``): f32 master weights, bf16
+convolutions and products, and dynamic loss scaling through
+``resilience.GuardedOptimizer``, which skips a bad step on the card.
+
 Not ported yet, each refused with a pointer to ROADMAP.md: the other
-models, ``-p bf16_mixed`` / ``bfloat16``, ``--dist`` / ``--mesh``
-(data-parallel training) and ``--resilient``.
+models, ``-p bfloat16`` (the JAX example's pure-bf16 input cast),
+``--dist`` / ``--mesh`` (data-parallel training) and ``--resilient``.
 """
 
 import argparse
@@ -44,9 +50,12 @@ def build_parser():
     ap.add_argument("--max-batches", type=int, default=0,
                     help="cap the train batches per epoch (0: all)")
     ap.add_argument("--lr", "-l", type=float, default=0.05)
-    ap.add_argument("-p", "--precision", default="float32")
+    ap.add_argument("-p", "--precision", default="float32",
+                    help="float32, or bf16_mixed: f32 masters, bf16 compute, "
+                         "dynamic loss scaling")
     ap.add_argument("--fused-optim", action="store_true",
-                    help="update every parameter through kernel K1")
+                    help="update the parameters through the optimizer "
+                         "kernel (K1's multi-tensor launch)")
     ap.add_argument("--layout", default="NCHW", choices=("NCHW", "NHWC"))
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--no-augment", action="store_true")
@@ -64,10 +73,9 @@ def _refuse(args):
     if args.data not in ("synthetic", "cifar10"):
         return f"dataset {args.data!r} is not ported yet (ROADMAP.md); " \
             "use synthetic or cifar10"
-    if args.precision != "float32":
+    if args.precision not in ("float32", "bf16_mixed"):
         return f"-p {args.precision} training is not ported yet " \
-            "(ROADMAP.md: bf16_mixed with dynamic loss scaling is the next " \
-            "slice); use -p float32"
+            "(ROADMAP.md); use -p float32 or -p bf16_mixed"
     if args.dist or args.mesh:
         return "--dist/--mesh: data-parallel training is not ported yet " \
             "(ROADMAP.md: slice B)"
@@ -117,7 +125,9 @@ def main(argv=None):
         return tensor.Tensor(data=np.ascontiguousarray(x, np.float32),
                              device=dev)
 
-    model.compile([stage(train_x[:args.bs])], is_train=True, use_graph=True)
+    model.compile([stage(train_x[:args.bs])], is_train=True, use_graph=True,
+                  policy="bf16_mixed" if args.precision == "bf16_mixed"
+                  else None)
 
     eye = np.eye(num_classes, dtype=np.float32)
     acc = metric.Accuracy()

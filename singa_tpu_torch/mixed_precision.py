@@ -3,9 +3,17 @@
 Counterpart of ``singa_tpu/mixed_precision.py`` (the float presets). A
 :class:`Policy` names three dtypes: ``param_dtype`` (the masters),
 ``compute_dtype`` (what conv/matmul/bias operands are cast to) and
-``output_dtype`` (what floating outputs are cast back to at the serving
-boundary). BatchNorm statistics and the BN fold of the fused epilogue stay
-f32 under every policy (``ops/batchnorm.py``, ``ops/fused_epilogue.py``).
+``output_dtype`` (what floating outputs are cast back to at the model's
+boundary, in training and in serving). BatchNorm statistics, the BN fold of
+the fused epilogue and the loss reductions stay f32 under every policy
+(``ops/batchnorm.py``, ``ops/fused_epilogue.py``, ``autograd.py``, through
+:func:`accum_f32`).
+
+A policy with 16-bit compute trains with dynamic loss scaling by default
+(:attr:`Policy.wants_loss_scaling`): ``Model.compile(policy=...,
+is_train=True)`` wraps the optimizer in
+:class:`~.resilience.GuardedOptimizer`, which starts at
+:attr:`Policy.default_loss_scale`. ``loss_scaling=False`` opts out.
 
 The quantized presets of the JAX package (``int8_weight_only``,
 ``fp8_serving``, ``fp8_mixed``, ``int8_qat``) are not part of this slice
@@ -20,7 +28,7 @@ from contextvars import ContextVar
 import torch
 
 __all__ = ["Policy", "resolve", "active_policy", "policy_scope",
-           "cast_compute", "compute_dtype", "param_dtype"]
+           "cast_compute", "compute_dtype", "param_dtype", "accum_f32"]
 
 _NAMED = {
     "float32": ("float32", "float32", "float32"),
@@ -30,6 +38,7 @@ _NAMED = {
 }
 _QUANT_NAMES = ("int8_weight_only", "fp8_serving", "fp8_mixed", "int8_qat",
                 "int8", "fp8")
+_LOW_BITS = (torch.bfloat16, torch.float16)
 _ALIASES = {"fp32": "float32", "f32": "float32",
             "bf16": "bfloat16", "mixed_bf16": "bf16_mixed",
             "fp16_mixed": "float16_mixed", "f16_mixed": "float16_mixed"}
@@ -42,10 +51,12 @@ def _dt(x):
 
 
 class Policy:
-    """One precision contract (see module doc)."""
+    """One precision contract (see module doc). ``loss_scaling``
+    overrides whether training pairs it with dynamic loss scaling (on for
+    a 16-bit compute dtype, off for float32)."""
 
     def __init__(self, name="bf16_mixed", *, param_dtype=None,
-                 compute_dtype=None, output_dtype=None):
+                 compute_dtype=None, output_dtype=None, loss_scaling=None):
         key = _ALIASES.get(str(name).lower(), str(name).lower())
         if key in _QUANT_NAMES:
             raise NotImplementedError(
@@ -63,6 +74,25 @@ class Policy:
                                  else c)
         self.output_dtype = _dt(output_dtype if output_dtype is not None
                                 else o)
+        self._loss_scaling = loss_scaling
+
+    @property
+    def is_mixed(self):
+        """True when compute happens below the masters' precision."""
+        return self.compute_dtype != self.param_dtype
+
+    @property
+    def wants_loss_scaling(self):
+        if self._loss_scaling is not None:
+            return bool(self._loss_scaling)
+        return self.compute_dtype in _LOW_BITS
+
+    @property
+    def default_loss_scale(self):
+        """The dynamic loss scale training starts at: 2^15 for float16
+        compute (its narrow exponent underflows small gradients), 1.0 for
+        bfloat16 (f32's exponent range)."""
+        return 2.0 ** 15 if self.compute_dtype == torch.float16 else 1.0
 
     def describe(self):
         return {"name": self.name,
@@ -76,6 +106,17 @@ class Policy:
         d = self.describe()
         return (f"Policy({self.name!r}: params={d['param_dtype']}, "
                 f"compute={d['compute_dtype']}, out={d['output_dtype']})")
+
+    def __eq__(self, other):
+        # loss scaling is part of the contract: a recompile that only
+        # flips the opt-out is a policy change
+        return isinstance(other, Policy) and \
+            self.describe() == other.describe() and \
+            self.wants_loss_scaling == other.wants_loss_scaling
+
+    def __hash__(self):
+        return hash(tuple(sorted(self.describe().items()))
+                    + (self.wants_loss_scaling,))
 
     def cast_output(self, x):
         """Boundary cast of one floating output tensor."""
@@ -137,6 +178,12 @@ def cast_compute(*arrays):
                 and a.is_floating_point() and a.dtype != ct else a
                 for a in arrays)
     return out[0] if len(out) == 1 else out
+
+
+def accum_f32(x):
+    """``x`` in f32 when it is 16-bit floating point (before a reduction
+    that 16 bits would spoil), else ``x`` itself."""
+    return x.float() if x.dtype in _LOW_BITS else x
 
 
 def param_dtype(dtype=None):

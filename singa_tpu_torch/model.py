@@ -4,13 +4,18 @@ checkpoints and the serving entry point.
 Counterpart of the single-device subset of ``singa_tpu/model.py``:
 :meth:`Model.compile` (``model.py:300-487``), ``set_optimizer``,
 ``__call__`` (``:1353-1387``: train mode runs ``train_one_batch``, eval
-mode runs ``forward``), ``eval`` / ``train``, ``get_states`` /
+mode runs ``forward``), the precision policy's training companion (a
+16-bit compute policy wraps the optimizer in
+``resilience.GuardedOptimizer``, ``:221-284``), ``eval`` / ``train``,
+``get_states`` /
 ``set_states``, ``save_states`` / ``load_states`` in the same zip format
 (a ``tensor_dict.npz`` plus a ``states_attr.json``, with the optimizer's
-states as ``optimizer/<name>`` entries, ``:1605-1770``), and
-:meth:`Model.compile_serving`. :func:`load_numpy_states` carries weights
-and BN running statistics across from a dict of numpy arrays, such as the
-JAX package's ``get_states`` turned to numpy or its ``save_states`` zip.
+states as ``optimizer/<name>`` entries, a guard's as ``optimizer/guard/...``
+and ``optimizer/guard-shadow/...``, ``:1605-1770``), and
+:meth:`Model.compile_serving`. :func:`load_numpy_states` carries weights,
+BN running statistics and optimizer states across from a dict of numpy
+arrays, such as the JAX package's ``get_states`` turned to numpy or its
+``save_states`` zip.
 
 The JAX package jits the train step (``use_graph=True``). The port runs
 it eagerly whatever ``use_graph`` says; capturing the step in a CUDA graph
@@ -27,7 +32,7 @@ import numpy as np
 
 import torch
 
-from .autograd_base import CTX
+from .autograd_base import CTX, register_param
 from .layer import Layer
 from .tensor import Tensor, dtype_name
 
@@ -37,21 +42,26 @@ STATES_ATTR_FILENAME = "states_attr.json"
 
 def load_numpy_states(model, states, strict=True):
     """Copy ``{state name: numpy array}`` into ``model``'s live state
-    tensors, each cast to the live tensor's dtype. ``optimizer/``,
-    ``aux/`` and ``quant-scale/`` entries are not model states and are
-    skipped. With ``strict`` (the default) every model state must be
-    present. A model whose layers have not run yet has no states: run it
-    once (``compile_serving`` does) before loading. Returns the names
-    loaded."""
+    tensors, each cast to the live tensor's dtype. ``optimizer/<name>``
+    entries go to the model's optimizer (``set_states``; a guard takes its
+    ``guard/`` and ``guard-shadow/`` ones) when it has one; ``aux/`` and
+    ``quant-scale/`` entries are not model states and are skipped. With
+    ``strict`` (the default) every model state must be present. A model
+    whose layers have not run yet has no states: run it once
+    (``compile_serving`` does) before loading. Returns the model state
+    names loaded."""
     mine = model.get_states()
     if not mine:
         raise RuntimeError(
             f"{type(model).__name__} has no states yet: its layers "
             "initialize on their first call -- build the serving engine "
             "(compile_serving) or run one forward before loading states")
-    loaded = []
+    loaded, opt_states = [], {}
     for k, v in states.items():
-        if k.startswith(("optimizer/", "aux/", "quant-scale/")):
+        if k.startswith("optimizer/"):
+            opt_states[k[len("optimizer/"):]] = v
+            continue
+        if k.startswith(("aux/", "quant-scale/")):
             continue
         if k in mine:
             arr = np.asarray(v)
@@ -65,6 +75,8 @@ def load_numpy_states(model, states, strict=True):
         if missing:
             raise KeyError(f"states missing for {len(missing)} model "
                            f"tensors, e.g. {missing[:5]}")
+    if opt_states and getattr(model, "optimizer", None) is not None:
+        model.optimizer.set_states(opt_states)
     return loaded
 
 
@@ -96,12 +108,61 @@ class Model(Layer):
     def eval(self):
         self.train(False)
 
+    def _migrate_masters(self, new_policy):
+        """A re-compile across a param-dtype change (``bfloat16`` ->
+        ``bf16_mixed``, or back): cast the trainable parameters, and the
+        optimizer aux that mirrors them (``<param>:<kind>``), to the new
+        master dtype, in place of the old tensors' data. Other state (BN
+        running statistics, the guard's) keeps its dtype."""
+        pd = new_policy.param_dtype if new_policy is not None else None
+        if pd is None:
+            return
+
+        def adapt(t):
+            if t.data.is_floating_point() and t.dtype != pd:
+                param = t.data.requires_grad
+                t.data = t.data.detach().to(pd)
+                if param:
+                    register_param(t)
+
+        for t in self.get_states().values():
+            if t.requires_grad:
+                adapt(t)
+        if self.optimizer is not None and self.optimizer.device is not None:
+            for k, t in self.optimizer.state_tensor_dict().items():
+                if ":" in k.rsplit("/", 1)[-1]:
+                    adapt(t)
+
+    def _policy_companion(self, optimizer):
+        """Pair a 16-bit policy with dynamic loss scaling: wrap a plain
+        optimizer in ``resilience.GuardedOptimizer`` (never one that is
+        guarded already), and undo that wrap (never a user's) when the
+        policy stops wanting scaling or changes, so that a new policy
+        starts at its own default scale."""
+        pol = self._policy
+        wants = pol is not None and pol.wants_loss_scaling
+        mark = vars(optimizer).get("_policy_companion_wrap") \
+            if optimizer is not None else None
+        if mark is not None and (not wants or mark != pol):
+            optimizer = optimizer.inner
+        if wants and optimizer is not None and \
+                not hasattr(optimizer, "dynamic_loss_scale"):
+            from .resilience import GuardedOptimizer
+            optimizer = GuardedOptimizer.for_policy(optimizer, pol)
+            optimizer._policy_companion_wrap = pol
+        return optimizer
+
     def set_optimizer(self, optimizer):
-        """Train with ``optimizer``; bound to the model's device once the
-        model has one (``compile``)."""
+        """Train with ``optimizer``, wrapped for loss scaling when the
+        model's policy asks for it; bound to the model's device once the
+        model has one (``compile``). A guard is handed the model, whose BN
+        running statistics it shadows."""
+        optimizer = self._policy_companion(optimizer)
         self.optimizer = optimizer
         if optimizer is not None and self.dev is not None:
             optimizer.bind(self.dev)
+        if hasattr(optimizer, "bind_model"):
+            optimizer.bind_model(self)
 
     def compile(self, inputs, is_train=True, use_graph=False,
                 sequential=False, policy=None):
@@ -113,21 +174,22 @@ class Model(Layer):
         ``use_graph`` and ``sequential`` are accepted for parity and
         recorded: the port runs the step eagerly either way (capturing it
         in a CUDA graph is a later performance change, ROADMAP).
-        ``policy`` is a precision policy or its name; a 16-bit compute
-        policy with ``is_train=True`` raises: the JAX package pairs it with
-        dynamic loss scaling (``resilience.GuardedOptimizer``), which is
-        not ported yet (ROADMAP)."""
+        ``policy`` is a precision policy or its name (``"bf16_mixed"``,
+        ``"float16_mixed"``, ``"bfloat16"``): f32 masters (for the mixed
+        ones), 16-bit convolutions and products, f32 outputs, and for
+        training the optimizer wrapped in ``resilience.GuardedOptimizer``
+        (dynamic loss scaling from the policy's ``default_loss_scale``)
+        unless the policy opts out (``loss_scaling=False``). A re-compile
+        under another policy casts the masters to its param dtype."""
         from . import mixed_precision as mp
         assert len(inputs) > 0
         pol = mp.resolve(policy)
-        if is_train and pol is not None and \
-                pol.compute_dtype in (torch.bfloat16, torch.float16):
-            raise NotImplementedError(
-                f"training under policy {pol.name!r} is not ported yet "
-                "(ROADMAP: bf16_mixed training with "
-                "resilience.GuardedOptimizer's dynamic loss scaling is the "
-                "next slice); train in float32")
+        if pol != self._policy:
+            self._migrate_masters(pol)
         self._policy = pol
+        if self.optimizer is not None:
+            # the policy's companion wraps (or unwraps) the optimizer
+            self.set_optimizer(self.optimizer)
         self.dev = inputs[0].device
         self.graph_mode = use_graph
         self.sequential = sequential
@@ -146,15 +208,24 @@ class Model(Layer):
 
     def __call__(self, *args, **kwargs):
         """Train mode: one ``train_one_batch`` (forward, loss, backward,
-        update). Eval mode: ``forward`` without gradients."""
+        update). Eval mode: ``forward`` without gradients. Under a policy
+        the floating outputs come back in its output dtype."""
         from . import mixed_precision as mp
         if self._train:
             if kwargs:
                 raise TypeError(
                     "train-mode model calls take positional arguments "
                     f"only; got keyword arguments {sorted(kwargs)}")
+            if hasattr(self.optimizer, "materialize_shadows"):
+                # a guard's shadows hold the BN statistics before the
+                # forward moves them
+                self.optimizer.materialize_shadows()
             with mp.policy_scope(self._policy):
-                return self.train_one_batch(*args)
+                out = self.train_one_batch(*args)
+            if self._policy is None:
+                return out
+            with torch.no_grad():
+                return self._cast_outputs(out)
         prev = CTX.training
         CTX.training = False
         try:
@@ -162,9 +233,17 @@ class Model(Layer):
                 out = self.forward(*args, **kwargs)
         finally:
             CTX.training = prev
-        if self._policy is not None and isinstance(out, Tensor):
-            out = Tensor(data=self._policy.cast_output(out.data),
-                         device=out.device)
+        return out if self._policy is None else self._cast_outputs(out)
+
+    def _cast_outputs(self, out):
+        """The policy's boundary cast of a Tensor, or of each Tensor of a
+        tuple or list."""
+        if isinstance(out, (tuple, list)):
+            return type(out)(self._cast_outputs(o) for o in out)
+        if isinstance(out, Tensor):
+            data = self._policy.cast_output(out.data)
+            if data is not out.data:
+                return Tensor(data=data, device=out.device)
         return out
 
     def compile_serving(self, policy=None, **kw):
@@ -224,9 +303,5 @@ class Model(Layer):
                 "this archive holds int8-quantized weights; quantized "
                 "policies are not ported yet (ROADMAP)")
         load_numpy_states(self, arrays)
-        opt_states = {k[len("optimizer/"):]: v for k, v in arrays.items()
-                      if k.startswith("optimizer/")}
-        if self.optimizer is not None and opt_states:
-            self.optimizer.set_states(opt_states)
         return {k[len("aux/"):]: v for k, v in arrays.items()
                 if k.startswith("aux/")}

@@ -24,6 +24,14 @@ the state once, in place:
   update a step's eligible parameters this way; ``Optimizer.apply`` keeps
   the per-tensor wrappers.
 
+The multi-tensor wrappers and their plain versions take ``ok``, a guarded
+step's verdict (``resilience.GuardedOptimizer``): a 0-d f32 tensor on the
+parameters' device, 1 on a good step and 0 on a bad one, or None. Where it
+is 0 the update writes nothing: the kernel's blocks read the flag through
+its pointer and return, and the plain and CPU paths put every tensor they
+wrote back, ``torch.where(ok, new, old)`` as the reference masks a step.
+The host never reads the flag. The per-tensor wrappers take no flag.
+
 Each per-tensor wrapper takes the JAX signature and returns the updated
 ``(p, m[, v])``, which are the tensors passed in, updated in place. ``lr`` (and
 Adam's bias corrections) may be 0-d f32 tensors on the parameter's device,
@@ -190,14 +198,16 @@ _SIGNATURES = {
     "rmsprop": ("singa_rmsprop_update", [_VP] * 4 + [_LL] + [_F] * 4 + [_VP]),
     "adagrad": ("singa_adagrad_update", [_VP] * 4 + [_LL] + [_F] * 2
                 + [_VP]),
+    # the multi-tensor ones end with the skip flag's pointer and the stream
     "sgd_multi": ("singa_sgd_update_multi", [
-        ctypes.POINTER(_SgdEntry), _INT, _F, _F, _INT, _VP]),
+        ctypes.POINTER(_SgdEntry), _INT, _F, _F, _INT, _VP, _VP]),
     "adam_multi": ("singa_adam_update_multi", [
-        ctypes.POINTER(_AdamEntry), _INT, _VP, _VP] + [_F] * 5 + [_VP]),
+        ctypes.POINTER(_AdamEntry), _INT, _VP, _VP] + [_F] * 5
+        + [_VP, _VP]),
     "rmsprop_multi": ("singa_rmsprop_update_multi", [
-        ctypes.POINTER(_SgdEntry), _INT] + [_F] * 3 + [_VP]),
+        ctypes.POINTER(_SgdEntry), _INT] + [_F] * 3 + [_VP, _VP]),
     "adagrad_multi": ("singa_adagrad_update_multi", [
-        ctypes.POINTER(_SgdEntry), _INT, _F, _VP]),
+        ctypes.POINTER(_SgdEntry), _INT, _F, _VP, _VP]),
 }
 
 
@@ -355,37 +365,61 @@ def adagrad_update(p, g, h, lr, *, epsilon, weight_decay=0.0):
 
 # -- multi-tensor updates: K1, K5, K6, K7 over many parameters in few launches
 
+@torch.no_grad()
+def _masked(entries, n_states, ok, update):
+    """``update()``, then, where ``ok`` is 0, every parameter and state of
+    ``entries`` put back as it was (``torch.where(ok, new, old)``); just
+    ``update()`` when ``ok`` is None."""
+    if ok is None:
+        update()
+        return
+    written = [t for e in entries for t in (e[0], *e[2:2 + n_states])]
+    old = [t.clone() for t in written]
+    update()
+    keep = _scalar(ok, written[0]) != 0
+    for t, was in zip(written, old):
+        t.copy_(torch.where(keep, t, was))
+
+
 def sgd_momentum_update_multi_reference(entries, *, momentum, dampening=0.0,
-                                        nesterov=False):
+                                        nesterov=False, ok=None):
     """Plain version of :func:`sgd_momentum_update_multi`: the plain
-    per-tensor update of each entry in turn."""
-    for p, g, m, lr, wd in entries:
-        sgd_momentum_update_reference(p, g, m, lr, momentum=momentum,
-                                      dampening=dampening, weight_decay=wd,
-                                      nesterov=nesterov)
+    per-tensor update of each entry in turn, masked by ``ok``."""
+    def update():
+        for p, g, m, lr, wd in entries:
+            sgd_momentum_update_reference(
+                p, g, m, lr, momentum=momentum, dampening=dampening,
+                weight_decay=wd, nesterov=nesterov)
+    _masked(entries, 1, ok, update)
 
 
 def adam_update_multi_reference(entries, bias_corr1, bias_corr2, *, beta_1,
-                                beta_2, epsilon):
+                                beta_2, epsilon, ok=None):
     """Plain version of :func:`adam_update_multi`."""
-    for p, g, m, v, lr, wd in entries:
-        adam_update_reference(p, g, m, v, lr, bias_corr1, bias_corr2,
-                              beta_1=beta_1, beta_2=beta_2, epsilon=epsilon,
-                              weight_decay=wd)
+    def update():
+        for p, g, m, v, lr, wd in entries:
+            adam_update_reference(p, g, m, v, lr, bias_corr1, bias_corr2,
+                                  beta_1=beta_1, beta_2=beta_2,
+                                  epsilon=epsilon, weight_decay=wd)
+    _masked(entries, 2, ok, update)
 
 
-def rmsprop_update_multi_reference(entries, *, rho, epsilon):
+def rmsprop_update_multi_reference(entries, *, rho, epsilon, ok=None):
     """Plain version of :func:`rmsprop_update_multi`."""
-    for p, g, r, lr, wd in entries:
-        rmsprop_update_reference(p, g, r, lr, rho=rho, epsilon=epsilon,
-                                 weight_decay=wd)
+    def update():
+        for p, g, r, lr, wd in entries:
+            rmsprop_update_reference(p, g, r, lr, rho=rho, epsilon=epsilon,
+                                     weight_decay=wd)
+    _masked(entries, 1, ok, update)
 
 
-def adagrad_update_multi_reference(entries, *, epsilon):
+def adagrad_update_multi_reference(entries, *, epsilon, ok=None):
     """Plain version of :func:`adagrad_update_multi`."""
-    for p, g, h, lr, wd in entries:
-        adagrad_update_reference(p, g, h, lr, epsilon=epsilon,
-                                 weight_decay=wd)
+    def update():
+        for p, g, h, lr, wd in entries:
+            adagrad_update_reference(p, g, h, lr, epsilon=epsilon,
+                                     weight_decay=wd)
+    _masked(entries, 1, ok, update)
 
 
 def _on_cpu(entries):
@@ -399,13 +433,15 @@ def _on_cpu(entries):
     return _device_kind(entries[0][0]) == "cpu"
 
 
-def _run_multi(kind, entries, n_states, args):
+def _run_multi(kind, entries, n_states, args, ok=None):
     """Launch multi-tensor kernel ``kind`` over ``entries`` (``(p, g,
     *states, lr, weight_decay)`` each): every entry checked as the
     per-tensor wrappers check it, grouped by (p, state) dtype pair, each
     group in chunks of ``MULTI_CAPACITY[kind]``, one launch per chunk
-    with ``args`` between the table and the stream. Counts each launch and
-    bumps the version of every tensor it wrote."""
+    with ``args`` and the skip flag ``ok`` (a pointer, or null) between
+    the table and the stream. Counts each launch and bumps the version of
+    every tensor it may have written: a launch that the flag skips counts
+    as one that wrote, since the host does not know which it was."""
     groups, lrs = {}, {}
     for e in entries:
         p, g, states, lr = e[0], e[1], e[2:2 + n_states], e[-2]
@@ -426,6 +462,8 @@ def _run_multi(kind, entries, n_states, args):
         return
     fn = _function(kind)
     stream = _stream(entries[0][0].device)
+    ok_t = None if ok is None else _scalar(ok, entries[0][0])
+    ok_ptr = None if ok_t is None else ok_t.data_ptr()
     cap, entry = MULTI_CAPACITY[kind], ctypes.POINTER(_ENTRIES[kind])
     for (p_dtype, s_dtype), group in groups.items():
         for i in range(0, len(group), cap):
@@ -435,7 +473,8 @@ def _run_multi(kind, entries, n_states, args):
                  lr.data_ptr(), n, wd)
                 for p, g, states, lr, n, wd in chunk], dtype=_ROWS[kind])
             err = fn(_KERNEL_DTYPES[p_dtype], _KERNEL_DTYPES[s_dtype],
-                     rows.ctypes.data_as(entry), len(chunk), *args, stream)
+                     rows.ctypes.data_as(entry), len(chunk), *args, ok_ptr,
+                     stream)
             if err != 0:
                 raise RuntimeError(f"fused {kind} kernel launch failed: CUDA "
                                    f"error {err}")
@@ -445,7 +484,7 @@ def _run_multi(kind, entries, n_states, args):
 
 
 def sgd_momentum_update_multi(entries, *, momentum, dampening=0.0,
-                              nesterov=False):
+                              nesterov=False, ok=None):
     """Fused ``opt.SGD`` momentum update of many parameters, in place.
     ``entries`` holds one ``(p, g, m, lr, weight_decay)`` per parameter:
     the parameter, its gradient, its momentum, its own learning rate (a
@@ -454,73 +493,83 @@ def sgd_momentum_update_multi(entries, *, momentum, dampening=0.0,
     multi-tensor launch: one per chunk of ``MULTI_CAPACITY["sgd_multi"]``
     entries of one (p, m) dtype pair, bitwise-equal to one
     :func:`sgd_momentum_update` per entry. On the CPU,
-    :func:`sgd_momentum_update` for each entry."""
+    :func:`sgd_momentum_update` for each entry. ``ok``: the skip flag
+    (module doc)."""
     if not entries:
         return
     if _on_cpu(entries):
-        for p, g, m, lr, wd in entries:
-            sgd_momentum_update(p, g, m, lr, momentum=momentum,
-                                dampening=dampening, weight_decay=wd,
-                                nesterov=nesterov)
+        def update():
+            for p, g, m, lr, wd in entries:
+                sgd_momentum_update(p, g, m, lr, momentum=momentum,
+                                    dampening=dampening, weight_decay=wd,
+                                    nesterov=nesterov)
+        _masked(entries, 1, ok, update)
         return
     _run_multi("sgd_multi", entries, 1,
                (float(momentum), float(1.0 - dampening),
-                int(bool(nesterov))))
+                int(bool(nesterov))), ok)
 
 
 def adam_update_multi(entries, bias_corr1, bias_corr2, *, beta_1, beta_2,
-                      epsilon):
+                      epsilon, ok=None):
     """Fused ``opt.Adam`` update (no amsgrad) of many parameters, in
     place. ``entries`` holds one ``(p, g, m, v, lr, weight_decay)`` per
     parameter; ``bias_corr1/2`` (``1 - beta**t``) and the betas are
     shared. On the card, kernel K5's multi-tensor launch, one per chunk of
     ``MULTI_CAPACITY["adam_multi"]`` entries of one dtype pair; on the CPU,
-    :func:`adam_update` for each entry."""
+    :func:`adam_update` for each entry. ``ok``: the skip flag."""
     if not entries:
         return
     if _on_cpu(entries):
-        for p, g, m, v, lr, wd in entries:
-            adam_update(p, g, m, v, lr, bias_corr1, bias_corr2,
-                        beta_1=beta_1, beta_2=beta_2, epsilon=epsilon,
-                        weight_decay=wd)
+        def update():
+            for p, g, m, v, lr, wd in entries:
+                adam_update(p, g, m, v, lr, bias_corr1, bias_corr2,
+                            beta_1=beta_1, beta_2=beta_2, epsilon=epsilon,
+                            weight_decay=wd)
+        _masked(entries, 2, ok, update)
         return
     like = entries[0][0]
     bc1, bc2 = _scalar(bias_corr1, like), _scalar(bias_corr2, like)
     _run_multi("adam_multi", entries, 2,
                (bc1.data_ptr(), bc2.data_ptr(), float(beta_1),
                 float(1.0 - beta_1), float(beta_2), float(1.0 - beta_2),
-                float(epsilon)))
+                float(epsilon)), ok)
 
 
-def rmsprop_update_multi(entries, *, rho, epsilon):
+def rmsprop_update_multi(entries, *, rho, epsilon, ok=None):
     """Fused ``opt.RMSProp`` update of many parameters, in place.
     ``entries`` holds one ``(p, g, r, lr, weight_decay)`` per parameter,
     ``r`` its mean square; rho and epsilon are shared. On the card, kernel
     K6's multi-tensor launch, one per chunk of
     ``MULTI_CAPACITY["rmsprop_multi"]`` entries of one dtype pair,
     bitwise-equal to one :func:`rmsprop_update` per entry; on the CPU,
-    :func:`rmsprop_update` for each entry."""
+    :func:`rmsprop_update` for each entry. ``ok``: the skip flag."""
     if not entries:
         return
     if _on_cpu(entries):
-        for p, g, r, lr, wd in entries:
-            rmsprop_update(p, g, r, lr, rho=rho, epsilon=epsilon,
-                           weight_decay=wd)
+        def update():
+            for p, g, r, lr, wd in entries:
+                rmsprop_update(p, g, r, lr, rho=rho, epsilon=epsilon,
+                               weight_decay=wd)
+        _masked(entries, 1, ok, update)
         return
     _run_multi("rmsprop_multi", entries, 1,
-               (float(rho), float(1.0 - rho), float(epsilon)))
+               (float(rho), float(1.0 - rho), float(epsilon)), ok)
 
 
-def adagrad_update_multi(entries, *, epsilon):
+def adagrad_update_multi(entries, *, epsilon, ok=None):
     """Fused ``opt.AdaGrad`` update of many parameters, in place.
     ``entries`` holds one ``(p, g, h, lr, weight_decay)`` per parameter,
     ``h`` its history. On the card, kernel K7's multi-tensor launch, one
     per chunk of ``MULTI_CAPACITY["adagrad_multi"]`` entries of one dtype
-    pair; on the CPU, :func:`adagrad_update` for each entry."""
+    pair; on the CPU, :func:`adagrad_update` for each entry. ``ok``: the
+    skip flag."""
     if not entries:
         return
     if _on_cpu(entries):
-        for p, g, h, lr, wd in entries:
-            adagrad_update(p, g, h, lr, epsilon=epsilon, weight_decay=wd)
+        def update():
+            for p, g, h, lr, wd in entries:
+                adagrad_update(p, g, h, lr, epsilon=epsilon, weight_decay=wd)
+        _masked(entries, 1, ok, update)
         return
-    _run_multi("adagrad_multi", entries, 1, (float(epsilon),))
+    _run_multi("adagrad_multi", entries, 1, (float(epsilon),), ok)

@@ -28,10 +28,17 @@ eligible parameter goes to the kernel. A training step
 every other parameter through :meth:`Optimizer.apply`, which updates one
 parameter and keeps the per-tensor kernels.
 
-The loss scale is held at 1.0: dynamic loss scaling
-(``resilience.GuardedOptimizer``) comes with ``bf16_mixed`` training
-(ROADMAP). ``DistOpt`` raises until data-parallel training is ported
-(ROADMAP, slice B).
+The loss scale is a 0-d f32 device state, 1.0 unless a
+``resilience.GuardedOptimizer`` drives the optimizer (dynamic loss
+scaling, the default companion of a 16-bit compute policy such as
+``bf16_mixed``): the guard seeds the backward with it and rewrites it on
+the card each step. A guarded step hands :meth:`Optimizer.update_params`
+and :meth:`Optimizer.step` its verdict ``ok`` (a 0-d device tensor), and a
+bad step is a no-op on every parameter, state and the step counter, with
+no host sync: the multi-tensor kernels skip on the flag, a parameter that
+:meth:`Optimizer.apply` updates alone is put back from a snapshot.
+``DistOpt`` raises until data-parallel training is ported (ROADMAP, slice
+B).
 """
 
 from __future__ import annotations
@@ -152,6 +159,7 @@ class Optimizer:
         self._constraints = {}
         self._lr_multipliers = {}
         self._step_cache = {}         # per-step device scalars
+        self._touched = None          # in _apply_masked: aux -> its before
 
     # -- device binding ---------------------------------------------------
     def bind(self, device):
@@ -241,27 +249,51 @@ class Optimizer:
         self.update_params(autograd_base.backward(loss))
         self.step()
 
-    def update_params(self, pairs):
+    def update_params(self, pairs, ok=None):
         """Update each parameter in place from its ``(param, grad)`` pair
         (what ``autograd_base.backward`` yields): the ones that take a
         multi-tensor kernel (:meth:`_multi_entry`) together in one call,
         every other one through :meth:`apply`, with the same state names
-        and the same results. The step counter does not move."""
+        and the same results. The step counter does not move. ``ok``, a
+        guarded step's verdict (a 0-d device tensor, or None): where it
+        is 0 nothing changes, and a state born in this call stays zero."""
         entries = []
         for p, g in pairs:
             name = p.name or f"param/{id(p)}"
             entry = self._multi_entry(name, p, g)
             if entry is None:
-                self.apply(name, p, g)
+                if ok is None:
+                    self.apply(name, p, g)
+                else:
+                    self._apply_masked(name, p, g, ok)
             else:
                 entries.append(entry)
         if entries:
             with torch.no_grad():
-                self._update_multi(entries)
+                self._update_multi(entries, ok)
 
-    def step(self):
+    def _apply_masked(self, name, p, g, ok):
+        """:meth:`apply`, then ``torch.where(ok, new, old)`` on the
+        parameter and on every aux state the update asked for
+        (:meth:`_get_aux` notes each one's value before)."""
+        old_p = p.data.clone()
+        self._touched = {}
+        try:
+            self.apply(name, p, g)
+            touched = self._touched
+        finally:
+            self._touched = None
+        keep = ok != 0
         with torch.no_grad():
-            self.step_counter.data.add_(1.0)
+            p.data.copy_(torch.where(keep, p.data, old_p))
+            for t, old in touched.values():
+                t.data.copy_(torch.where(keep, t.data, old))
+
+    def step(self, ok=None):
+        """Advance the step counter by 1, or by a guarded step's ``ok``
+        (1 or 0, on the device)."""
+        with torch.no_grad():
+            self.step_counter.data.add_(1.0 if ok is None else ok)
 
     def apply(self, param_name, param_value, param_grad):
         """Update ``param_value`` in place from ``param_grad``, alone (the
@@ -280,7 +312,7 @@ class Optimizer:
         parameter)."""
         return None
 
-    def _update_multi(self, entries):
+    def _update_multi(self, entries, ok=None):
         raise NotImplementedError
 
     # -- state ------------------------------------------------------------
@@ -290,7 +322,18 @@ class Optimizer:
             t = Tensor(shape=like.shape, device=like.device,
                        dtype=like.dtype, name=key)
             self._aux[key] = t
+        if self._touched is not None and key not in self._touched:
+            self._touched[key] = (t, t.data.clone())
         return t
+
+    def state_tensors(self):
+        """Every live state Tensor: the step counter, the loss scale and
+        the aux states."""
+        return [self.step_counter, self.loss_scale] + list(self._aux.values())
+
+    def restore_state_tensor(self, name, array):
+        """Set one state from a host array (see :meth:`set_states`)."""
+        self.set_states({name: array})
 
     def state_tensor_dict(self):
         """name -> live state Tensor."""
@@ -357,11 +400,11 @@ class SGD(Optimizer):
                 self._get_aux(f"{name}:momentum", p).data,
                 self._scaled_lr(name), self._weight_decay(name))
 
-    def _update_multi(self, entries):
+    def _update_multi(self, entries, ok=None):
         from .ops import fused_optim
         fused_optim.sgd_momentum_update_multi(
             entries, momentum=self.momentum, dampening=self.dampening,
-            nesterov=self.nesterov)
+            nesterov=self.nesterov, ok=ok)
 
     def _update(self, name, p, grad):
         wd = self._weight_decay(name)
@@ -408,10 +451,10 @@ class RMSProp(Optimizer):
                 self._get_aux(f"{name}:rms", p).data,
                 self._scaled_lr(name), self.weight_decay)
 
-    def _update_multi(self, entries):
+    def _update_multi(self, entries, ok=None):
         from .ops import fused_optim
         fused_optim.rmsprop_update_multi(entries, rho=self.rho,
-                                         epsilon=self.epsilon)
+                                         epsilon=self.epsilon, ok=ok)
 
     def _update(self, name, p, grad):
         if self._fused_ok(name, p):
@@ -451,9 +494,10 @@ class AdaGrad(Optimizer):
                 self._get_aux(f"{name}:history", p).data,
                 self._scaled_lr(name), self.weight_decay)
 
-    def _update_multi(self, entries):
+    def _update_multi(self, entries, ok=None):
         from .ops import fused_optim
-        fused_optim.adagrad_update_multi(entries, epsilon=self.epsilon)
+        fused_optim.adagrad_update_multi(entries, epsilon=self.epsilon,
+                                         ok=ok)
 
     def _update(self, name, p, grad):
         if self._fused_ok(name, p):
@@ -505,12 +549,12 @@ class Adam(Optimizer):
                 self._get_aux(f"{name}:v", p).data, self._scaled_lr(name),
                 self.weight_decay)
 
-    def _update_multi(self, entries):
+    def _update_multi(self, entries, ok=None):
         from .ops import fused_optim
         bc1, bc2 = self._bias_corrections()
         fused_optim.adam_update_multi(
             entries, bc1, bc2, beta_1=self.beta_1, beta_2=self.beta_2,
-            epsilon=self.epsilon)
+            epsilon=self.epsilon, ok=ok)
 
     def _update(self, name, p, grad):
         bc1, bc2 = self._bias_corrections()

@@ -15,7 +15,9 @@ The kernels multiply and add without contraction (``__fmul_rn`` /
 bitwise-equal to its plain version: K2 in f32 and, rounded once from the
 same f32 value, in bf16; the optimizer updates for every parameter and
 state type they take, per tensor and multi-tensor (over ResNet-50's 161
-parameter shapes and over a set that crosses a chunk boundary). The flash-attention kernels sum in another order
+parameter shapes and over a set that crosses a chunk boundary), and the
+multi-tensor ones with a guarded step's skip flag: ok = 1 bitwise with no
+flag, ok = 0 writing nothing. The flash-attention kernels sum in another order
 than the plain version's matmuls, so they are held within a tolerance:
 1e-4 of the largest reference value in f32, 2e-2 in bf16 (both round one
 f32 result to bf16, so a value may land one bf16 step away), and each
@@ -614,3 +616,134 @@ def test_a_cuda_scaled_multi_update_never_reaches_a_per_tensor_path(
         getattr(tfo, f"{kind}_update_multi")(mine, **_SCALED_KW[kind])
         assert tfo.launches[f"{kind}_multi"] == before + 1
     torch.cuda.synchronize()
+
+
+# -- the skip flag of the multi-tensor launches (K1, K5, K6, K7) -------------
+
+_FLAG_KINDS = ("sgd", "sgd_nesterov", "adam", "rmsprop", "adagrad")
+
+
+def _flag_case(kind, shapes, p_dtype, s_dtype, gen):
+    if kind in _SCALED_KW:
+        return _scaled_entries(shapes, p_dtype, s_dtype, gen)
+    return _multi_entries(kind, shapes, p_dtype, s_dtype, gen)
+
+
+def _flag_update(kind, entries, plain=False, **ok):
+    if kind in _SCALED_KW:
+        getattr(tfo, f"{kind}_update_multi"
+                + ("_reference" if plain else ""))(
+            entries, **_SCALED_KW[kind], **ok)
+    elif kind == "adam":
+        bc = (torch.tensor(1 - 0.9 ** 3, device="cuda"),
+              torch.tensor(1 - 0.999 ** 3, device="cuda"))
+        getattr(tfo, "adam_update_multi" + ("_reference" if plain else ""))(
+            entries, *bc, **_MULTI_KW[kind], **ok)
+    else:
+        getattr(tfo, "sgd_momentum_update_multi"
+                + ("_reference" if plain else ""))(
+            entries, **_MULTI_KW[kind], **ok)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", _FLAG_KINDS)
+@pytest.mark.parametrize("shapes", sorted(_MULTI_SETS))
+@pytest.mark.parametrize("p_dtype,s_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32)])
+def test_multi_kernel_skip_flag(kind, shapes, p_dtype, s_dtype):
+    """ok = 1: bitwise with the launch without a flag and with the plain
+    version given the flag; ok = 0: every parameter and state byte for
+    byte as before. Every launch counts, skipped or not, and bumps the
+    versions of what it may have written."""
+    _need_card()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    base, _ = _flag_case(kind, _MULTI_SETS[shapes](), p_dtype, s_dtype,
+                         gen)
+    n = 2 if kind == "adam" else 1
+
+    def clone():
+        return [tuple(t.clone() if isinstance(t, torch.Tensor) and t.dim()
+                      else t for t in e) for e in base]
+    bare, one, zero, plain = clone(), clone(), clone(), clone()
+    ok1 = torch.ones((), device="cuda")
+    ok0 = torch.zeros((), device="cuda")
+    versions = [t._version for e in zero for t in (e[0], *e[2:2 + n])]
+    key = "adam_multi" if kind == "adam" else \
+        f"{kind}_multi" if kind in _SCALED_KW else "sgd_multi"
+    before = dict(tfo.launches)
+    _flag_update(kind, bare)
+    _flag_update(kind, one, ok=ok1)
+    _flag_update(kind, zero, ok=ok0)
+    _flag_update(kind, plain, plain=True, ok=ok1)
+    torch.cuda.synchronize()
+    chunks = math.ceil(len(base) / tfo.MULTI_CAPACITY[key])
+    assert {k: tfo.launches[k] - before[k] for k in before} == \
+        {**{k: 0 for k in before}, key: 3 * chunks}
+    for e1, e2, e3, e4, e0 in zip(bare, one, zero, plain, base):
+        for i in (0, *range(2, 2 + n)):
+            assert torch.equal(e1[i], e2[i]) and torch.equal(e2[i], e4[i])
+            assert torch.equal(e3[i], e0[i])
+    assert all(t._version > v for t, v in zip(
+        [t for e in zero for t in (e[0], *e[2:2 + n])], versions))
+
+
+@pytest.mark.cuda
+def test_a_guarded_step_on_the_card_skips_a_poisoned_batch():
+    """A small conv net under ``bf16_mixed`` on the card: a poisoned batch
+    leaves every parameter, momentum, the step counter and the BN
+    statistics bitwise as they were, through K1's multi-tensor launch with
+    the flag (one launch per step, none per tensor), and halves the loss
+    scale."""
+    _need_card()
+    import numpy as np
+    from singa_tpu_torch import device, layer, model, opt, tensor
+
+    class Net(model.Model):
+        def __init__(self):
+            super().__init__()
+            self.conv = layer.Conv2d(8, 3, padding=1)
+            self.bn = layer.BatchNorm2d()
+            self.relu = layer.ReLU()
+            self.flat = layer.Flatten()
+            self.fc = layer.Linear(4)
+            self.loss_fn = layer.SoftMaxCrossEntropy()
+
+        def forward(self, x):
+            return self.fc(self.flat(self.relu(self.bn(self.conv(x)))))
+
+        def train_one_batch(self, x, y):
+            out = self.forward(x)
+            loss = self.loss_fn(out, y)
+            self.optimizer(loss)
+            return out, loss
+
+    dev = device.create_cuda_gpu(0)
+    rng = np.random.RandomState(0)
+    x = rng.randn(8, 3, 6, 6).astype(np.float32)
+    y = np.eye(4, dtype=np.float32)[rng.randint(0, 4, 8)]
+    m = Net()
+    m.set_optimizer(opt.SGD(lr=0.05, momentum=0.9, fused=True))
+    m.compile([tensor.Tensor(data=x, device=dev)], is_train=True,
+              policy="bf16_mixed")
+
+    def states():
+        d = {k: t.data.clone() for k, t in m.get_states().items()}
+        d.update({k: t.data.clone() for k, t in
+                  m.optimizer.state_tensor_dict().items()})
+        return d
+    for _ in range(2):
+        m(tensor.Tensor(data=x, device=dev), tensor.Tensor(data=y,
+                                                           device=dev))
+    before = states()
+    bad = x.copy()
+    bad.flat[0] = np.nan
+    tfo.reset_counts()
+    m(tensor.Tensor(data=bad, device=dev), tensor.Tensor(data=y, device=dev))
+    assert tfo.launches == {**{k: 0 for k in tfo.launches}, "sgd_multi": 1}
+    after = states()
+    moved = [k for k in before if not k.startswith(("loss_scale", "guard/"))
+             and not torch.equal(before[k], after[k])]
+    assert not moved, moved
+    stats = m.optimizer.stats()
+    assert stats["skipped_total"] == 1 and stats["loss_scale"] == 0.5

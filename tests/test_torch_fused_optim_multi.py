@@ -205,10 +205,17 @@ def _view(ptr, n, dtype):
                             dtype=dtype)
 
 
+def _skipped(ok):
+    """Whether the skip flag at address ``ok`` (None: no flag) holds 0,
+    as each block of the kernel reads it."""
+    return ok is not None and float(_view(ok, 1, torch.float32)[0]) == 0.0
+
+
 class FakeKernels:
     """Stands in for ``singa_sgd_update_multi`` / ``singa_adam_update_
-    multi``: records each call's table and runs the plain version over
-    views of the table's pointers, as the kernel writes through them."""
+    multi``: records each call's table and, unless the skip flag holds 0,
+    runs the plain version over views of the table's pointers, as the
+    kernel writes through them."""
 
     def __init__(self):
         self.calls = []
@@ -216,12 +223,14 @@ class FakeKernels:
     def function(self, kind):
         return {"sgd_multi": self.sgd, "adam_multi": self.adam}[kind]
 
-    def sgd(self, p_dt, s_dt, table, count, momentum, omd, nesterov,
+    def sgd(self, p_dt, s_dt, table, count, momentum, omd, nesterov, ok,
             stream):
         pt, st = TORCH_DTYPES[p_dt], TORCH_DTYPES[s_dt]
         rows = [(e.p, e.g, e.m, e.lr, e.n, e.weight_decay)
                 for e in table[:count]]
         self.calls.append(("sgd_multi", (p_dt, s_dt), rows))
+        if _skipped(ok):
+            return 0
         for p, g, m, lr, n, wd in rows:
             tfo.sgd_momentum_update_reference(
                 _view(p, n, pt), _view(g, n, pt), _view(m, n, st),
@@ -231,11 +240,13 @@ class FakeKernels:
         return 0
 
     def adam(self, p_dt, s_dt, table, count, bc1, bc2, b1, omb1, b2, omb2,
-             eps, stream):
+             eps, ok, stream):
         pt, st = TORCH_DTYPES[p_dt], TORCH_DTYPES[s_dt]
         rows = [(e.p, e.g, e.m, e.v, e.lr, e.n, e.weight_decay)
                 for e in table[:count]]
         self.calls.append(("adam_multi", (p_dt, s_dt), rows))
+        if _skipped(ok):
+            return 0
         bc = [_view(b, 1, torch.float32).reshape(()) for b in (bc1, bc2)]
         for p, g, m, v, lr, n, wd in rows:
             tfo.adam_update_reference(

@@ -48,8 +48,8 @@ from singa_tpu_torch.ops import fused_optim as tfo
 # the small MLP of test_torch_fused_optim.py, trained in both packages
 from test_torch_fused_optim import OPTIMIZERS as _ALL_OPTIMIZERS, _train_jax
 from test_torch_fused_optim_multi import (SHAPES, TORCH_DTYPES, ULPS,
-                                          _clone, _register, _train_port,
-                                          _view, _written)
+                                          _clone, _register, _skipped,
+                                          _train_port, _view, _written)
 
 KINDS = ["rmsprop", "adagrad"]
 KW = {"rmsprop": dict(rho=0.9, epsilon=1e-8), "adagrad": dict(epsilon=1e-8)}
@@ -179,9 +179,9 @@ def test_multi_matches_the_pallas_kernels_tensor_by_tensor(kind, wd):
 
 class FakeKernels:
     """Stands in for ``singa_rmsprop_update_multi`` /
-    ``singa_adagrad_update_multi``: records each call's table and runs
-    the plain version over views of the table's pointers, as the kernel
-    writes through them."""
+    ``singa_adagrad_update_multi``: records each call's table and, unless
+    the skip flag holds 0, runs the plain version over views of the
+    table's pointers, as the kernel writes through them."""
 
     def __init__(self):
         self.calls = []
@@ -190,27 +190,29 @@ class FakeKernels:
         return {"rmsprop_multi": self.rmsprop,
                 "adagrad_multi": self.adagrad}[kind]
 
-    def _run(self, kind, p_dt, s_dt, table, count, update):
+    def _run(self, kind, p_dt, s_dt, table, count, ok, update):
         pt, st = TORCH_DTYPES[p_dt], TORCH_DTYPES[s_dt]
         rows = [(e.p, e.g, e.m, e.lr, e.n, e.weight_decay)
                 for e in table[:count]]
         self.calls.append((kind, (p_dt, s_dt), rows))
+        if _skipped(ok):
+            return 0
         for p, g, s, lr, n, wd in rows:
             update(_view(p, n, pt), _view(g, n, pt), _view(s, n, st),
                    _view(lr, 1, torch.float32).reshape(()), wd)
         return 0
 
-    def rmsprop(self, p_dt, s_dt, table, count, rho, one_minus_rho, eps,
+    def rmsprop(self, p_dt, s_dt, table, count, rho, one_minus_rho, eps, ok,
                 stream):
         assert one_minus_rho == np.float32(1.0 - rho)
-        return self._run("rmsprop_multi", p_dt, s_dt, table, count,
+        return self._run("rmsprop_multi", p_dt, s_dt, table, count, ok,
                          lambda p, g, s, lr, wd:
                          tfo.rmsprop_update_reference(
                              p, g, s, lr, rho=rho, epsilon=eps,
                              weight_decay=wd))
 
-    def adagrad(self, p_dt, s_dt, table, count, eps, stream):
-        return self._run("adagrad_multi", p_dt, s_dt, table, count,
+    def adagrad(self, p_dt, s_dt, table, count, eps, ok, stream):
+        return self._run("adagrad_multi", p_dt, s_dt, table, count, ok,
                          lambda p, g, s, lr, wd:
                          tfo.adagrad_update_reference(
                              p, g, s, lr, epsilon=eps, weight_decay=wd))

@@ -309,14 +309,23 @@ def test_max_pool_gradient_goes_to_the_same_tied_element_as_jax():
 
 
 def test_bf16_training_and_dist_options_name_the_roadmap():
+    """``bf16_mixed`` training is ported: compiling under it wraps the
+    optimizer in the port's ``GuardedOptimizer`` (dynamic loss scaling
+    from 1.0), and an f32 re-compile takes the wrap off. The DistOpt
+    options still name ROADMAP slice B."""
+    from singa_tpu_torch.resilience import GuardedOptimizer
     x, y = _batch()
     dev = tdevice.create_cpu_device()
     m = tresnet.ResNet(tresnet.Bottleneck, [1, 1, 1, 1])
-    m.set_optimizer(topt.SGD(**SGD_KW))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.compile([ttensor.Tensor(data=x, device=dev)], is_train=True,
-                  policy="bf16_mixed")
+    sgd = topt.SGD(**SGD_KW)
+    m.set_optimizer(sgd)
+    m.compile([ttensor.Tensor(data=x, device=dev)], is_train=True,
+              policy="bf16_mixed")
+    assert isinstance(m.optimizer, GuardedOptimizer)
+    assert m.optimizer.inner is sgd and m.optimizer.dynamic_loss_scale
+    assert m.optimizer.stats()["loss_scale"] == 1.0
     m.compile([ttensor.Tensor(data=x, device=dev)], is_train=True)
+    assert m.optimizer is sgd
     with pytest.raises(NotImplementedError, match="slice B"):
         m(ttensor.Tensor(data=x, device=dev),
           ttensor.Tensor(data=y, device=dev), "half")
