@@ -21,10 +21,14 @@ failure exits nonzero:
    ``Model.compile_serving(batch=32)`` -> ``BatchServingEngine``, 96
    requests with the epilogue enabled, held against the port's own
    unfused path on the card (epilogue off, TF32 off for both); then again
-   under ``policy="bf16_mixed"``, and a 32-request NHWC run. Each run
-   checks that every future resolved and that K2 launched 49 times per
-   forward, with the launch counts zeroed just before the run and read
-   just after;
+   under ``policy="bf16_mixed"``, and a 32-request NHWC run. The engine
+   replays a CUDA graph per tick (its default), which moves no host
+   counter: each run is served twice, timed, then counted (the counts
+   zeroed just before it, the run under ``torch.profiler``, K2's
+   launches counted by kernel name in its trace, the host counts 0),
+   the two runs' logits bitwise; each run checks that every future
+   resolved, that every tick of the counted run was a replay and that
+   K2 launched 49 times per replay;
 5. kernels (optimizers): K1 (weight decay 1e-5, and again with nesterov),
    K5, K6 and K7 at the largest ResNet-50 parameter (512x512x3x3) and a
    64-element BN vector, each held bitwise against its plain version on
@@ -86,6 +90,28 @@ failure exits nonzero:
    p50/p99, img/s, peak memory and the update's host time beside the f32
    phase's p50; then 2 guarded steps each of Adam, RMSProp and AdaGrad
    (their flagged launches, 3 / 2 / 2 per step);
+8c. graph train: the same ResNet-50 and batch in graph mode
+   (``Model.compile(use_graph=True)``: the first step eager, the second
+   captured in a CUDA graph and replayed, the rest replays) and eagerly,
+   12 fused-SGD steps each from the same start, in f32 and under
+   bf16_mixed (step 6 poisoned), cuDNN deterministic: the losses and every
+   state bitwise, the poisoned step (a replay) a bitwise no-op, the loss
+   scale and skips step by step as eager's, one capture, K1's launches
+   counted on the host at the eager step and the capture only, no
+   synchronizing call in a replayed step; step p50/p99 and img/s of both
+   in 5 alternating rounds of 6 steps, peak memory, and the idle share,
+   busy time and ops of 3 traced steps of each, whose trace must count
+   K1's 2 multi-tensor launches per step by kernel name (none on the
+   host for the replays); then under bf16_mixed 8 guarded steps of Adam
+   on an exponentially decaying lr, graph against eager with step 6
+   poisoned: the same gates, the lr after each step bitwise too, K5's 3
+   multi-tensor launches per replayed step counted in the trace;
+8d. graph serve: ResNet-50 b32 through the graphed engine and the eager
+   one (``use_graph=False``), f32 and bf16_mixed: logits bitwise, 49 K2
+   launches per replay counted in the trace (phase 4's counted run);
+   after a load of other weights the graphed engine serves them (bitwise
+   with eager), capturing anew; tick p50/p99 and img/s in 5 alternating
+   rounds of 96 requests, and the device memory each engine holds;
 9. kernels (flash attention): the built library's SASS (``cuobjdump``)
    holds HMMA (tensor-core) instructions in each bf16 kernel (one at
    least of each of the three) and in no f32 one; each f32 kernel
@@ -123,20 +149,35 @@ failure exits nonzero:
    per step), their parameters within the same tolerance, step p50/p99
    and update host time of each, then the same bf16 steps with the plain
    attention: the final loss and the loss decrease through K3/K4 within
-   2% of it, and each parameter tensor's update within 20% of its own.
+   2% of it, and each parameter tensor's update within 20% of its own
+   (these LM phases run eagerly, ``use_graph=False``);
+12. graph train LM: the same LM in graph mode (K3, K4 and K1's
+   multi-tensor launch inside the captured step) against eager, 6 fused
+   steps each from the same start, in f32 and bf16: two eager f32 runs
+   made, and if they agree bitwise the graphed one must too (else the
+   LM's f32 gates); one capture, the kernels counted on the host at the
+   eager step and the capture only, no synchronizing call in a replayed
+   step; step p50/p99 and tokens/s of both in 5 alternating rounds of 3
+   steps, peak memory and traced idle shares, the trace of 3 replayed
+   steps counting K3's and K4's 6 launches each and K1's 2 per step.
 
-Its last lines are the ``{"kernels": [...]}`` record, the card's name and
-power limit, and ``{"ok": true, "device": {...}}``. In that record
-``ms`` and ``plain_ms`` are CUDA-event times of one call, host work
-included; a flash kernel's ``library_ms`` is the device time of the
-kernels that ``scaled_dot_product_attention`` launches (its call time
-with host work is ``library_call_ms`` in the full record), and an
-optimizer's the CUDA-event time of ``torch.optim``'s step. The full record also
-goes to ``chiprun_out/chip_smoke.json``.
+Rows of kernels that a graph replays (K2, K1-multi with and without the
+flag, K5-multi with the flag, K3/K4) carry ``replays`` and
+``launches_per_replay`` beside ``launches``, both from the trace of a
+replayed run (K1, K5, K3 and K4 with ``replayed_launches``, the count in
+that trace; K2's ``launches`` are its count). Its last lines are the ``{"kernels": [...]}`` record, the
+card's name and power limit, and ``{"ok": true, "device": {...}}``. In
+that record ``ms`` and ``plain_ms`` are CUDA-event times of one call,
+host work included; a flash kernel's ``library_ms`` is the device time
+of the kernels that ``scaled_dot_product_attention`` launches (its call
+time with host work is ``library_call_ms`` in the full record), and an
+optimizer's the CUDA-event time of ``torch.optim``'s step. The full
+record also goes to ``chiprun_out/chip_smoke.json``.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -290,7 +331,31 @@ BF16_OTHER_STEPS = 2
 # weights and batch, relative: bf16 convolutions round each output to 8
 # bits of mantissa, which moves a loss near ln(10) by well under 1%
 BF16_LOSS_TOL = 0.02
+# graph mode (CUDA graphs): graphed and eager ResNet-50 steps of each policy
+# from the same start (step POISON_STEP poisoned under bf16_mixed), then
+# GRAPH_ROUNDS alternating timing rounds of GRAPH_ROUND_STEPS steps each
+# (LM_GRAPH_ROUND_STEPS for the LM; one round of N_REQUESTS for serving),
+# and GRAPH_TRACED steps of each under the profiler
+GRAPH_STEPS = 12
+GRAPH_ROUNDS = 5
+GRAPH_ROUND_STEPS = 6
+GRAPH_TRACED = 3
+GRAPH_ADAM_STEPS = 8
+LM_GRAPH_STEPS = 6
+LM_GRAPH_ROUND_STEPS = 3
 # why an optimizer case has no PyTorch call timed beside it
+# a port kernel's name in a profiler trace: ``<name>_kernel<template
+# arguments>``, in an anonymous namespace; the launch-counter keys that
+# the name (the ``_mma`` of the bf16 flash kernels dropped) may be
+PORT_KERNEL = re.compile(r"(\w+)_kernel<([^>]*)>")
+# a counting profiler session starts with this many launches of a kernel
+# that nothing else runs (``torch.cuda._sleep``'s ``spin_kernel``, left
+# out of every count and time): after the training phases the trace of a
+# session lost its first 2-3 device records, even after 50 ms of idle
+# time, and a count must not lose any
+PROFILE_PAD = 16
+PORT_KEYS = ("sgd", "adam", "sgd_multi", "adam_multi", "flash_fwd",
+             "flash_bwd_dq", "flash_bwd_dkv")
 NO_LIBRARY = {"sgd_nesterov": "torch.optim is timed in the sgd case",
               "rmsprop": "torch.optim adds eps outside the square root",
               "adagrad": "torch.optim adds eps outside the square root"}
@@ -857,28 +922,74 @@ def seeded_states(model, seed):
     return out
 
 
-def serve(model, dev, inputs, policy, fused, batch=BATCH):
-    """Serve ``inputs`` through a fresh engine; returns (logits, engine,
-    seconds, launch counts of the run, fused tails of the run). The
-    engine's constructor runs one forward of the same path, which warms
-    cuDNN and the allocator before the timed run."""
+def serve_requests(eng, inputs):
+    """Submit ``inputs`` to ``eng`` and run it until idle; returns the
+    stacked results."""
+    import numpy as np
+    futs = [eng.submit(x) for x in inputs]
+    eng.run_until_idle()
+    check(all(f.done() for f in futs), "a future did not resolve")
+    return np.stack([f.result() for f in futs])
+
+
+def serve(model, dev, inputs, policy, fused, batch=BATCH, use_graph=True,
+          registry=None, attempts=5):
+    """Serve ``inputs`` through a fresh engine, twice. The engine's
+    constructor runs one forward of the same path, which warms cuDNN and
+    the allocator, and (``use_graph``, the engine's default) captures the
+    next in a CUDA graph: every tick is then a replay. The first run is
+    timed (``seconds``, and the engine's ``tick`` and ``ttft`` quantiles
+    just after it). The second is the counted run: its logits must equal
+    the first's bitwise, and it runs under ``torch.profiler``
+    (:func:`profiled`), K2's launches counted by kernel name in its trace,
+    49 per tick with the epilogue on (``TAILS_PER_FORWARD``, in the
+    model's layout), none with it off. A replay moves no host counter, so
+    a graphed engine's host counts must stay 0 and every tick of the run
+    be a replay; an eager engine's host counts must equal the trace's.
+    Returns a dict of the logits, the engine, ``seconds``, the trace's K2
+    ``launches`` by variant, the fused ``tails`` (one K2 launch each), the
+    ``replays`` of the counted run, ``tick`` and ``ttft``."""
     import numpy as np
     from singa_tpu_torch.observability.metrics import Registry
     from singa_tpu_torch.ops import fused_epilogue as fe
+    ticks = -(-len(inputs) // batch)
+    lo = getattr(model, "layout", "NCHW").lower()
+    want = {f"{k}_{lo}": per * ticks for k, per in TAILS_PER_FORWARD.items()
+            } if fused else {}
     with fe.enabled_scope(fused):
         eng = model.compile_serving(input_shape=SHAPE, batch=batch,
                                     device=dev, policy=policy,
                                     queue_capacity=len(inputs),
-                                    registry=Registry())
-        fe.reset_counts()
+                                    registry=registry or Registry(),
+                                    use_graph=use_graph)
         t0 = time.perf_counter()
-        futs = [eng.submit(x) for x in inputs]
-        eng.run_until_idle()
+        timed = serve_requests(eng, inputs)
         seconds = time.perf_counter() - t0
-        launches, tails = dict(fe.launches), fe.fused_tails
-    check(all(f.done() for f in futs), "a future did not resolve")
-    logits = np.stack([f.result() for f in futs])
-    return logits, eng, seconds, launches, tails
+        stats = {"tick": eng.tick_stats(), "ttft": eng.ttft_stats()}
+
+        def counted():
+            before = eng.graph_stats()["n_replays"]
+            out = serve_requests(eng, inputs)
+            return out, eng.graph_stats()["n_replays"] - before
+        (logits, replays), counts, host, _, _ = profiled(
+            counted, attempts, want, f"serve {lo} {policy or 'float32'} "
+            f"fused={fused} graph={use_graph}")
+        host_tails = fe.fused_tails
+    check(np.array_equal(logits, timed), "the counted run's logits differ "
+          "from the timed run's")
+    if use_graph:
+        check(replays == ticks and not host and host_tails == 0,
+              f"graphed engine: {ticks} ticks, {replays} replays, host "
+              f"counts {host} and {host_tails} fused tails in the counted "
+              "run (a replay moves none)")
+    else:
+        check(host == counts and host_tails == sum(host.values()),
+              f"eager engine: host counts {host} and {host_tails} fused "
+              f"tails, the trace counted {counts}")
+    launches = {k: counts.get(k, 0) for k in fe.launches}
+    return {"logits": logits, "engine": eng, "seconds": seconds,
+            "launches": launches, "tails": sum(launches.values()),
+            "replays": replays, **stats}
 
 
 def serve_phase(dev, layout, policy, n_requests, seed=SEED, batch=BATCH):
@@ -894,14 +1005,16 @@ def serve_phase(dev, layout, policy, n_requests, seed=SEED, batch=BATCH):
     rng = np.random.default_rng(seed + 1)
     inputs = [rng.standard_normal(SHAPE, dtype=np.float32)
               for _ in range(n_requests)]
-    ref, ref_eng, ref_s, ref_launches, _ = serve(model, dev, inputs,
-                                                 policy, False, batch)
+    r = serve(model, dev, inputs, policy, False, batch)
+    ref, ref_launches = r["logits"], r["launches"]
     check(sum(ref_launches.values()) == 0,
           f"the unfused run launched K2: {ref_launches}")
-    got, eng, s, launches, tails = serve(model, dev, inputs, policy, True,
-                                         batch)
+    f = serve(model, dev, inputs, policy, True, batch)
+    got, eng, launches, tails = f["logits"], f["engine"], f["launches"], \
+        f["tails"]
     ticks = -(-n_requests // batch)
-    check(eng.ticks == ticks, f"{eng.ticks} ticks, expected {ticks}")
+    check(eng.ticks == 2 * ticks, f"{eng.ticks} ticks, expected {ticks} "
+          "in each of the two runs")
     check(got.shape == (n_requests, 10) and np.isfinite(got).all(),
           f"logits of shape {got.shape}, or not finite")
     check(tails == 49 * ticks, f"{tails} fused tails, expected 49 x "
@@ -917,15 +1030,17 @@ def serve_phase(dev, layout, policy, n_requests, seed=SEED, batch=BATCH):
     check(scale > 0 and err <= REL_TOL[pname] * scale,
           f"{layout} {pname}: fused logits differ from the unfused path by "
           f"{err} (max |logit| {scale}, tolerance {REL_TOL[pname]} x)")
-    ts, tt = eng.tick_stats(), eng.ttft_stats()
+    ts, tt = f["tick"], f["ttft"]
     rec = {"layout": layout, "policy": pname, "requests": n_requests,
            "batch": batch, "ticks": ticks, "launches": launches,
+           "replays": f["replays"], "launches_per_replay":
+           {k: v / f["replays"] for k, v in launches.items()},
            "fused_tails": tails, "max_abs_err_vs_unfused": err,
-           "max_abs_logit": scale, "img_per_s": n_requests / s,
-           "unfused_img_per_s": n_requests / ref_s,
+           "max_abs_logit": scale, "img_per_s": n_requests / f["seconds"],
+           "unfused_img_per_s": n_requests / r["seconds"],
            "tick_p50_ms": ts["p50_s"] * 1e3, "tick_p99_ms": ts["p99_s"] * 1e3,
            "ttft_p50_ms": tt["p50_s"] * 1e3, "ttft_p99_ms": tt["p99_s"] * 1e3,
-           "unfused_tick_p50_ms": ref_eng.tick_stats()["p50_s"] * 1e3,
+           "unfused_tick_p50_ms": r["tick"]["p50_s"] * 1e3,
            "top1_agreement": float((got.argmax(1) == ref.argmax(1)).mean())}
     print(f"serve resnet50 {layout} {pname} b{batch} x{n_requests}: "
           f"img/s={rec['img_per_s']:.1f} (unfused {rec['unfused_img_per_s']:.1f}) "
@@ -1125,8 +1240,10 @@ def eval_after_training(dev, model, inputs):
     per-tensor K1 update (:func:`bn_only_update`)."""
     import numpy as np
     model.eval()
-    ref, _, _, ref_launches, _ = serve(model, dev, inputs, None, False)
-    got, _, _, launches, tails = serve(model, dev, inputs, None, True)
+    r = serve(model, dev, inputs, None, False)
+    ref, ref_launches = r["logits"], r["launches"]
+    f = serve(model, dev, inputs, None, True)
+    got, launches = f["logits"], f["launches"]
     check(sum(ref_launches.values()) == 0, "the unfused serve launched K2")
     for kind, per in TAILS_PER_FORWARD.items():
         n = launches[f"{kind}_nchw"]
@@ -1173,8 +1290,8 @@ def bn_only_update(dev, model, inputs, kernel, ref):
     check(n_bn == len(bn) == 106 and sum(counts.values()) == 0,
           f"{n_bn} {kernel} launches for {len(bn)} BN scales and biases, "
           f"expected 106, and others {counts}")
-    ref2, _, _, _, _ = serve(model, dev, inputs, None, False)
-    got2, _, _, _, _ = serve(model, dev, inputs, None, True)
+    ref2 = serve(model, dev, inputs, None, False)["logits"]
+    got2 = serve(model, dev, inputs, None, True)["logits"]
     moved = float(np.abs(ref2 - ref).max())
     err2 = float(np.abs(got2 - ref2).max())
     scale2 = float(np.abs(ref2).max())
@@ -1248,7 +1365,7 @@ def other_optimizers_phase(dev, models, tx, ty, start, inputs):
               + f"; fused == unfused == per-tensor {kind} bitwise over "
               f"{n_states} states", flush=True)
         fused.eval()
-        ref, _, _, _, _ = serve(fused, dev, inputs, None, False)
+        ref = serve(fused, dev, inputs, None, False)["logits"]
         serve(fused, dev, inputs, None, True)
         out[f"{kind}_bn_only"] = bn_only_update(dev, fused, inputs, kind,
                                                 ref)
@@ -1431,8 +1548,8 @@ def bf16_train_phase(dev, models, tx, ty, start, f32, inputs):
     check(abs(first - f32_first) <= BF16_LOSS_TOL * abs(f32_first),
           f"bf16_mixed first loss {first} against f32 {f32_first}")
     fused.eval()
-    got, _, _, _, _ = serve(fused, dev, inputs, "bf16_mixed", True)
-    ref, _, _, _, _ = serve(fused, dev, inputs, "float32", True)
+    got = serve(fused, dev, inputs, "bf16_mixed", True)["logits"]
+    ref = serve(fused, dev, inputs, "float32", True)["logits"]
     scale = float(np.abs(ref).max())
     err = float(np.abs(got - ref).max())
     check(np.isfinite(got).all() and err <= REL_TOL["bf16_mixed"] * scale,
@@ -1528,6 +1645,666 @@ def bf16_other_optimizers(model, tx, ty, start):
         print(f"train resnet50 bf16_mixed {kind} x{BF16_OTHER_STEPS}: {n} "
               f"{key} launches with the skip flag, losses "
               + " ".join(f"{v:.6f}" for v in losses), flush=True)
+    return out
+
+
+def timed_steps(model, tx, ty, steps):
+    """CUDA-event ms of each of ``steps`` train calls (one sync at the
+    end)."""
+    import torch
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(steps)]
+    for begin, end in events:
+        begin.record()
+        model(tx, ty)
+        end.record()
+    torch.cuda.synchronize()
+    return [b.elapsed_time(e) for b, e in events]
+
+
+def port_kernel(name):
+    """The launch-counter key (``launches`` of ``ops/fused_epilogue.py``,
+    ``ops/fused_optim.py`` or ``ops/attention.py``) of the port's kernel
+    that a profiler trace names ``name``, or None for any other kernel."""
+    m = PORT_KERNEL.search(name)
+    if m is None:
+        return None
+    base = m.group(1).removesuffix("_mma")
+    args = [a.strip() for a in m.group(2).split(",")]
+    if base == "affine_relu":           # <traits, NHWC, RES>
+        kind = "affine_add_relu" if args[-1] == "true" else "affine_relu"
+        return f"{kind}_{'nhwc' if args[-2] == 'true' else 'nchw'}"
+    if base in ("scaled", "scaled_multi"):      # <P, S, ADAGRAD>
+        kind = "adagrad" if args[-1] == "true" else "rmsprop"
+        return kind + base[len("scaled"):]
+    return base if base in PORT_KEYS else None
+
+
+def zero_counts():
+    """Zero the host launch counters of every kernel family."""
+    from singa_tpu_torch.ops import attention as at
+    from singa_tpu_torch.ops import fused_epilogue as fe
+    from singa_tpu_torch.ops import fused_optim as fo
+    for mod in (at, fe, fo):
+        mod.reset_counts()
+
+
+def host_launches():
+    """The nonzero host launch counts of every kernel family, by key."""
+    from singa_tpu_torch.ops import attention as at
+    from singa_tpu_torch.ops import fused_epilogue as fe
+    from singa_tpu_torch.ops import fused_optim as fo
+    return {k: v for mod in (at, fe, fo) for k, v in mod.launches.items()
+            if v}
+
+
+def profiled(fn, attempts, want, what):
+    """``fn()`` under ``torch.profiler`` (CPU + CUDA activities), the host
+    counts zeroed just before it, ending in a synchronize, after
+    ``PROFILE_PAD`` launches of a padding kernel. The port's kernels are
+    counted by name in the trace (:func:`port_kernel`): a
+    CUDA graph's replay launches its kernels on the device and moves no
+    host counter, and the trace holds them like any other. A session
+    whose count is not ``want`` (a trace that misses some of a run's
+    kernels is seen now and then on the card's machine) is run again, up
+    to ``attempts`` sessions, then fails. Returns ``fn``'s result, the
+    trace's counts, the host counts, the device events (ms, count) and
+    the wall ms of the session."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(attempts):
+        zero_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_PAD):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        host = host_launches()
+        counts, busy, ops = {}, 0.0, 0
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA \
+                    or "spin_kernel" in e.name:
+                continue
+            busy += e.time_range.elapsed_us() / 1e3
+            ops += 1
+            key = port_kernel(e.name)
+            if key is not None:
+                counts[key] = counts.get(key, 0) + 1
+        if counts == want:
+            return out, counts, host, (busy, ops), wall
+        print(f"profiler session {attempt + 1} of {what} counted the "
+              f"port's kernels {counts}, expected {want}", flush=True)
+    raise SmokeFailure(f"{what}: no profiler session in {attempts} counted "
+                       f"the port's kernels {want}")
+
+
+def traced(fn, calls, per_call, what, attempts=5):
+    """``calls`` calls of ``fn`` under ``torch.profiler`` after one
+    untraced call (:func:`profiled`): wall ms per call on the host clock,
+    device busy ms per call (the sum of the kernels, copies and fills the
+    trace holds), device ops per call, the device's idle share, 1 - busy /
+    wall, and the launches of the port's kernels counted in the trace,
+    which must be ``per_call`` (``{key: n}``) times ``calls``, beside the
+    host counts of the same calls."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(calls):
+            fn()
+    want = {k: n * calls for k, n in per_call.items() if n}
+    _, counts, host, (busy, ops), wall = profiled(run, attempts, want,
+                                                  what)
+    return {"wall_ms": wall / calls, "busy_ms": busy / calls,
+            "ops": ops / calls, "idle_share": 1.0 - busy / wall,
+            "calls": calls, "launches": counts, "host_launches": host}
+
+
+def alternating_rounds(runs, rounds, steps):
+    """``rounds`` rounds of ``steps`` timed calls of each ``{name: fn}``
+    (``fn(steps)`` returns the ms of each call), in turns whose order
+    flips every round. Returns ``{name: [ms, ...]}``."""
+    names = list(runs)
+    times = {n: [] for n in names}
+    for r in range(rounds):
+        for n in (names if r % 2 == 0 else names[::-1]):
+            times[n] += runs[n](steps)
+    return times
+
+
+def quantiles(ms):
+    import numpy as np
+    t = np.asarray(ms)
+    return {"p50_ms": float(np.percentile(t, 50)),
+            "p99_ms": float(np.percentile(t, 99)), "n": len(ms)}
+
+
+def graph_sgd(opt):
+    return opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5, fused=True)
+
+
+def graph_adam(opt):
+    """Adam on a decaying lr: the lr and the bias corrections move every
+    step, inside the captured step too."""
+    return opt.Adam(lr=opt.ExponentialDecay(1e-3, decay_steps=1,
+                                            decay_rate=0.9), fused=True)
+
+
+def graph_run(model, start, tx, ty, bad_tx, steps, optimizer=graph_sgd):
+    """``steps`` fused steps of ``model`` (graph mode as compiled) from
+    ``start`` with ``optimizer(opt)``, step ``POISON_STEP`` on ``bad_tx``
+    unless it is None; the launch counts are zeroed just before and read
+    just after, the peak memory reset just before. Returns the losses,
+    the lr, and the loss scale and ``skipped_total`` after each step (a
+    guard's; None without), copies of every state around the poisoned
+    step, the launches, and the peak device bytes, also above what was
+    allocated at the start (both models' states and the other phases'
+    leftovers are in the peak)."""
+    import torch
+    from singa_tpu_torch import opt
+    from singa_tpu_torch.model import load_numpy_states
+    load_numpy_states(model, start)
+    model.set_optimizer(optimizer(opt))
+    model.train()
+    own = model.optimizer.state_tensor_dict()
+    guarded = "guard/skipped_total" in own
+    losses, lrs, scales, skipped, snaps = [], [], [], [], {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    zero_counts()
+    for i in range(1, steps + 1):
+        poisoned = bad_tx is not None and i == POISON_STEP
+        _, loss = model(bad_tx if poisoned else tx, ty)
+        losses.append(loss.data.detach())
+        lrs.append(model.optimizer.lr_value.clone())
+        if guarded:
+            scales.append(own["loss_scale"].data.clone())
+            skipped.append(own["guard/skipped_total"].data.clone())
+        if bad_tx is not None and i in (POISON_STEP - 1, POISON_STEP):
+            snaps[i] = live_states(model)
+    counts = host_launches()
+    torch.cuda.synchronize()
+    return {"losses": [float(v) for v in losses],
+            "lr": [float(v) for v in lrs],
+            "loss_scale": [float(v) for v in scales] if guarded else None,
+            "skipped_total": [float(v) for v in skipped] if guarded
+            else None,
+            "snapshots": snaps, "launches": counts,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "peak_above_start_bytes": torch.cuda.max_memory_allocated()
+            - base}
+
+
+def graph_gates(what, g_model, e_model, g, e, key, per_step, steps,
+                poisoned):
+    """The gates of a graphed run ``g`` against the eager run ``e`` of
+    ``steps`` steps: one signature captured once; the host counted
+    ``per_step`` launches of multi-tensor kernel ``key`` at the eager call
+    and at the capture only (a replay counts none), the eager run at every
+    step; the losses, the lr after each step and every state bitwise;
+    with ``poisoned``, the poisoned step (a replay) a bitwise no-op on
+    every state but the guard's scalars, and the loss scale and
+    ``skipped_total`` step by step as eager's. Returns the states held."""
+    import numpy as np
+    import torch
+    stats = list(g_model.graph_stats().values())
+    check(stats == [{"n_captures": 1, "n_replays": steps - 1}],
+          f"{what}: {stats} after {steps} steps, expected one signature "
+          "captured once")
+    check(g["launches"] == {key: 2 * per_step} and
+          e["launches"] == {key: per_step * steps},
+          f"{what}: host-counted launches {g['launches']} (expected "
+          f"{per_step} {key} at the eager call and {per_step} at the "
+          f"capture), eager {e['launches']}")
+    check(np.array_equal(g["losses"], e["losses"], equal_nan=True) and
+          g["lr"] == e["lr"],
+          f"{what}: losses {g['losses']} and lr {g['lr']} differ from "
+          f"eager's {e['losses']}, {e['lr']}")
+    n_states = held_equal(g_model, e_model, what)
+    if poisoned:
+        before, after = g["snapshots"][POISON_STEP - 1], \
+            g["snapshots"][POISON_STEP]
+        moved = [k for k in before if not k.startswith(
+            ("optimizer/loss_scale", "optimizer/guard/"))
+            and not torch.equal(before[k], after[k])]
+        check(not moved, f"{what}: the poisoned step {POISON_STEP} (a "
+              f"replay) moved {len(moved)} states, e.g. {moved[:3]}")
+        check(g["loss_scale"] == e["loss_scale"] and
+              g["skipped_total"] == e["skipped_total"] and
+              g["skipped_total"][-1] == 1,
+              f"{what}: loss scale {g['loss_scale']}, skipped "
+              f"{g['skipped_total']}; eager {e['loss_scale']}, "
+              f"{e['skipped_total']}")
+    for r in (g, e):
+        del r["snapshots"]
+    return n_states
+
+
+def replay_counts(what, trace, key):
+    """The launches of ``key`` that the trace of traced replayed calls
+    counted (``traced``, which held them to their expected count), after
+    checking that the replays moved no host counter and that the eager
+    calls' host counts equal their trace's."""
+    g, e = trace["graph"], trace["eager"]
+    check(not g["host_launches"] and e["host_launches"] == e["launches"],
+          f"{what}: traced replays counted {g['host_launches']} on the "
+          f"host (a replay moves none); eager host {e['host_launches']}, "
+          f"trace {e['launches']}")
+    return {"replayed_launches": g["launches"][key], "replays": g["calls"],
+            "launches_per_replay": g["launches"][key] / g["calls"]}
+
+
+def graph_train_phase(dev, models, tx, ty, start):
+    """ResNet-50 b32 in graph mode (``Model.compile(use_graph=True)``: call
+    1 eager, call 2 captured in a CUDA graph, replays after) against the
+    eager step, from the same start, in f32 and under bf16_mixed (step
+    ``POISON_STEP`` on a batch holding a NaN), cuDNN deterministic, with
+    the fused SGD (:func:`graph_gates`); then, under bf16_mixed, the same
+    with Adam on a decaying lr (:func:`graph_adam`, K5's multi-tensor
+    launch with the skip flag). No synchronizing call in a replayed step.
+    The launches of a replayed step are counted by name in the trace of
+    ``GRAPH_TRACED`` replays (:func:`traced`): K1's (K5's) multi-tensor
+    launches per step, and none on the host. Readings: step p50/p99 and
+    img/s of graph and eager in ``GRAPH_ROUNDS`` alternating rounds, peak
+    memory of the gated runs, and the device's idle share, busy time and
+    ops of the traced steps."""
+    from singa_tpu_torch.tensor import Tensor
+    g_model, e_model = models
+    bad = tx.data.clone()
+    bad.view(-1)[0] = float("nan")
+    bad_tx = Tensor(data=bad, device=dev)
+    per_step = multi_chunks("sgd_multi", PARAMS_PER_STEP)
+    out = {}
+    for policy in (None, "bf16_mixed"):
+        pname = policy or "float32"
+        poison = bad_tx if policy else None
+        g_model.compile([tx], is_train=True, use_graph=True, policy=policy)
+        e_model.compile([tx], is_train=True, use_graph=False,
+                        policy=policy)
+        g = graph_run(g_model, start, tx, ty, poison, GRAPH_STEPS)
+        e = graph_run(e_model, start, tx, ty, poison, GRAPH_STEPS)
+        n_states = graph_gates(f"graph {pname}", g_model, e_model, g, e,
+                               "sgd_multi", per_step, GRAPH_STEPS, policy)
+        syncs = sync_warnings(lambda: g_model(tx, ty))
+        check(not syncs, f"graph {pname}: a replayed step made "
+              f"{len(syncs)} synchronizing calls: {syncs}")
+        e_syncs = sync_warnings(lambda: e_model(tx, ty))
+        times = alternating_rounds(
+            {"graph": lambda n: timed_steps(g_model, tx, ty, n),
+             "eager": lambda n: timed_steps(e_model, tx, ty, n)},
+            GRAPH_ROUNDS, GRAPH_ROUND_STEPS)
+        want = {"sgd_multi": per_step}
+        trace = {name: traced(lambda m=m: m(tx, ty), GRAPH_TRACED, want,
+                              f"graph {pname} {name} steps")
+                 for name, m in (("graph", g_model), ("eager", e_model))}
+        replayed = replay_counts(f"graph {pname}", trace, "sgd_multi")
+        stats = list(g_model.graph_stats().values())
+        check(len(stats) == 1 and stats[0]["n_captures"] == 1,
+              f"graph {pname}: {stats} after the timed rounds")
+        rec = {"policy": pname, "steps": GRAPH_STEPS, "batch": BATCH,
+               "states_held": n_states, "losses": g["losses"],
+               "loss_scale": g["loss_scale"],
+               "skipped_total": g["skipped_total"],
+               "sgd_multi": replayed,
+               "replays_total": stats[0]["n_replays"],
+               "host_launches": g["launches"],
+               "sync_warnings_per_replay": syncs,
+               "eager_sync_warnings": e_syncs}
+        for name, r in (("graph", g), ("eager", e)):
+            q = quantiles(times[name])
+            rec[name] = {"step_p50_ms": q["p50_ms"],
+                         "step_p99_ms": q["p99_ms"],
+                         "steps_timed": q["n"], "step_ms": times[name],
+                         "img_per_s": BATCH * len(times[name])
+                         / (sum(times[name]) / 1e3),
+                         "peak_device_bytes": r["peak_bytes"],
+                         "peak_above_start_bytes":
+                         r["peak_above_start_bytes"],
+                         "traced": trace[name]}
+        out[pname] = rec
+        gr, er = rec["graph"], rec["eager"]
+        print(f"graph train resnet50 NCHW {pname} b{BATCH}: step p50 "
+              f"{gr['step_p50_ms']:.2f} ms p99 {gr['step_p99_ms']:.2f} ms "
+              f"img/s {gr['img_per_s']:.1f} against eager p50 "
+              f"{er['step_p50_ms']:.2f} ms p99 {er['step_p99_ms']:.2f} ms "
+              f"img/s {er['img_per_s']:.1f} ({GRAPH_ROUNDS} alternating "
+              f"rounds of {GRAPH_ROUND_STEPS}); peak "
+              f"{gr['peak_device_bytes'] / 2**30:.2f} GiB, "
+              f"{gr['peak_above_start_bytes'] / 2**30:.2f} above the start "
+              f"(eager {er['peak_device_bytes'] / 2**30:.2f}, "
+              f"{er['peak_above_start_bytes'] / 2**30:.2f}); traced: idle "
+              f"{gr['traced']['idle_share']:.3f} busy "
+              f"{gr['traced']['busy_ms']:.2f} ms ops "
+              f"{gr['traced']['ops']:.0f} wall "
+              f"{gr['traced']['wall_ms']:.2f} ms (eager idle "
+              f"{er['traced']['idle_share']:.3f} busy "
+              f"{er['traced']['busy_ms']:.2f} ms ops "
+              f"{er['traced']['ops']:.0f} wall "
+              f"{er['traced']['wall_ms']:.2f} ms); graph == eager bitwise "
+              f"over {n_states} states and {GRAPH_STEPS} losses"
+              + (f", step {POISON_STEP} a no-op under replay, skipped "
+                 f"{g['skipped_total'][-1]:.0f}" if policy else "")
+              + f"; 1 capture, {rec['replays_total']} replays; K1 "
+              f"multi-tensor launches counted in the trace of "
+              f"{replayed['replays']} replays: "
+              f"{replayed['replayed_launches']}, none on the host; "
+              f"synchronizing calls per replayed step {len(syncs)} (eager "
+              f"{len(e_syncs)})", flush=True)
+    out["adam_bf16_mixed"] = graph_adam_leg(models, tx, ty, start, bad_tx)
+    return out
+
+
+def graph_adam_leg(models, tx, ty, start, bad_tx):
+    """bf16_mixed guarded Adam on a decaying lr (:func:`graph_adam`), graph
+    against eager over ``GRAPH_ADAM_STEPS`` steps, step ``POISON_STEP``
+    poisoned (:func:`graph_gates`: the lr too, step by step, bitwise),
+    then ``GRAPH_TRACED`` replays traced: K5's multi-tensor launches per
+    step, none on the host. The models are compiled under bf16_mixed."""
+    g_model, e_model = models
+    per_step = multi_chunks("adam_multi", PARAMS_PER_STEP)
+    g = graph_run(g_model, start, tx, ty, bad_tx, GRAPH_ADAM_STEPS,
+                  graph_adam)
+    e = graph_run(e_model, start, tx, ty, bad_tx, GRAPH_ADAM_STEPS,
+                  graph_adam)
+    what = "graph bf16_mixed adam"
+    n_states = graph_gates(what, g_model, e_model, g, e, "adam_multi",
+                           per_step, GRAPH_ADAM_STEPS, True)
+    syncs = sync_warnings(lambda: g_model(tx, ty))
+    check(not syncs, f"{what}: a replayed step made {len(syncs)} "
+          f"synchronizing calls: {syncs}")
+    want = {"adam_multi": per_step}
+    trace = {name: traced(lambda m=m: m(tx, ty), GRAPH_TRACED, want,
+                          f"{what} {name} steps")
+             for name, m in (("graph", g_model), ("eager", e_model))}
+    replayed = replay_counts(what, trace, "adam_multi")
+    rec = {"steps": GRAPH_ADAM_STEPS, "states_held": n_states,
+           "losses": g["losses"], "lr": g["lr"],
+           "loss_scale": g["loss_scale"],
+           "skipped_total": g["skipped_total"], "adam_multi": replayed,
+           "host_launches": g["launches"],
+           "sync_warnings_per_replay": syncs,
+           "traced": {n: trace[n] for n in trace}}
+    print(f"{what} b{BATCH}: graph == eager bitwise over {n_states} states,"
+          f" {GRAPH_ADAM_STEPS} losses and lr "
+          + " ".join(f"{v:.6g}" for v in g["lr"])
+          + f"; step {POISON_STEP} a no-op under replay, skipped "
+          f"{g['skipped_total'][-1]:.0f}; K5 multi-tensor launches counted "
+          f"in the trace of {replayed['replays']} replays: "
+          f"{replayed['replayed_launches']}, none on the host; losses "
+          + " ".join(f"{v:.6f}" for v in g["losses"]), flush=True)
+    return rec
+
+
+def graph_serve_phase(dev, seed=SEED):
+    """ResNet-50 b32 serving in f32 and under bf16_mixed: the graphed
+    ``BatchServingEngine`` (the default) and the eager one
+    (``use_graph=False``) from the same weights on the same requests.
+    Gates: the two engines' logits bitwise; K2 launched 49 times per
+    replay, counted in the trace of the replayed run (:func:`serve`);
+    after ``load_numpy_states`` of other weights the graphed engine serves
+    them, bitwise with the eager engine, recapturing once. Readings: tick
+    p50/p99 and img/s of each in ``GRAPH_ROUNDS`` alternating rounds (the
+    tick quantiles over every tick of the engine: the rounds, and
+    :func:`serve`'s timed and counted runs), the device memory each engine
+    holds."""
+    import numpy as np
+    import torch
+    from singa_tpu_torch.model import load_numpy_states
+    from singa_tpu_torch.models import resnet
+    from singa_tpu_torch.observability.metrics import Registry
+    model = resnet.resnet50(num_classes=10)
+    model.eval()
+    model.compile_serving(input_shape=SHAPE, batch=BATCH, device=dev,
+                          use_graph=False)
+    load_numpy_states(model, seeded_states(model, seed))
+    other = seeded_states(model, seed + 7)
+    start = seeded_states(model, seed)
+    rng = np.random.default_rng(seed + 1)
+    inputs = [rng.standard_normal(SHAPE, dtype=np.float32)
+              for _ in range(N_REQUESTS)]
+    ticks = -(-N_REQUESTS // BATCH)
+    per_replay = sum(TAILS_PER_FORWARD.values())
+    out = {}
+    for policy in (None, "bf16_mixed"):
+        pname = policy or "float32"
+        load_numpy_states(model, start)
+        engines, logits, held, replayed = {}, {}, {}, {}
+        for name in ("graph", "eager"):
+            torch.cuda.synchronize()
+            before = (torch.cuda.memory_allocated(),
+                      torch.cuda.memory_reserved())
+            r = serve(model, dev, inputs, policy, True,
+                      use_graph=name == "graph", registry=Registry())
+            torch.cuda.synchronize()
+            held[name] = {
+                "allocated_bytes": torch.cuda.memory_allocated() - before[0],
+                "reserved_bytes": torch.cuda.memory_reserved() - before[1]}
+            check(r["tails"] == per_replay * ticks, f"serve graph {pname} "
+                  f"{name}: {r['launches']} K2 launches in the trace, "
+                  f"expected {per_replay} x {ticks}")
+            engines[name], logits[name] = r["engine"], r["logits"]
+            replayed[name] = {"launches": r["launches"],
+                              "replays": r["replays"]}
+        diff = float(np.abs(logits["graph"] - logits["eager"]).max())
+        check(np.array_equal(logits["graph"], logits["eager"]),
+              f"serve graph {pname}: the graphed engine's logits differ "
+              f"from the eager engine's by {diff}")
+
+        walls = {n: 0.0 for n in engines}
+
+        def serve_round(name):
+            def run(rounds):
+                for _ in range(rounds):
+                    t0 = time.perf_counter()
+                    serve_requests(engines[name], inputs)
+                    walls[name] += time.perf_counter() - t0
+                return []
+            return run
+        alternating_rounds({n: serve_round(n) for n in engines},
+                           GRAPH_ROUNDS, 1)
+        rec = {"policy": pname, "batch": BATCH, "requests": N_REQUESTS,
+               "ticks_per_round": ticks, "rounds": GRAPH_ROUNDS,
+               "k2_launches_per_replay":
+               sum(replayed["graph"]["launches"].values())
+               / replayed["graph"]["replays"],
+               "counted_run": replayed}
+        for name, eng in engines.items():
+            ts = eng.tick_stats()
+            rec[name] = {"tick_p50_ms": ts["p50_s"] * 1e3,
+                         "tick_p99_ms": ts["p99_s"] * 1e3,
+                         "ticks": ts["count"],
+                         "img_per_s": N_REQUESTS * GRAPH_ROUNDS
+                         / walls[name],
+                         "held_device_bytes": held[name],
+                         "graph": eng.graph_stats()}
+        # other weights after the engines were built: the graphed engine
+        # forwards eagerly once, captures anew and serves them
+        load_numpy_states(model, other)
+        eng = engines["graph"]
+        caps = eng.graph_stats()
+        after = {name: serve_requests(engines[name], inputs)
+                 for name in ("graph", "eager")}
+        moved = float(np.abs(after["graph"] - logits["graph"]).max())
+        check(np.array_equal(after["graph"], after["eager"]) and moved > 0,
+              f"serve graph {pname}: after the load the graphed engine's "
+              f"logits differ from the eager engine's by "
+              f"{float(np.abs(after['graph'] - after['eager']).max())} "
+              f"(moved {moved} from the old weights')")
+        now = eng.graph_stats()
+        check(now == {"n_captures": 1, "n_replays": ticks - 1},
+              f"serve graph {pname}: after the load {now} (before {caps}),"
+              f" expected a fresh graph: {ticks} ticks, 1 capture")
+        rec["after_load"] = {"moved": moved, "graph": now}
+        out[pname] = rec
+        g, e = rec["graph"], rec["eager"]
+        print(f"graph serve resnet50 NCHW {pname} b{BATCH}: tick p50 "
+              f"{g['tick_p50_ms']:.2f} ms p99 {g['tick_p99_ms']:.2f} ms "
+              f"img/s {g['img_per_s']:.1f}; eager p50 "
+              f"{e['tick_p50_ms']:.2f} ms p99 {e['tick_p99_ms']:.2f} ms "
+              f"img/s {e['img_per_s']:.1f} ({GRAPH_ROUNDS} alternating "
+              f"rounds of {ticks} ticks); K2 launches counted in the trace "
+              f"of {replayed['graph']['replays']} replays: "
+              f"{replayed['graph']['launches']}; device memory held: graph "
+              f"{g['held_device_bytes']['reserved_bytes'] / 2**20:.0f} MiB "
+              f"reserved, eager "
+              f"{e['held_device_bytes']['reserved_bytes'] / 2**20:.0f} MiB;"
+              f" logits bitwise; after a load of other weights the graphed "
+              f"engine serves them bitwise with eager (moved {moved:.3g}), "
+              f"{now}", flush=True)
+        del engines, eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_graph_run(model, start, tx, ty, steps):
+    """``steps`` fused-SGD steps of the LM ``model`` (graph mode as
+    compiled) from ``start``; the launch counts zeroed and the peak memory
+    reset just before. Returns the losses, launches, peak device bytes
+    (also above the start's) and copies of the parameters after."""
+    import torch
+    from singa_tpu_torch import opt
+    from singa_tpu_torch.model import load_numpy_states
+    load_numpy_states(model, start)
+    model.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, fused=True))
+    model.train()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    zero_counts()
+    losses = [model(tx, ty)[1].data.detach() for _ in range(steps)]
+    launches = host_launches()
+    torch.cuda.synchronize()
+    return {"losses": [float(v) for v in losses], "launches": launches,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "peak_above_start_bytes": torch.cuda.max_memory_allocated()
+            - base,
+            "params": {k: v.data.detach().clone()
+                       for k, v in model.get_params().items()}}
+
+
+def graph_lm_phase(dev, tx, ty, start):
+    """The LM at ``LM_SHAPE`` in graph mode (K3/K4 and K1's multi-tensor
+    launch inside the captured step) against eager, ``LM_GRAPH_STEPS`` f32
+    fused-SGD steps from the same start. The eager run is made twice: if
+    the two agree bitwise, the graphed run must too; else it is held to
+    the LM's gates (loss finite and falling, each parameter within
+    ``LM_PARAM_TOL``). One capture; the host counts the kernels at the
+    eager call and at the capture only, and the trace of
+    ``GRAPH_TRACED`` replays counts K3's, K4's and K1's multi-tensor
+    launches per step (:func:`traced`). Readings: step p50/p99 of graph
+    and eager in ``GRAPH_ROUNDS`` alternating rounds, in f32 and under
+    ``compute_dtype=bfloat16``, peak memory and traced idle shares."""
+    import numpy as np
+    import torch
+    per_step = {"flash_fwd": LM["layers"], "flash_bwd_dq": LM["layers"],
+                "flash_bwd_dkv": LM["layers"],
+                "sgd_multi": multi_chunks("sgd_multi", LM_PARAMS_PER_STEP)}
+    out = {}
+    for dname, cdt in (("float32", None), ("bfloat16", torch.bfloat16)):
+        g_model = lm_model(dev, tx, cdt, use_graph=True)
+        e_model = lm_model(dev, tx, cdt)
+        runs = {name: lm_graph_run(m, start, tx, ty, LM_GRAPH_STEPS)
+                for name, m in (("graph", g_model), ("eager", e_model),
+                                ("eager_again", e_model))}
+        stats = list(g_model.graph_stats().values())
+        check(stats == [{"n_captures": 1,
+                         "n_replays": LM_GRAPH_STEPS - 1}],
+              f"graph LM {dname}: {stats}")
+        got = runs["graph"]["launches"]
+        want = {k: 2 * v for k, v in per_step.items()}
+        check(got == want,
+              f"graph LM {dname}: host-counted launches {got}, expected "
+              f"{want} (the eager call and the capture)")
+        g, e, e2 = runs["graph"], runs["eager"], runs["eager_again"]
+        eager_bitwise = e["losses"] == e2["losses"] and all(
+            torch.equal(e["params"][k], e2["params"][k]) for k in e["params"])
+        rel = {k: ((g["params"][k].float() - v.float()).norm()
+                   / v.float().norm()).item()
+               for k, v in e["params"].items()}
+        worst = max(rel, key=rel.get)
+        if dname == "float32":
+            if eager_bitwise:
+                check(g["losses"] == e["losses"] and rel[worst] == 0.0,
+                      f"graph LM f32: two eager runs agree bitwise, the "
+                      f"graphed one differs (losses {g['losses']} against "
+                      f"{e['losses']}, {worst} by {rel[worst]})")
+            else:
+                check(all(np.isfinite(g["losses"])) and
+                      g["losses"][-1] < g["losses"][0] and
+                      rel[worst] <= LM_PARAM_TOL,
+                      f"graph LM f32: losses {g['losses']}, {worst} differs "
+                      f"from eager by {rel[worst]} (tolerance "
+                      f"{LM_PARAM_TOL})")
+        else:
+            check(all(np.isfinite(g["losses"])) and
+                  g["losses"][-1] < g["losses"][0],
+                  f"graph LM bf16: losses {g['losses']}")
+        syncs = sync_warnings(lambda: g_model(tx, ty))
+        check(not syncs, f"graph LM {dname}: a replayed step made "
+              f"{len(syncs)} synchronizing calls: {syncs}")
+        times = alternating_rounds(
+            {"graph": lambda n: timed_steps(g_model, tx, ty, n),
+             "eager": lambda n: timed_steps(e_model, tx, ty, n)},
+            GRAPH_ROUNDS, LM_GRAPH_ROUND_STEPS)
+        trace = {name: traced(lambda m=m: m(tx, ty), GRAPH_TRACED,
+                              per_step, f"graph LM {dname} {name} steps")
+                 for name, m in (("graph", g_model), ("eager", e_model))}
+        replayed = {k: replay_counts(f"graph LM {dname}", trace, k)
+                    for k in per_step}
+        stats = list(g_model.graph_stats().values())
+        toks = LM["batch"] * LM["seq"]
+        rec = {"compute_dtype": dname, "steps": LM_GRAPH_STEPS,
+               "losses": g["losses"], "eager_losses": e["losses"],
+               "eager_runs_bitwise": eager_bitwise,
+               "max_param_rel_diff_vs_eager": rel[worst],
+               "max_param_rel_diff_at": worst,
+               "replayed": replayed,
+               "replays_total": stats[0]["n_replays"],
+               "host_launches": got, "sync_warnings_per_replay": syncs}
+        for name, r in (("graph", g), ("eager", e)):
+            q = quantiles(times[name])
+            rec[name] = {"step_p50_ms": q["p50_ms"],
+                         "step_p99_ms": q["p99_ms"], "steps_timed": q["n"],
+                         "step_ms": times[name],
+                         "tokens_per_s": toks * len(times[name])
+                         / (sum(times[name]) / 1e3),
+                         "peak_device_bytes": r["peak_bytes"],
+                         "peak_above_start_bytes":
+                         r["peak_above_start_bytes"],
+                         "traced": trace[name]}
+        out[dname] = rec
+        gr, er = rec["graph"], rec["eager"]
+        print(f"graph train LM {dname} B{LM['batch']} S{LM['seq']}: step "
+              f"p50 {gr['step_p50_ms']:.2f} ms p99 {gr['step_p99_ms']:.2f}"
+              f" ms tokens/s {gr['tokens_per_s']:.0f} against eager p50 "
+              f"{er['step_p50_ms']:.2f} ms p99 {er['step_p99_ms']:.2f} ms "
+              f"tokens/s {er['tokens_per_s']:.0f} ({GRAPH_ROUNDS} "
+              f"alternating rounds of {LM_GRAPH_ROUND_STEPS}); peak "
+              f"{gr['peak_device_bytes'] / 2**30:.2f} GiB, "
+              f"{gr['peak_above_start_bytes'] / 2**30:.2f} above the start "
+              f"(eager {er['peak_device_bytes'] / 2**30:.2f}, "
+              f"{er['peak_above_start_bytes'] / 2**30:.2f}); traced idle "
+              f"{gr['traced']['idle_share']:.3f} busy "
+              f"{gr['traced']['busy_ms']:.2f} ms ops "
+              f"{gr['traced']['ops']:.0f} (eager idle "
+              f"{er['traced']['idle_share']:.3f} busy "
+              f"{er['traced']['busy_ms']:.2f} ms ops "
+              f"{er['traced']['ops']:.0f}); two eager runs bitwise: "
+              f"{eager_bitwise}, graph against eager max param rel diff "
+              f"{rel[worst]:.3g}; losses "
+              + " ".join(f"{v:.6f}" for v in g["losses"])
+              + f"; 1 capture, {rec['replays_total']} replays; launches "
+              f"counted in the trace of {GRAPH_TRACED} replays "
+              f"{trace['graph']['launches']}, none on the host",
+              flush=True)
+        del g_model, e_model, runs
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1890,13 +2667,15 @@ def lm_states(model, seed):
     return out
 
 
-def lm_model(dev, tx, compute_dtype=None, train=True):
+def lm_model(dev, tx, compute_dtype=None, train=True, use_graph=False):
+    """The LM at ``LM_SHAPE``; eager unless ``use_graph`` (the phases
+    that count launches per step run it eagerly)."""
     from singa_tpu_torch.models import transformer
     m = transformer.TransformerLM(
         LM["vocab"], d_model=LM["d_model"], n_heads=LM["heads"],
         n_layers=LM["layers"], max_len=LM["seq"], tp=False,
         fused_head_chunk=8192, compute_dtype=compute_dtype)
-    m.compile([tx], is_train=train, use_graph=True)
+    m.compile([tx], is_train=train, use_graph=use_graph)
     return m
 
 
@@ -2255,8 +3034,11 @@ def main():
     others = other_optimizers_phase(dev, models, tx, ty, start,
                                     eval_inputs)
     bf16 = bf16_train_phase(dev, models, tx, ty, start, train, eval_inputs)
-    torch.backends.cudnn.deterministic = False
+    graph_train = graph_train_phase(dev, models, tx, ty, start)
     del models, tx, ty, start
+    torch.cuda.empty_cache()
+    graph_serve = graph_serve_phase(dev)
+    torch.backends.cudnn.deterministic = False
     torch.cuda.empty_cache()
 
     flash_hmma = flash_hmma_counts()
@@ -2266,6 +3048,7 @@ def main():
     lm_start = lm_states(lm_model(dev, lm_tx, train=False), SEED + 4)
     lm_eval = lm_eval_phase(dev, lm_tx, lm_start)
     lm_train = lm_train_phase(dev, lm_tx, lm_ty, lm_start)
+    graph_lm = graph_lm_phase(dev, lm_tx, lm_ty, lm_start)
 
     # one line per kernel: its f32 case at main-path shapes, launches from
     # the f32 run of its layout
@@ -2281,6 +3064,8 @@ def main():
             "source": "singa_tpu_torch/csrc/fused_epilogue.cu",
             "replaces": REPLACES[c["name"]],
             "launches": run["launches"][c["name"]],
+            "launches_per_replay": run["launches_per_replay"][c["name"]],
+            "replays": run["replays"],
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": None})
@@ -2292,12 +3077,19 @@ def main():
     for kind in ("adam", "rmsprop", "adagrad"):
         launches[kind] = others[f"{kind}_bn_only"]["launches"]
         launches[f"{kind}_multi"] = others[kind]["launches"]
+    # the graphed steps: the multi-tensor launches counted in the trace of
+    # replayed steps (K1 in f32; K1 and K5 under bf16_mixed, with the flag)
+    replayed = {"sgd_multi": graph_train["float32"]["sgd_multi"],
+                "sgd_multi_flag": graph_train["bf16_mixed"]["sgd_multi"],
+                "adam_multi_flag":
+                graph_train["adam_bf16_mixed"]["adam_multi"]}
     for kind, n in launches.items():
         step = optim_steps[kind]
         kernels.append({
             "name": kind, "route": "cuda",
             "source": "singa_tpu_torch/csrc/fused_optim.cu",
             "replaces": REPLACES[kind], "launches": n,
+            **replayed.get(kind, {}),
             "max_abs_err": max(c["max_abs_err"] for c in optim_cases
                                if c["name"].replace("_nesterov", "")
                                == kind and not c.get("flag")),
@@ -2315,6 +3107,7 @@ def main():
             "name": f"{kind}_flag", "route": "cuda",
             "source": "singa_tpu_torch/csrc/fused_optim.cu",
             "replaces": REPLACES[kind], "launches": n,
+            **replayed.get(f"{kind}_flag", {}),
             "max_abs_err": max(c["max_abs_err"] for c in optim_cases
                                if c.get("flag") and
                                c["name"].replace("_nesterov", "") == kind),
@@ -2333,6 +3126,7 @@ def main():
                "flash_bwd_dkv": ("dk", "dv")}
     for dname, suffix, run in (("float32", "", lm_train),
                                ("bfloat16", "_bf16", lm_train["bf16"])):
+        g = graph_lm[dname]
         for kname, t in flash_times[dname].items():
             errs = [c["max_abs_err"][w] for c in flash_cases
                     if c["dtype"] == dname
@@ -2342,6 +3136,7 @@ def main():
                 "source": "singa_tpu_torch/csrc/flash_attention.cu",
                 "replaces": REPLACES[kname + suffix],
                 "launches": run["launches"][kname],
+                **g["replayed"][kname],
                 "max_abs_err": max(errs), "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
@@ -2356,7 +3151,8 @@ def main():
               "flash_sass_hmma": flash_hmma,
               "flash_f32_resources": flash_res,
               "lm_eval": lm_eval, "lm_train": lm_train,
-              "kernels": kernels}
+              "graph_train": graph_train, "graph_serve": graph_serve,
+              "graph_lm": graph_lm, "kernels": kernels}
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

@@ -4,6 +4,7 @@ NVIDIA card.
 
     python3 profile_serving.py [--policy float32 bf16_mixed]
                                [--layout NCHW|NHWC] [--ticks 4] [--turns 10]
+                               [--graph]
 
 Builds chip_smoke.py's ResNet-50 (224 px, batch 32, weights and BN
 statistics from the same numpy seed) and prints one JSON line for each of
@@ -19,12 +20,17 @@ these measurements:
   synchronising copy). Enqueue close to the total means the host, not the
   card, sets the pace;
 - ``trace`` records: for each path, ``--ticks`` serving ticks through the
-  engine under ``torch.profiler`` (CPU + CUDA activities): wall ms per
-  tick, device-busy ms per tick (sum of kernel times), the device's idle
-  share, kernel launches per tick, and the kernels that take the most
-  device time.
+  eager engine (``use_graph=False``) under ``torch.profiler`` (CPU + CUDA
+  activities): wall ms per tick, device-busy ms per tick (sum of kernel
+  times), the device's idle share, kernel launches per tick, and the
+  kernels that take the most device time. With ``--graph`` each path is
+  also traced through the engine's default, a CUDA graph replayed per
+  tick (``"graph": true``), beside its eager trace. K2's launches per
+  tick are counted by kernel name in the trace, beside the host count
+  (a replay moves no host counter: a graphed trace's must be 0).
 
-Everything also goes to ``chiprun_out/profile_serving-<layout>.json``.
+Everything also goes to ``chiprun_out/profile_serving-<layout>.json``
+(``-<layout>-graph.json`` with ``--graph``).
 Imports nothing of JAX or ``singa_tpu``; exits nonzero without a CUDA
 device.
 """
@@ -114,7 +120,7 @@ def forward_turns(model, dev, policy, turns):
     return recs
 
 
-def trace_ticks(model, dev, policy, fused, ticks, batch):
+def trace_ticks(model, dev, policy, fused, ticks, batch, graph=False):
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -124,12 +130,14 @@ def trace_ticks(model, dev, policy, fused, ticks, batch):
     inputs = [rng.standard_normal(chip_smoke.SHAPE, dtype=np.float32)
               for _ in range(batch * ticks)]
     with fe.enabled_scope(fused):
-        # the constructor's forward warms this path
+        # the constructor's forward warms this path (and captures it, for
+        # a graph)
         eng = model.compile_serving(input_shape=chip_smoke.SHAPE,
                                     batch=batch, device=dev, policy=policy,
                                     queue_capacity=len(inputs),
-                                    registry=Registry())
+                                    registry=Registry(), use_graph=graph)
         torch.cuda.synchronize()
+        replays = eng.graph_stats()["n_replays"]
         fe.reset_counts()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -138,26 +146,34 @@ def trace_ticks(model, dev, policy, fused, ticks, batch):
             eng.run_until_idle()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        launches = sum(fe.launches.values())
+        host = sum(fe.launches.values())
     chip_smoke.check(all(f.done() for f in futs), "a future did not resolve")
     kernels = {}
-    n_kernels = 0
+    n_kernels = launches = 0
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         n_kernels += 1
+        launches += chip_smoke.port_kernel(evt.name) is not None
         name = evt.name[:90]
         k = kernels.setdefault(name, [0, 0.0])
         k[0] += 1
         k[1] += evt.time_range.elapsed_us() / 1e3
     busy_ms = sum(v[1] for v in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:12]
-    rec = {"trace": policy or "float32", "fused": fused, "ticks": ticks,
-           "batch": batch, "wall_ms_per_tick": wall * 1e3 / ticks,
+    replays = eng.graph_stats()["n_replays"] - replays
+    chip_smoke.check(replays == (ticks if graph else 0) and
+                     not (graph and host),
+                     f"{replays} of {ticks} ticks replayed; K2 launches "
+                     f"{host} on the host (a replay moves none)")
+    rec = {"trace": policy or "float32", "fused": fused, "graph": graph,
+           "ticks": ticks, "batch": batch,
+           "wall_ms_per_tick": wall * 1e3 / ticks,
            "device_busy_ms_per_tick": busy_ms / ticks,
            "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
            "device_ops_per_tick": n_kernels / ticks,
            "k2_launches_per_tick": launches / ticks,
+           "host_k2_launches_per_tick": host / ticks,
            "img_per_s": batch * ticks / wall,
            "top_device_ms_per_tick": [
                {"name": n, "calls_per_tick": c / ticks,
@@ -174,6 +190,9 @@ def main(argv=None):
     ap.add_argument("--layout", default="NCHW", choices=("NCHW", "NHWC"))
     ap.add_argument("--ticks", type=int, default=4)
     ap.add_argument("--turns", type=int, default=10)
+    ap.add_argument("--graph", action="store_true",
+                    help="also trace each path's ticks replayed from a "
+                    "CUDA graph")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -199,11 +218,14 @@ def main(argv=None):
         policy = None if name == "float32" else name
         recs += forward_turns(model, dev, policy, args.turns)
         recs += [trace_ticks(model, dev, policy, fused, args.ticks,
-                             chip_smoke.BATCH) for fused in (False, True)]
+                             chip_smoke.BATCH, graph)
+                 for fused in (False, True)
+                 for graph in ((False, True) if args.graph else (False,))]
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, f"profile_serving-{args.layout}.json"),
-              "w") as f:
+    name = f"profile_serving-{args.layout}" + ("-graph" if args.graph
+                                                else "")
+    with open(os.path.join(out_dir, f"{name}.json"), "w") as f:
         json.dump({"card": card, "layout": args.layout, "records": recs},
                   f, indent=1)
     return 0

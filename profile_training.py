@@ -4,7 +4,7 @@ NVIDIA card.
 
     python3 profile_training.py [--model resnet50|lm] [--steps 3] [--warmup 3]
                                 [--optimizer sgd|rmsprop|adagrad]
-                                [--policy float32|bf16_mixed]
+                                [--policy float32|bf16_mixed] [--graph]
 
 ``--model resnet50`` (the default) builds chip_smoke.py's ResNet training
 setup (ResNet-50, 224 px, batch 32, f32, TF32 off, NCHW, weights and BN
@@ -48,8 +48,18 @@ chunks), elementwise passes, reductions (LayerNorm statistics, the CE
 head's row sums, bias gradients), the embedding gathers and their
 backward, and the rest.
 
+``--graph`` traces the step in graph mode (``Model.graph()``: the warm-up
+steps run the eager call and the capture, the traced ones are CUDA-graph
+replays) beside the eager step, in turns (graph, eager, eager, graph):
+the ResNet with the fused SGD, cuDNN deterministic, under ``--policy``;
+the LM through K3/K4 in f32, then under ``compute_dtype=bfloat16``.
+Every record's launches per step of the port's kernels are counted by
+kernel name in its trace, beside the host counts of the same steps (0
+for replays, which move no host counter).
+
 Everything also goes to ``chiprun_out/profile_training.json`` (or
-``profile_training_lm.json``). Imports nothing of JAX or ``singa_tpu``;
+``profile_training_lm.json``; ``_graph`` before ``.json`` with
+``--graph``). Imports nothing of JAX or ``singa_tpu``;
 exits nonzero without a CUDA device.
 """
 
@@ -110,10 +120,13 @@ def traced_steps(model, tx, ty, steps, kinds_table=KINDS):
             model(tx, ty)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels, kinds = {}, {}
+    kernels, kinds, ports = {}, {}, {}
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
+        port = chip_smoke.port_kernel(evt.name)
+        if port is not None:
+            ports[port] = ports.get(port, 0) + 1
         ms = evt.time_range.elapsed_us() / 1e3
         name = kind_of(evt.name, kinds_table)
         k = kernels.setdefault(evt.name[:90], [0, 0.0, name])
@@ -122,7 +135,7 @@ def traced_steps(model, tx, ty, steps, kinds_table=KINDS):
         kind = kinds.setdefault(name, [0, 0.0])
         kind[0] += 1
         kind[1] += ms
-    return wall, kernels, kinds
+    return wall, kernels, kinds, ports
 
 
 # the optimizers of the ResNet traces, by --optimizer: fused or not
@@ -135,10 +148,11 @@ OPTIMIZERS = {
 
 
 def run(model, tx, ty, start, optimizer, update, deterministic, steps,
-        warmup):
+        warmup, graph=False):
     """``steps`` traced ResNet steps of ``optimizer`` after ``warmup``
     untraced ones; ``update`` is ``"fused"`` (the multi-tensor launch),
-    ``"unfused"`` or ``"per_tensor"`` (the fused per-tensor kernel)."""
+    ``"unfused"`` or ``"per_tensor"`` (the fused per-tensor kernel);
+    ``graph``: in graph mode (the warm-up captures, the trace replays)."""
     import torch
     from singa_tpu_torch import opt
     from singa_tpu_torch.model import load_numpy_states
@@ -148,21 +162,41 @@ def run(model, tx, ty, start, optimizer, update, deterministic, steps,
     o = OPTIMIZERS[optimizer](opt, update != "unfused")
     model.set_optimizer(chip_smoke.per_tensor(o) if update == "per_tensor"
                         else o)
+    model.graph(graph)
     model.train()
-    for _ in range(warmup):
-        model(tx, ty)
-    fo.reset_counts()
-    wall, kernels, kinds = traced_steps(model, tx, ty, steps)
+    launches, host, (wall, kernels, kinds) = warm_and_trace(
+        model, tx, ty, steps, warmup, graph, fo.launches)
     rec = {"trace": "train", "optimizer": optimizer, "update": update,
            "policy": model._policy.name if model._policy else "float32",
-           "deterministic": deterministic, "steps": steps,
+           "deterministic": deterministic, "graph": graph, "steps": steps,
            "batch": chip_smoke.BATCH,
-           "optimizer_launches_per_step": {
-               k: v / steps for k, v in fo.launches.items() if v}}
+           "launches_per_step": launches,
+           "host_optimizer_launches_per_step": host}
     rec.update(summary(wall, kernels, kinds, steps, chip_smoke.BATCH,
                        "img_per_s"))
     print(json.dumps(rec), flush=True)
     return rec
+
+
+def warm_and_trace(model, tx, ty, steps, warmup, graph, counter,
+                   kinds_table=KINDS):
+    """``warmup`` untraced steps, then ``steps`` traced ones
+    (:func:`traced_steps`). Returns the launches per step of the port's
+    kernels in the trace, counted by kernel name
+    (``chip_smoke.port_kernel``), those of the launch-counter dict
+    ``counter`` in the same steps (a replay moves no host counter: in
+    graph mode they must be 0), and the trace."""
+    for _ in range(warmup):
+        model(tx, ty)
+    for k in counter:
+        counter[k] = 0
+    wall, kernels, kinds, ports = traced_steps(model, tx, ty, steps,
+                                               kinds_table)
+    host = {k: v / steps for k, v in counter.items() if v}
+    chip_smoke.check(not (graph and host), "replayed steps counted "
+                     f"launches {counter} on the host")
+    return ({k: v / steps for k, v in ports.items()}, host,
+            (wall, kernels, kinds))
 
 
 def summary(wall, kernels, kinds, steps, per_step, rate):
@@ -193,47 +227,51 @@ def summary(wall, kernels, kinds, steps, per_step, rate):
             "top_device_ms_per_step_by_kind": by_kind}
 
 
-def run_lm(model, tx, ty, start, plain, steps, warmup):
+def run_lm(model, tx, ty, start, plain, steps, warmup, graph=False):
     """``steps`` traced LM steps after ``warmup`` untraced ones, with the
-    flash kernels or (``plain``) their plain versions."""
+    flash kernels or (``plain``) their plain versions; ``graph``: in graph
+    mode."""
     from singa_tpu_torch import opt
     from singa_tpu_torch.model import load_numpy_states
     from singa_tpu_torch.ops import attention as at
     load_numpy_states(model, start)
     model.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, fused=True))
+    model.graph(graph)
     model.train()
     at.USE_PLAIN = plain
     try:
-        for _ in range(warmup):
-            model(tx, ty)
-        at.reset_counts()
-        wall, kernels, kinds = traced_steps(model, tx, ty, steps, LM_KINDS)
-        launches = dict(at.launches)
+        launches, host, (wall, kernels, kinds) = warm_and_trace(
+            model, tx, ty, steps, warmup, graph, at.launches, LM_KINDS)
     finally:
         at.USE_PLAIN = False
     model.eval()
     tokens = chip_smoke.LM["batch"] * chip_smoke.LM["seq"]
-    rec = {"trace": "train_lm", "plain_attention": plain,
+    rec = {"trace": "train_lm", "plain_attention": plain, "graph": graph,
            "compute_dtype": str(model.compute_dtype), "steps": steps,
            "batch": chip_smoke.LM["batch"], "seq": chip_smoke.LM["seq"],
-           "flash_launches_per_step": {k: v / steps
-                                       for k, v in launches.items()}}
+           "launches_per_step": launches,
+           "host_flash_launches_per_step": host}
     rec.update(summary(wall, kernels, kinds, steps, tokens, "tokens_per_s"))
     print(json.dumps(rec), flush=True)
     return rec
 
 
-def main_lm(dev, steps, warmup):
+def main_lm(dev, steps, warmup, graph=False):
     import torch
     tx, ty = chip_smoke.lm_data(dev)
     model = chip_smoke.lm_model(dev, tx)
     start = chip_smoke.lm_states(model, chip_smoke.SEED + 4)
-    recs = [run_lm(model, tx, ty, start, plain, steps, warmup)
-            for plain in (False, True, True, False)]
+    if graph:
+        turns = [(False, g) for g in (True, False, False, True)]
+    else:
+        turns = [(p, False) for p in (False, True, True, False)]
+    recs = [run_lm(model, tx, ty, start, plain, steps, warmup, g)
+            for plain, g in turns]
     del model
     torch.cuda.empty_cache()
     bf16 = chip_smoke.lm_model(dev, tx, torch.bfloat16)
-    recs.append(run_lm(bf16, tx, ty, start, False, steps, warmup))
+    recs += [run_lm(bf16, tx, ty, start, False, steps, warmup, g)
+             for g in ((True, False) if graph else (False,))]
     return recs
 
 
@@ -248,7 +286,13 @@ def main(argv=None):
     ap.add_argument("--policy", choices=("float32", "bf16_mixed"),
                     default="float32",
                     help="the ResNet's precision policy")
+    ap.add_argument("--graph", action="store_true",
+                    help="trace graph-mode steps (CUDA-graph replays) "
+                    "beside eager ones")
     args = ap.parse_args(argv)
+    if args.graph and args.warmup < 2:
+        ap.error("--graph needs --warmup 2 or more: the eager call and "
+                 "the capture")
     import torch
     if not torch.cuda.is_available():
         print("profile_training: no CUDA device", file=sys.stderr)
@@ -261,24 +305,29 @@ def main(argv=None):
     cuda_build.build()
     dev = device.create_cuda_gpu(0)
     if args.model == "lm":
-        recs = main_lm(dev, args.steps, args.warmup)
+        recs = main_lm(dev, args.steps, args.warmup, args.graph)
         name = "profile_training_lm.json"
     else:
         (model, _), tx, ty, start = chip_smoke.train_models(dev)
         if args.policy != "float32":
             model.compile([tx], is_train=True, policy=args.policy)
-        if args.optimizer == "sgd":
-            turns = [(d, u) for d in (True, False)
+        if args.graph:
+            turns = [(True, "fused", g) for g in (True, False, False, True)]
+            name = "profile_training.json"
+        elif args.optimizer == "sgd":
+            turns = [(d, u, False) for d in (True, False)
                      for u in ("fused", "unfused", "unfused", "fused")]
             name = "profile_training.json"
         else:
-            turns = [(True, u) for u in ("fused", "per_tensor",
-                                         "per_tensor", "fused")]
+            turns = [(True, u, False) for u in ("fused", "per_tensor",
+                                                "per_tensor", "fused")]
             name = f"profile_training_{args.optimizer}.json"
         if args.policy != "float32":
             name = name.replace(".json", f"_{args.policy}.json")
         recs = [run(model, tx, ty, start, args.optimizer, u, d, args.steps,
-                    args.warmup) for d, u in turns]
+                    args.warmup, g) for d, u, g in turns]
+    if args.graph:
+        name = name.replace(".json", "_graph.json")
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, name), "w") as f:

@@ -156,6 +156,7 @@ def main(argv=None):
             accs.append(acc.evaluate(out, train_y[sel]))
         print(f"Training loss = {np.mean(losses):.6f}, "
               f"training accuracy = {np.mean(accs):.6f}", flush=True)
+        print(graph_line(model, dev), flush=True)
         model.eval()
         vaccs = []
         for b in range(n_val):
@@ -165,6 +166,18 @@ def main(argv=None):
         print(f"Evaluation accuracy = {np.mean(vaccs):.6f}, "
               f"Elapsed Time = {time.time() - t0:.3f}s", flush=True)
     return model
+
+
+def graph_line(model, dev):
+    """Whether the train step was captured in a CUDA graph (graph mode on
+    the card; on the CPU the step runs on its static buffers), with this
+    epoch's captures and replays (eval drops the graphs)."""
+    stats = model.graph_stats().values()
+    captures = sum(s["n_captures"] for s in stats)
+    replays = sum(s["n_replays"] for s in stats)
+    captured = "yes" if dev.is_cuda and captures else "no"
+    return (f"train step captured in a CUDA graph: {captured} ({captures} "
+            f"capture(s), {replays} replays on {dev.torch_device})")
 
 
 if __name__ == "__main__":

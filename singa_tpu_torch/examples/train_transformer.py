@@ -78,6 +78,7 @@ def main(argv=None):
 
     import torch
     from singa_tpu_torch import device, opt, tensor
+    from singa_tpu_torch.examples.train_cnn import graph_line
     from singa_tpu_torch.models import transformer
 
     dev = device.create_cpu_device() if args.cpu \
@@ -113,6 +114,7 @@ def main(argv=None):
         torch.cuda.synchronize()
     toks = args.bs * args.seq * args.steps / (time.time() - t0)
     print(f"throughput {toks:.0f} tokens/s", flush=True)
+    print(graph_line(model, dev), flush=True)
     return model
 
 

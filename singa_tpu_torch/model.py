@@ -17,15 +17,25 @@ BN running statistics and optimizer states across from a dict of numpy
 arrays, such as the JAX package's ``get_states`` turned to numpy or its
 ``save_states`` zip.
 
-The JAX package jits the train step (``use_graph=True``). The port runs
-it eagerly whatever ``use_graph`` says; capturing the step in a CUDA graph
-is a later performance change (ROADMAP).
+Graph mode (``compile(use_graph=True)`` or :meth:`Model.graph`) is the
+JAX package's jitted train step (``model.py:855-1050``) as CUDA graphs:
+each train-mode call dispatches on its inputs' signature (shape, dtype,
+strides; the value of a non-tensor argument) to a
+:class:`~.graph.StepGraph`, which runs the signature's first call
+eagerly, captures forward, backward, guard and update at the second and
+replays from then on. The signatures share one memory pool, a 9th one
+warns, and every graph is dropped when what it baked in changes: the
+optimizer, a re-compile (a policy change rebinds the masters), a flip
+between train and eval, a load that makes a new optimizer state. Eval
+runs eagerly, as the JAX package's single-device eval does
+(``model.py:1355-1390``).
 """
 
 from __future__ import annotations
 
 import io
 import json
+import warnings
 import zipfile
 
 import numpy as np
@@ -33,6 +43,7 @@ import numpy as np
 import torch
 
 from .autograd_base import CTX, register_param
+from .graph import StepGraph, resources, signature
 from .layer import Layer
 from .tensor import Tensor, dtype_name
 
@@ -75,8 +86,14 @@ def load_numpy_states(model, states, strict=True):
         if missing:
             raise KeyError(f"states missing for {len(missing)} model "
                            f"tensors, e.g. {missing[:5]}")
-    if opt_states and getattr(model, "optimizer", None) is not None:
-        model.optimizer.set_states(opt_states)
+    opt = getattr(model, "optimizer", None)
+    if opt_states and opt is not None:
+        before = set(opt.state_tensor_dict()) if opt.device is not None \
+            else None
+        opt.set_states(opt_states)
+        if set(opt.state_tensor_dict()) != before:
+            # a captured step does not update a state born after it
+            model.drop_graphs()
     return loaded
 
 
@@ -94,6 +111,8 @@ class Model(Layer):
         self.graph_mode = False
         self.sequential = False
         self.optimizer = None
+        self._graphs = {}             # input signature -> StepGraph
+        self._graph_resources = None  # what the graphs share (graph.py)
 
     def forward(self, *args, **kwargs):
         raise NotImplementedError
@@ -102,11 +121,32 @@ class Model(Layer):
         raise NotImplementedError
 
     def train(self, mode=True):
+        if bool(mode) != bool(self._train):
+            self.drop_graphs()
         self._train = mode
         CTX.training = mode
 
     def eval(self):
         self.train(False)
+
+    def graph(self, mode=True, sequential=False):
+        """Run train-mode calls in graph mode (``mode``) or eagerly
+        (``singa_tpu/model.py:293-297``); ``sequential`` is recorded for
+        parity."""
+        if not mode:
+            self.drop_graphs()
+        self.graph_mode = bool(mode)
+        self.sequential = sequential
+
+    def drop_graphs(self):
+        """Forget every captured step: the next train-mode call of each
+        signature runs eagerly, the one after captures anew."""
+        self._graphs = {}
+
+    def graph_stats(self):
+        """``{signature: {"n_captures", "n_replays"}}`` of the captured
+        train steps."""
+        return {k: g.stats() for k, g in self._graphs.items()}
 
     def _migrate_masters(self, new_policy):
         """A re-compile across a param-dtype change (``bfloat16`` ->
@@ -158,6 +198,7 @@ class Model(Layer):
         model has one (``compile``). A guard is handed the model, whose BN
         running statistics it shadows."""
         optimizer = self._policy_companion(optimizer)
+        self.drop_graphs()
         self.optimizer = optimizer
         if optimizer is not None and self.dev is not None:
             optimizer.bind(self.dev)
@@ -171,9 +212,8 @@ class Model(Layer):
         the optimizer's aux states are ``<state name>:<kind>``), bind the
         optimizer to the inputs' device, and enter train or eval mode.
 
-        ``use_graph`` and ``sequential`` are accepted for parity and
-        recorded: the port runs the step eagerly either way (capturing it
-        in a CUDA graph is a later performance change, ROADMAP).
+        ``use_graph`` turns graph mode on or off (:meth:`graph`; the
+        module docstring), ``sequential`` is recorded for parity.
         ``policy`` is a precision policy or its name (``"bf16_mixed"``,
         ``"float16_mixed"``, ``"bfloat16"``): f32 masters (for the mixed
         ones), 16-bit convolutions and products, f32 outputs, and for
@@ -184,6 +224,7 @@ class Model(Layer):
         from . import mixed_precision as mp
         assert len(inputs) > 0
         pol = mp.resolve(policy)
+        self.drop_graphs()
         if pol != self._policy:
             self._migrate_masters(pol)
         self._policy = pol
@@ -191,8 +232,7 @@ class Model(Layer):
             # the policy's companion wraps (or unwraps) the optimizer
             self.set_optimizer(self.optimizer)
         self.dev = inputs[0].device
-        self.graph_mode = use_graph
-        self.sequential = sequential
+        self.graph(use_graph, sequential)
         prev = CTX.training
         CTX.training = False
         try:
@@ -208,8 +248,10 @@ class Model(Layer):
 
     def __call__(self, *args, **kwargs):
         """Train mode: one ``train_one_batch`` (forward, loss, backward,
-        update). Eval mode: ``forward`` without gradients. Under a policy
-        the floating outputs come back in its output dtype."""
+        update), in graph mode through the signature's
+        :class:`~.graph.StepGraph`. Eval mode: ``forward`` without
+        gradients. Under a policy the floating outputs come back in its
+        output dtype."""
         from . import mixed_precision as mp
         if self._train:
             if kwargs:
@@ -220,12 +262,9 @@ class Model(Layer):
                 # a guard's shadows hold the BN statistics before the
                 # forward moves them
                 self.optimizer.materialize_shadows()
-            with mp.policy_scope(self._policy):
-                out = self.train_one_batch(*args)
-            if self._policy is None:
-                return out
-            with torch.no_grad():
-                return self._cast_outputs(out)
+            if self.graph_mode:
+                return self._step_graph(args)(*args)
+            return self._train_step(*args)
         prev = CTX.training
         CTX.training = False
         try:
@@ -234,6 +273,35 @@ class Model(Layer):
         finally:
             CTX.training = prev
         return out if self._policy is None else self._cast_outputs(out)
+
+    def _train_step(self, *args):
+        from . import mixed_precision as mp
+        with mp.policy_scope(self._policy):
+            out = self.train_one_batch(*args)
+        if self._policy is None:
+            return out
+        with torch.no_grad():
+            return self._cast_outputs(out)
+
+    def _step_graph(self, args):
+        """The :class:`~.graph.StepGraph` of ``args``' signature, made on
+        its first call."""
+        key = signature(args)
+        g = self._graphs.get(key)
+        if g is None:
+            dev = self.dev or next(
+                (a.device for a in args if isinstance(a, Tensor)), None)
+            if self._graph_resources is None:
+                self._graph_resources = resources(dev)
+            g = self._graphs[key] = StepGraph(
+                self._train_step, dev, self._graph_resources)
+            if len(self._graphs) == 9:
+                warnings.warn(
+                    "9th distinct input signature captured for this model; "
+                    "each costs a capture and keeps its static buffers and "
+                    "graph. Pass per-step-varying values as Tensors, not "
+                    "python scalars, and pad short batches.", stacklevel=3)
+        return g
 
     def _cast_outputs(self, out):
         """The policy's boundary cast of a Tensor, or of each Tensor of a

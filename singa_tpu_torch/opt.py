@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from . import autograd_base
+from . import graph
 from .tensor import Tensor
 
 
@@ -205,8 +206,10 @@ class Optimizer:
         return grad
 
     def _per_step(self, key, fn):
-        """``fn()`` once per step: cached until the step counter moves."""
-        version = self.step_counter.data._version
+        """``fn()`` once per step: cached until the step counter moves,
+        or a graph-mode step is captured or replayed (``graph.epoch()``: a
+        replay moves the counter on the device and not its version)."""
+        version = (self.step_counter.data._version, graph.epoch())
         hit = self._step_cache.get(key)
         if hit is None or hit[0] is not self.step_counter.data or \
                 hit[1] != version:

@@ -7,8 +7,9 @@ stepping, stop, crash handling, TTFT and per-tick latency) and
 classifier models. Each tick gathers up to ``batch`` queued requests, pads
 them to the fixed width, runs ONE forward of the model under
 ``torch.inference_mode()`` and the precision policy, and delivers each
-request its row. Where the JAX package jits the forward, the port runs it
-eagerly; the BN+ReLU tails go through kernel K2 when
+request its row. Where the JAX package jits the forward
+(``engine.py:2163``), the port replays it from a CUDA graph
+(``graph.StepGraph``); the BN+ReLU tails go through kernel K2 when
 ``ops.fused_epilogue`` is enabled.
 
 Not ported in this slice (ROADMAP): the autoregressive
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 from ..autograd_base import CTX
+from ..graph import StepGraph, resources
 from ..observability import metrics as _metrics
 from .scheduler import (EngineDraining, ReplicaCrashed, Request,
                         RequestQueue, ServingError)
@@ -168,10 +170,24 @@ class _EngineBase:
 
 class BatchServingEngine(_EngineBase):
     """Stateless serving: one fixed-width forward per tick over a padded
-    batch of queued requests."""
+    batch of queued requests.
+
+    With ``use_graph`` (the default) the forward is a
+    :class:`~..graph.StepGraph`: the construction runs the materialising
+    forward and captures the next one, and each tick copies the pinned
+    host batch into the static device input, replays and copies the
+    outputs to the host (on the CPU: the same books, the forward run
+    where the card replays). The graph reads the BN folds that K2's
+    peephole caches (``ops/fused_epilogue.py``), so a model state that
+    is replaced or written (``load_states``, a training step) makes the
+    next tick forward eagerly and the one after capture anew. What the
+    forward reads from a process-wide switch (``fused_epilogue.enable``)
+    is fixed when it is captured. ``use_graph=False`` forwards eagerly
+    every tick."""
 
     def __init__(self, model, *, input_shape, batch=8,
-                 input_dtype=np.float32, policy=None, device=None, **kw):
+                 input_dtype=np.float32, policy=None, device=None,
+                 use_graph=True, **kw):
         super().__init__(**kw)
         from .. import mixed_precision as mp
         from ..device import get_default_device
@@ -187,23 +203,62 @@ class BatchServingEngine(_EngineBase):
         if getattr(model, "dev", None) is None:
             model.dev = dev
         self.dev = dev
+        self.use_graph = bool(use_graph)
         self._Tensor = Tensor
         # padded host batch; pinned on the card so the copy in is async
         self._host = torch.zeros((self.batch,) + self.input_shape,
                                  dtype=torch.from_numpy(
                                      np.zeros(0, self.input_dtype)).dtype,
                                  pin_memory=dev.is_cuda)
-        # materialise the lazily-initialised params with one forward
+        self._graph = None
+        self._watched = None          # [(state, its data, its version)]
+        self._graph_resources = resources(dev) if self.use_graph else None
+        # materialise the lazily-initialised params with one forward; in
+        # graph mode capture the next
         self._forward()
+        if self.use_graph:
+            self._forward()
         self._occupancy = self._reg.gauge(
             "serve_slot_occupancy", "rows of the batch holding a request")
         self._reg.gauge("serve_slots", "batch width").set(self.batch)
 
+    def graph_stats(self):
+        """``{"n_captures", "n_replays"}`` of the current graph (zeros
+        without one)."""
+        return self._graph.stats() if self._graph is not None \
+            else {"n_captures": 0, "n_replays": 0}
+
     def _forward(self):
         """One forward of the padded host batch; returns the output
         tensors on the host."""
+        if not self.use_graph:
+            leaves = self._run(self._host)
+        else:
+            if self._graph is None or not self._states_unchanged():
+                self._graph = StepGraph(self._run, self.dev,
+                                        self._graph_resources)
+            leaves = self._graph(self._host)
+            if self._watched is None:
+                self._watched = [(t, t.data, t.data._version) for t in
+                                 self.model.get_states().values()]
+        return [v.cpu().numpy() for v in leaves]
+
+    def _states_unchanged(self):
+        """Whether every model state holds the tensor and the version it
+        held when the current graph was made; if not, a fresh graph (and
+        a fresh watch) is due."""
+        if self._watched is not None and all(
+                t.data is d and d._version == v
+                for t, d, v in self._watched):
+            return True
+        self._watched = None
+        return False
+
+    def _run(self, x):
+        """The forward of batch ``x`` (host or device): its outputs as
+        device tensors, under the policy, bf16 ones in f32."""
         from .. import mixed_precision as mp
-        x = self._host.to(self.dev.torch_device, non_blocking=True)
+        x = x.to(self.dev.torch_device, non_blocking=True)
         prev = CTX.training
         CTX.training = False
         try:
@@ -215,9 +270,8 @@ class BatchServingEngine(_EngineBase):
                           for o in outs]
                 if self.policy is not None:
                     leaves = [self.policy.cast_output(v) for v in leaves]
-                leaves = [v.float() if v.dtype == torch.bfloat16 else v
-                          for v in leaves]
-                return [v.cpu().numpy() for v in leaves]
+                return [v.float() if v.dtype == torch.bfloat16 else v
+                        for v in leaves]
         finally:
             CTX.training = prev
 
@@ -261,7 +315,7 @@ class BatchServingEngine(_EngineBase):
 
 
 _BATCH_KEYS = ("input_shape", "batch", "input_dtype", "policy",
-               "queue_capacity", "registry", "device")
+               "queue_capacity", "registry", "device", "use_graph")
 _NOT_PORTED = ("faults", "aot_store", "profile_every", "telemetry_dir",
                "max_retries", "trace_requests", "mesh", "model_shards")
 
