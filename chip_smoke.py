@@ -159,13 +159,47 @@ failure exits nonzero:
    eager step and the capture only, no synchronizing call in a replayed
    step; step p50/p99 and tokens/s of both in 5 alternating rounds of 3
    steps, peak memory and traced idle shares, the trace of 3 replayed
-   steps counting K3's and K4's 6 launches each and K1's 2 per step.
+   steps counting K3's and K4's 6 launches each and K1's 2 per step;
+13. zoo train (after phase 8d, cuDNN deterministic): the other models of
+   ``train_cnn.py``, graphed as the example compiles them: Xception (3x299,
+   b32), AlexNet (3x224, b32, dropout on), the CNN (1x28x28, b64) and the
+   MLP (784, b64), weights from a numpy seed, ``SGD(lr=0.01,
+   momentum=0.9, weight_decay=1e-5)``, 6 steps on one fixed batch, f32
+   and bf16_mixed: eager fused twice (run to run), eager unfused and
+   graphed, the device generator seeded the same for each (dropout):
+   fused against unfused and graph against eager bitwise where run to run
+   is, else within 4x the run-to-run difference; one capture; K1-multi's
+   launches per step on the host and in the trace of 3 replays; no
+   synchronizing call in a replay; a captured dropout bitwise with the
+   eager one, two replays drawing different masks; step p50/p99 and img/s
+   of graph and eager in 3 alternating rounds of 4 steps, peak memory
+   above the start and the idle share of the traced replays;
+14. pure bf16 train: ``train_cnn.py -p bfloat16`` (the input cast to
+   bf16, no policy) on ResNet-50 (3x224) and Xception (3x299) at b32,
+   lr 1e-3: K1-multi on the bf16 parameters and momenta held bitwise
+   against the plain multi-tensor version on clones of the same tensors
+   at each of 12 eager steps, graph against eager as in phase 13, the
+   losses finite and falling, the same readings;
+15. xception serve: Xception (299 px) b32 through ``compile_serving`` ->
+   ``BatchServingEngine``, 96 requests, f32 and bf16_mixed, K2 against
+   the unfused path under phase 4's gates, 24 K2a and 11 K2c launches per
+   replayed tick counted in the trace; tick p50/p99 and img/s;
+16. s2d stem: the ResNet-50 stem conv (b32) in its ``space_to_depth``
+   form against the plain 7x7/s2 conv on the same weights, NCHW and
+   NHWC (f32 within 1e-4, bf16 within 2e-2, times max |y|), both timed;
+   then ResNet-50 b32 with each stem, NCHW and NHWC, f32 and bf16_mixed,
+   12 graphed fused-SGD steps each from the same start (one capture, the
+   first losses agreeing), the two stems timed in 3 alternating rounds of
+   4 steps: step p50/p99, img/s, peak memory above the start.
 
 Rows of kernels that a graph replays (K2, K1-multi with and without the
 flag, K5-multi with the flag, K3/K4) carry ``replays`` and
 ``launches_per_replay`` beside ``launches``, both from the trace of a
 replayed run (K1, K5, K3 and K4 with ``replayed_launches``, the count in
-that trace; K2's ``launches`` are its count). Its last lines are the ``{"kernels": [...]}`` record, the
+that trace; K2's ``launches`` are its count). K1-multi's row and K2's
+NCHW rows also carry ``other_paths_launches_per_replay``: the launches
+per replayed step of each phase-13/14 model and per replayed Xception
+tick. Its last lines are the ``{"kernels": [...]}`` record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``. In
 that record ``ms`` and ``plain_ms`` are CUDA-event times of one call,
 host work included; a flash kernel's ``library_ms`` is the device time
@@ -343,6 +377,28 @@ GRAPH_TRACED = 3
 GRAPH_ADAM_STEPS = 8
 LM_GRAPH_STEPS = 6
 LM_GRAPH_ROUND_STEPS = 3
+# the rest of train_cnn.py: model -> (one input's shape, batch)
+ZOO = {"xceptionnet": ((3, 299, 299), 32), "alexnet": ((3, 224, 224), 32),
+       "cnn": ((1, 28, 28), 64), "mlp": ((784,), 64)}
+ZOO_LR = 0.01
+ZOO_STEPS = 6
+ZOO_ROUNDS = 3
+ZOO_ROUND_STEPS = 4
+ZOO_SEED = 5                # the device generator's seed (dropout) per run
+# where the convolutions' backward is not bitwise run to run, fused and
+# graph runs are held within this many times the run-to-run difference
+DETERMINISM_FACTOR = 4
+PURE_BF16_STEPS = 12
+# the seeded ResNet-50's loss climbs over its first steps at ZOO_LR, in
+# f32 as in bf16; at 1e-3 it falls
+PURE_BF16_LR = 1e-3
+XCEPTION_SHAPE = (3, 299, 299)
+# K2 tails of one Xception forward (tests/test_torch_cnn_zoo.py pins them)
+XCEPTION_TAILS = {"affine_relu": 24, "affine_add_relu": 11}
+S2D_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+S2D_STEPS = 12
+S2D_ROUNDS = 3
+S2D_ROUND_STEPS = 4
 # why an optimizer case has no PyTorch call timed beside it
 # a port kernel's name in a profiler trace: ``<name>_kernel<template
 # arguments>``, in an anonymous namespace; the launch-counter keys that
@@ -933,7 +989,7 @@ def serve_requests(eng, inputs):
 
 
 def serve(model, dev, inputs, policy, fused, batch=BATCH, use_graph=True,
-          registry=None, attempts=5):
+          registry=None, attempts=5, shape=SHAPE, tails=TAILS_PER_FORWARD):
     """Serve ``inputs`` through a fresh engine, twice. The engine's
     constructor runs one forward of the same path, which warms cuDNN and
     the allocator, and (``use_graph``, the engine's default) captures the
@@ -942,8 +998,9 @@ def serve(model, dev, inputs, policy, fused, batch=BATCH, use_graph=True,
     just after it). The second is the counted run: its logits must equal
     the first's bitwise, and it runs under ``torch.profiler``
     (:func:`profiled`), K2's launches counted by kernel name in its trace,
-    49 per tick with the epilogue on (``TAILS_PER_FORWARD``, in the
-    model's layout), none with it off. A replay moves no host counter, so
+    49 per tick with the epilogue on (``tails``: ResNet-50's
+    ``TAILS_PER_FORWARD`` by default, in the model's layout), none with it
+    off; ``shape`` is one request's. A replay moves no host counter, so
     a graphed engine's host counts must stay 0 and every tick of the run
     be a replay; an eager engine's host counts must equal the trace's.
     Returns a dict of the logits, the engine, ``seconds``, the trace's K2
@@ -954,10 +1011,10 @@ def serve(model, dev, inputs, policy, fused, batch=BATCH, use_graph=True,
     from singa_tpu_torch.ops import fused_epilogue as fe
     ticks = -(-len(inputs) // batch)
     lo = getattr(model, "layout", "NCHW").lower()
-    want = {f"{k}_{lo}": per * ticks for k, per in TAILS_PER_FORWARD.items()
+    want = {f"{k}_{lo}": per * ticks for k, per in tails.items()
             } if fused else {}
     with fe.enabled_scope(fused):
-        eng = model.compile_serving(input_shape=SHAPE, batch=batch,
+        eng = model.compile_serving(input_shape=shape, batch=batch,
                                     device=dev, policy=policy,
                                     queue_capacity=len(inputs),
                                     registry=registry or Registry(),
@@ -1051,8 +1108,9 @@ def serve_phase(dev, layout, policy, n_requests, seed=SEED, batch=BATCH):
     return rec
 
 
-def train_models(dev, seed=SEED):
-    """Two ResNet-50s (NCHW, 10 classes) from the same numpy-seeded start,
+def train_models(dev, seed=SEED, **kw):
+    """Two ResNet-50s (NCHW, 10 classes; ``kw`` such as ``layout`` and
+    ``stem`` go to ``resnet50``) from the same numpy-seeded start,
     compiled for training on one fixed synthetic batch of 32; returns
     them, the batch Tensors and the start."""
     import numpy as np
@@ -1065,7 +1123,7 @@ def train_models(dev, seed=SEED):
     tx, ty = Tensor(data=x, device=dev), Tensor(data=y, device=dev)
     models = []
     for _ in range(2):
-        m = resnet.resnet50(num_classes=10)
+        m = resnet.resnet50(num_classes=10, **kw)
         m.compile([tx], is_train=True)
         models.append(m)
     start = seeded_states(models[0], seed)
@@ -2984,6 +3042,544 @@ def lm_train_phase(dev, tx, ty, start):
     return rec
 
 
+# -- the rest of train_cnn.py: the CNN zoo, pure bf16, the s2d stem --------
+
+def zoo_data(dev, shape, batch, seed=SEED + 10, dtype=None):
+    """One fixed synthetic batch: N(0, 1) inputs of ``(batch,) + shape``
+    (cast to ``dtype`` when given, as ``-p bfloat16`` casts) and one-hot
+    labels of 10 classes."""
+    import numpy as np
+    from singa_tpu_torch.tensor import Tensor
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((batch,) + tuple(shape), dtype=np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, batch)]
+    tx = Tensor(data=x, device=dev)
+    if dtype is not None:
+        tx = tx.as_type(dtype)
+    return tx, Tensor(data=y, device=dev)
+
+
+def zoo_model(name, tx, use_graph, policy=None):
+    """A model of ``train_cnn.py``'s zoo (10 classes) as the example makes
+    it, compiled for training on ``tx``."""
+    from singa_tpu_torch import models
+    from singa_tpu_torch.models import resnet
+    if name == "resnet50":
+        m = resnet.resnet50(num_classes=10)
+    elif name == "mlp":
+        m = models.mlp.create_model(data_size=tx.shape[1], num_classes=10)
+    else:
+        m = getattr(models, name).create_model(num_channels=tx.shape[1],
+                                               num_classes=10)
+    m.compile([tx], is_train=True, use_graph=use_graph, policy=policy)
+    return m
+
+
+def zoo_sgd(opt, fused=True, lr=ZOO_LR):
+    return opt.SGD(lr=lr, momentum=0.9, weight_decay=1e-5, fused=fused)
+
+
+def zoo_run(model, dev, start, tx, ty, steps, fused=True, lr=ZOO_LR):
+    """:func:`graph_run` of ``steps`` steps of :func:`zoo_sgd`, the device
+    generator seeded with ``ZOO_SEED`` just before (dropout draws from
+    it), with copies of every state and optimizer state after
+    (``states``)."""
+    dev.SetRandSeed(ZOO_SEED)
+    r = graph_run(model, start, tx, ty, None, steps,
+                  lambda opt: zoo_sgd(opt, fused, lr))
+    r["states"] = live_states(model)
+    return r
+
+
+def states_diff(a, b, what):
+    """The largest absolute difference between two runs' states (copies
+    by name, :func:`live_states`), 0.0 when every one is bitwise equal."""
+    import torch
+    check(sorted(a) == sorted(b), f"{what}: state names differ")
+    worst = 0.0
+    for k in a:
+        if not torch.equal(a[k], b[k]):
+            worst = max(worst, (a[k].float() - b[k].float()).abs()
+                        .max().item())
+    return worst
+
+
+def per_step_chunks(model):
+    """K1-multi launches per step of ``model``'s fused SGD: its
+    parameters grouped by dtype, each group in chunks."""
+    groups = {}
+    for t in model.get_params().values():
+        groups[t.dtype] = groups.get(t.dtype, 0) + 1
+    return sum(multi_chunks("sgd_multi", n) for n in groups.values()), {
+        str(k).replace("torch.", ""): n for k, n in groups.items()}
+
+
+def zoo_readings(what, g_model, e_model, tx, ty, batch, per_step, g, e):
+    """The readings every zoo-like phase reports: no synchronizing call in
+    a replayed step; step p50/p99 and img/s of graph and eager in
+    ``ZOO_ROUNDS`` alternating rounds of ``ZOO_ROUND_STEPS``; the trace of
+    ``GRAPH_TRACED`` replays (K1-multi ``per_step`` a step, none on the
+    host) and of as many eager steps, with their idle shares."""
+    syncs = sync_warnings(lambda: g_model(tx, ty))
+    check(not syncs, f"{what}: a replayed step made {len(syncs)} "
+          f"synchronizing calls: {syncs}")
+    times = alternating_rounds(
+        {"graph": lambda n: timed_steps(g_model, tx, ty, n),
+         "eager": lambda n: timed_steps(e_model, tx, ty, n)},
+        ZOO_ROUNDS, ZOO_ROUND_STEPS)
+    want = {"sgd_multi": per_step}
+    trace = {name: traced(lambda m=m: m(tx, ty), GRAPH_TRACED, want,
+                          f"{what} {name} steps")
+             for name, m in (("graph", g_model), ("eager", e_model))}
+    replayed = replay_counts(what, trace, "sgd_multi")
+    rec = {"sgd_multi": replayed, "sync_warnings_per_replay": syncs}
+    for name, r in (("graph", g), ("eager", e)):
+        q = quantiles(times[name])
+        rec[name] = {"step_p50_ms": q["p50_ms"], "step_p99_ms": q["p99_ms"],
+                     "steps_timed": q["n"], "step_ms": times[name],
+                     "img_per_s": batch * len(times[name])
+                     / (sum(times[name]) / 1e3),
+                     "peak_device_bytes": r["peak_bytes"],
+                     "peak_above_start_bytes": r["peak_above_start_bytes"],
+                     "traced": trace[name]}
+    return rec
+
+
+def zoo_line(what, rec):
+    gr, er = rec["graph"], rec["eager"]
+    return (f"{what}: step p50 {gr['step_p50_ms']:.3f} ms p99 "
+            f"{gr['step_p99_ms']:.3f} ms img/s {gr['img_per_s']:.1f} against "
+            f"eager p50 {er['step_p50_ms']:.3f} ms p99 "
+            f"{er['step_p99_ms']:.3f} ms img/s {er['img_per_s']:.1f}; peak "
+            f"above the start {gr['peak_above_start_bytes'] / 2**30:.2f} GiB"
+            f" (eager {er['peak_above_start_bytes'] / 2**30:.2f}); traced "
+            f"replay: idle {gr['traced']['idle_share']:.3f} busy "
+            f"{gr['traced']['busy_ms']:.3f} ms ops "
+            f"{gr['traced']['ops']:.0f} (eager idle "
+            f"{er['traced']['idle_share']:.3f}); K1-multi launches in the "
+            f"trace of {rec['sgd_multi']['replays']} replays: "
+            f"{rec['sgd_multi']['replayed_launches']}, none on the host")
+
+
+def zoo_gates(what, g_model, g, e, per_step, steps, bound):
+    """One signature captured once; the host counted ``per_step`` K1-multi
+    launches at the eager call and the capture only, eager at every step;
+    graph against eager within ``bound`` (0: bitwise, losses too)."""
+    stats = list(g_model.graph_stats().values())
+    check(stats == [{"n_captures": 1, "n_replays": steps - 1}],
+          f"{what}: {stats} after {steps} steps, expected one signature "
+          "captured once")
+    check(g["launches"] == {"sgd_multi": 2 * per_step} and
+          e["launches"] == {"sgd_multi": per_step * steps},
+          f"{what}: host-counted launches {g['launches']} (expected "
+          f"{per_step} sgd_multi at the eager call and {per_step} at the "
+          f"capture), eager {e['launches']}")
+    diff = states_diff(g["states"], e["states"], what)
+    check(diff <= bound and (bound > 0 or g["losses"] == e["losses"]),
+          f"{what}: graph against eager differs by {diff} (allowed "
+          f"{bound}); losses {g['losses']} against {e['losses']}")
+    return diff
+
+
+def dropout_replays(dev):
+    """A captured dropout (``autograd.dropout`` at ratio 0.5 in training,
+    through ``graph.StepGraph``) against the same calls eagerly from the
+    same device seed: each call's mask bitwise equal, and the masks of
+    two replays different. Returns the share kept by each call."""
+    import torch
+    from singa_tpu_torch import autograd
+    from singa_tpu_torch.autograd_base import CTX
+    from singa_tpu_torch.graph import StepGraph
+    from singa_tpu_torch.tensor import Tensor
+    x = Tensor(data=torch.ones(1 << 16, device=dev.torch_device),
+               device=dev)
+
+    def fn(t):
+        prev = CTX.training
+        CTX.training = True
+        try:
+            return autograd.dropout(t, 0.5)
+        finally:
+            CTX.training = prev
+    dev.SetRandSeed(ZOO_SEED)
+    step = StepGraph(fn, dev)
+    graphed = [step(x).data for _ in range(4)]
+    dev.SetRandSeed(ZOO_SEED)
+    eager = [fn(x).data for _ in range(4)]
+    check(step.stats() == {"n_captures": 1, "n_replays": 3},
+          f"dropout graph: {step.stats()}")
+    check(all(torch.equal(a, b) for a, b in zip(graphed, eager)),
+          "dropout graph: a replay's mask differs from the eager call's "
+          "with the same seed")
+    check(not torch.equal(graphed[2], graphed[3]) and
+          not torch.equal(graphed[1], graphed[2]),
+          "dropout graph: two replays drew the same mask")
+    return [float((t != 0).float().mean()) for t in graphed]
+
+
+def zoo_train_phase(dev):
+    """``train_cnn.py``'s other models trained by fused SGD on the card
+    (``ZOO``: Xception 3x299 b32, AlexNet 3x224 b32 with dropout on, CNN
+    1x28x28 b64, MLP 784 b64), in f32 and under bf16_mixed, each from a
+    numpy-seeded start on one fixed batch, cuDNN deterministic: eager
+    unfused, eager fused twice (run to run: the difference the
+    convolutions' backward leaves, 0 when it is deterministic), and graphed
+    (``use_graph=True``, as the example compiles) with the device
+    generator seeded the same. Gates: fused against unfused and graph
+    against eager bitwise when run to run is, else within
+    ``DETERMINISM_FACTOR`` times the run-to-run difference; one capture;
+    K1-multi's launches per step on the host (eager, capture) and in the
+    trace of replays; no synchronizing call in a replay; captured dropout
+    against eager (:func:`dropout_replays`). Readings of
+    :func:`zoo_readings`."""
+    import torch
+    out = {"dropout_keep_share": dropout_replays(dev)}
+    for name, (shape, batch) in ZOO.items():
+        tx, ty = zoo_data(dev, shape, batch)
+        g_model = zoo_model(name, tx, True)
+        e_model = zoo_model(name, tx, False)
+        start = seeded_states(g_model, SEED + 11)
+        per_step, groups = per_step_chunks(g_model)
+        for policy in (None, "bf16_mixed"):
+            pname = policy or "float32"
+            what = f"zoo {name} {pname} b{batch}"
+            if policy:
+                g_model.compile([tx], is_train=True, use_graph=True,
+                                policy=policy)
+                e_model.compile([tx], is_train=True, use_graph=False,
+                                policy=policy)
+            # the eager model's last run is the fused one: the timed
+            # rounds and the trace run its optimizer
+            u = zoo_run(e_model, dev, start, tx, ty, ZOO_STEPS, fused=False)
+            e2 = zoo_run(e_model, dev, start, tx, ty, ZOO_STEPS)
+            e = zoo_run(e_model, dev, start, tx, ty, ZOO_STEPS)
+            g = zoo_run(g_model, dev, start, tx, ty, ZOO_STEPS)
+            run_to_run = states_diff(e["states"], e2["states"],
+                                     f"{what} run to run")
+            bound = DETERMINISM_FACTOR * run_to_run
+            fu = states_diff(e["states"], u["states"], what)
+            check(not u["launches"] and fu <= bound and
+                  (bound > 0 or u["losses"] == e["losses"]),
+                  f"{what}: fused against unfused differs by {fu} "
+                  f"(allowed {bound}); unfused launched {u['launches']}")
+            ge = zoo_gates(what, g_model, g, e, per_step, ZOO_STEPS, bound)
+            check(all(map(lambda v: v == v and abs(v) < float("inf"),
+                          g["losses"])), f"{what}: losses {g['losses']}")
+            rec = {"batch": batch, "shape": list(shape), "steps": ZOO_STEPS,
+                   "params": groups, "k1_multi_per_step": per_step,
+                   "losses": g["losses"], "run_to_run_max_abs": run_to_run,
+                   "fused_vs_unfused_max_abs": fu,
+                   "graph_vs_eager_max_abs": ge, "allowed": bound,
+                   "states_held": len(g["states"]),
+                   "host_launches": g["launches"]}
+            rec.update(zoo_readings(what, g_model, e_model, tx, ty, batch,
+                                    per_step, g, e))
+            out[f"{name}_{pname}"] = rec
+            held = "bitwise" if bound == 0 else f"within {bound:.3g}"
+            print(zoo_line(f"zoo train {name} {pname} b{batch}", rec)
+                  + f"; fused == unfused and graph == eager {held} over "
+                  f"{rec['states_held']} states (run to run "
+                  f"{run_to_run:.3g}); losses "
+                  + " ".join(f"{v:.5f}" for v in g["losses"]), flush=True)
+        del g_model, e_model, e, e2, u, g
+        torch.cuda.empty_cache()
+    return out
+
+
+def held_to_plain_multi(records):
+    """Route the fused SGD's multi-tensor call through a check: the
+    entries are cloned, the kernel runs, the plain multi-tensor version
+    (``sgd_momentum_update_multi_reference``) runs on the clones, and the
+    parameters and momenta of the two are compared bitwise; each call's
+    count of tensors that differ goes to ``records``. Returns the function
+    that puts the call back."""
+    import torch
+    from singa_tpu_torch.ops import fused_optim as fo
+    real = fo.sgd_momentum_update_multi
+
+    def checked(entries, **kw):
+        clones = [(p.clone(), g.clone(), m.clone(), lr, wd)
+                  for p, g, m, lr, wd in entries]
+        real(entries, **kw)
+        fo.sgd_momentum_update_multi_reference(clones, **kw)
+        differ = sum(not (torch.equal(p, cp) and torch.equal(m, cm))
+                     for (p, _, m, _, _), (cp, _, cm, _, _)
+                     in zip(entries, clones))
+        records.append({"tensors": len(entries), "differ": differ,
+                        "dtypes": sorted({f"{e[0].dtype}/{e[2].dtype}"
+                                          for e in entries})})
+    fo.sgd_momentum_update_multi = checked
+    return lambda: setattr(fo, "sgd_momentum_update_multi", real)
+
+
+def pure_bf16_phase(dev):
+    """``train_cnn.py -p bfloat16`` on the card: ResNet-50 (3x224) and
+    Xception (3x299) at b32, the input cast to bf16 and no policy, so the
+    convolutions' and products' parameters are bf16 (BN's stay f32) and
+    K1-multi updates bf16 parameters and momenta; ``SGD(lr=PURE_BF16_LR,
+    momentum=0.9, weight_decay=1e-5)``; cuDNN deterministic.
+    Eager fused twice (run to run), with every multi-tensor call held
+    bitwise against the plain multi-tensor version on clones of the same
+    bf16 tensors (:func:`held_to_plain_multi`), then graphed: graph
+    against eager bitwise (or within ``DETERMINISM_FACTOR`` times the run
+    to run difference), one capture, the losses finite and lower at the
+    last of ``PURE_BF16_STEPS`` steps than at the first; readings of
+    :func:`zoo_readings`."""
+    import torch
+    out = {}
+    for name, shape in (("resnet50", SHAPE), ("xceptionnet",
+                                              XCEPTION_SHAPE)):
+        what = f"pure bf16 {name} b{BATCH}"
+        tx, ty = zoo_data(dev, shape, BATCH, seed=SEED + 12,
+                          dtype="bfloat16")
+        g_model = zoo_model(name, tx, True)
+        e_model = zoo_model(name, tx, False)
+        start = seeded_states(g_model, SEED + 11)
+        per_step, groups = per_step_chunks(g_model)
+        check(set(groups) == {"bfloat16", "float32"},
+              f"{what}: parameter dtypes {groups}")
+        checks = []
+        restore = held_to_plain_multi(checks)
+        try:
+            e = zoo_run(e_model, dev, start, tx, ty, PURE_BF16_STEPS,
+                        lr=PURE_BF16_LR)
+        finally:
+            restore()
+        bad = [c for c in checks if c["differ"]]
+        check(len(checks) == PURE_BF16_STEPS and not bad and
+              any("bfloat16/torch.bfloat16" in d for c in checks
+                  for d in c["dtypes"]),
+              f"{what}: K1-multi against its plain version: {bad or checks}")
+        e2 = zoo_run(e_model, dev, start, tx, ty, PURE_BF16_STEPS,
+                     lr=PURE_BF16_LR)
+        g = zoo_run(g_model, dev, start, tx, ty, PURE_BF16_STEPS,
+                    lr=PURE_BF16_LR)
+        run_to_run = states_diff(e["states"], e2["states"],
+                                 f"{what} run to run")
+        bound = DETERMINISM_FACTOR * run_to_run
+        ge = zoo_gates(what, g_model, g, e, per_step, PURE_BF16_STEPS, bound)
+        losses = g["losses"]
+        check(all(v == v and abs(v) < float("inf") for v in losses) and
+              losses[-1] < losses[0], f"{what}: losses {losses}")
+        rec = {"batch": BATCH, "shape": list(shape),
+               "steps": PURE_BF16_STEPS, "params": groups,
+               "k1_multi_per_step": per_step, "losses": losses,
+               "plain_multi_checks": len(checks),
+               "plain_multi_tensors": checks[0]["tensors"],
+               "plain_multi_dtypes": checks[0]["dtypes"],
+               "run_to_run_max_abs": run_to_run,
+               "graph_vs_eager_max_abs": ge, "allowed": bound,
+               "host_launches": g["launches"]}
+        rec.update(zoo_readings(what, g_model, e_model, tx, ty, BATCH,
+                                per_step, g, e))
+        out[name] = rec
+        held = "bitwise" if bound == 0 else f"within {bound:.3g}"
+        print(zoo_line(f"pure bf16 train {name} b{BATCH}", rec)
+              + f"; K1-multi bitwise with its plain version on the bf16 "
+              f"tensors in {len(checks)} steps ({checks[0]['tensors']} "
+              f"tensors, {checks[0]['dtypes']}); graph == eager {held} "
+              f"(run to run {run_to_run:.3g}); losses "
+              + " ".join(f"{v:.4f}" for v in losses), flush=True)
+        del g_model, e_model, e, e2, g
+        torch.cuda.empty_cache()
+    return out
+
+
+def xception_serve_phase(dev, seed=SEED):
+    """Xception (299 px, 10 classes, weights and BN statistics from a
+    numpy seed) through ``compile_serving(batch=32)`` ->
+    ``BatchServingEngine`` (graphed ticks), ``N_REQUESTS`` requests, f32
+    and bf16_mixed: the logits through K2 against the unfused path
+    (``REL_TOL`` x max |logit|); K2a and K2c counted per replayed tick in
+    the trace, ``XCEPTION_TAILS`` each (the peephole count the CPU test
+    pins), none unfused; tick p50/p99 and img/s of both."""
+    import numpy as np
+    import torch
+    from singa_tpu_torch.model import load_numpy_states
+    from singa_tpu_torch.models import xceptionnet
+    model = xceptionnet.create_model(num_classes=10)
+    model.eval()
+    model.compile_serving(input_shape=XCEPTION_SHAPE, batch=BATCH,
+                          device=dev, use_graph=False)
+    load_numpy_states(model, seeded_states(model, seed + 13))
+    rng = np.random.default_rng(seed + 14)
+    inputs = [rng.standard_normal(XCEPTION_SHAPE, dtype=np.float32)
+              for _ in range(N_REQUESTS)]
+    ticks = -(-N_REQUESTS // BATCH)
+    kw = dict(shape=XCEPTION_SHAPE, tails=XCEPTION_TAILS)
+    out = {}
+    for policy in (None, "bf16_mixed"):
+        pname = policy or "float32"
+        r = serve(model, dev, inputs, policy, False, **kw)
+        check(sum(r["launches"].values()) == 0,
+              f"xception serve {pname}: the unfused run launched K2: "
+              f"{r['launches']}")
+        f = serve(model, dev, inputs, policy, True, **kw)
+        got, ref = f["logits"], r["logits"]
+        check(got.shape == (N_REQUESTS, 10) and np.isfinite(got).all(),
+              f"xception serve {pname}: logits {got.shape}, or not finite")
+        for kind, per in XCEPTION_TAILS.items():
+            n = f["launches"][f"{kind}_nchw"]
+            check(n == per * ticks, f"xception serve {pname}: {kind} "
+                  f"{n} launches in the trace, expected {per} x {ticks}")
+        scale = float(np.abs(ref).max())
+        err = float(np.abs(got - ref).max())
+        check(scale > 0 and err <= REL_TOL[pname] * scale,
+              f"xception serve {pname}: K2 logits differ from the unfused "
+              f"path by {err} (max |logit| {scale}, tolerance "
+              f"{REL_TOL[pname]} x)")
+        ts = f["tick"]
+        rec = {"policy": pname, "requests": N_REQUESTS, "batch": BATCH,
+               "ticks": ticks, "launches": f["launches"],
+               "replays": f["replays"],
+               "launches_per_replay": {k: v / f["replays"] for k, v in
+                                       f["launches"].items() if v},
+               "max_abs_err_vs_unfused": err, "max_abs_logit": scale,
+               "img_per_s": N_REQUESTS / f["seconds"],
+               "unfused_img_per_s": N_REQUESTS / r["seconds"],
+               "tick_p50_ms": ts["p50_s"] * 1e3,
+               "tick_p99_ms": ts["p99_s"] * 1e3,
+               "unfused_tick_p50_ms": r["tick"]["p50_s"] * 1e3,
+               "top1_agreement": float((got.argmax(1) == ref.argmax(1))
+                                       .mean())}
+        out[pname] = rec
+        print(f"xception serve NCHW {pname} b{BATCH} x{N_REQUESTS}: tick "
+              f"p50 {rec['tick_p50_ms']:.2f} ms p99 "
+              f"{rec['tick_p99_ms']:.2f} ms img/s {rec['img_per_s']:.1f} "
+              f"(unfused p50 {rec['unfused_tick_p50_ms']:.2f} ms, img/s "
+              f"{rec['unfused_img_per_s']:.1f}); K2 launches counted in the "
+              f"trace of {f['replays']} replays: {rec['launches_per_replay']}"
+              f" per tick; max_abs_err {err:.3g} (max |logit| {scale:.3g})",
+              flush=True)
+        del r, f
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def s2d_stem_conv(dev):
+    """The ResNet-50 stem conv at b32 (3x224 -> 64 channels, 7x7/s2) in
+    its ``space_to_depth`` form against the plain conv on the same OIHW
+    weights on the card, NCHW and NHWC, f32 and bf16: the largest
+    difference within ``S2D_TOL`` x max |y|, and each timed (CUDA
+    events)."""
+    import numpy as np
+    import torch
+    from singa_tpu_torch.ops import conv as tconv
+    from singa_tpu_torch.tensor import Tensor
+    rng = np.random.default_rng(SEED + 15)
+    x = torch.from_numpy(rng.standard_normal((BATCH,) + SHAPE,
+                                             dtype=np.float32)).cuda()
+    W = torch.from_numpy(rng.standard_normal((64, 3, 7, 7),
+                                             dtype=np.float32)
+                         * np.float32(np.sqrt(1.0 / 147))).cuda()
+    out = {}
+    for layout in ("NCHW", "NHWC"):
+        xin = x if layout == "NCHW" else x.permute(0, 2, 3, 1).contiguous()
+        for dname, dt in (("float32", torch.float32),
+                          ("bfloat16", torch.bfloat16)):
+            tx = Tensor(data=xin.to(dt), device=dev)
+            tW = Tensor(data=W.to(dt), device=dev)
+            ys = {}
+            ms = {}
+            for stem, s2d in (("conv7", False), ("space_to_depth", True)):
+                h = tconv.ConvHandle(xin.shape, 7, 2, 3, 3, 64, bias=False,
+                                     layout=layout, space_to_depth=s2d)
+                with torch.no_grad():
+                    ys[stem] = tconv.conv2d(h, tx, tW).data.float()
+                    ms[stem] = time_ms(lambda h=h: tconv.conv2d(h, tx, tW))
+            scale = float(ys["conv7"].abs().max())
+            err = float((ys["space_to_depth"] - ys["conv7"]).abs().max())
+            check(err <= S2D_TOL[dname] * scale,
+                  f"s2d stem {layout} {dname}: differs from conv7 by {err} "
+                  f"(max |y| {scale}, tolerance {S2D_TOL[dname]} x)")
+            out[f"{layout}_{dname}"] = {"max_abs_err": err,
+                                        "max_abs_y": scale,
+                                        "conv7_ms": ms["conv7"],
+                                        "s2d_ms": ms["space_to_depth"]}
+            print(f"s2d stem conv {layout} {dname} b{BATCH}: max_abs_err "
+                  f"{err:.3g} (max |y| {scale:.3g}); s2d {ms['space_to_depth']:.4f}"
+                  f" ms against conv7 {ms['conv7']:.4f} ms", flush=True)
+    return out
+
+
+def s2d_phase(dev):
+    """The ``space_to_depth`` stem on the card: the stem conv against
+    conv7 (:func:`s2d_stem_conv`), then ResNet-50 b32 with each stem,
+    NCHW and NHWC, f32 and bf16_mixed: ``S2D_STEPS`` graphed fused-SGD
+    steps of each from the same numpy-seeded start (one capture,
+    K1-multi's host launches at the eager call and the capture only, the
+    losses finite, the first loss of the two stems within ``S2D_TOL``,
+    relative), then the two timed in ``S2D_ROUNDS`` alternating rounds of
+    ``S2D_ROUND_STEPS`` within the process: step p50/p99 and img/s of
+    each, peak memory above the start."""
+    import torch
+    from singa_tpu_torch.models import resnet
+    out = {"stem_conv": s2d_stem_conv(dev)}
+    tx, ty = zoo_data(dev, SHAPE, BATCH, seed=SEED + 2)
+    per_step = multi_chunks("sgd_multi", PARAMS_PER_STEP)
+    for layout in ("NCHW", "NHWC"):
+        models = {}
+        for stem in ("space_to_depth", "conv7"):
+            m = resnet.resnet50(num_classes=10, layout=layout, stem=stem)
+            m.compile([tx], is_train=True, use_graph=True)
+            models[stem] = m
+        start = seeded_states(models["conv7"], SEED)
+        for policy in (None, "bf16_mixed"):
+            pname = policy or "float32"
+            what = f"s2d train resnet50 {layout} {pname} b{BATCH}"
+            runs = {}
+            for stem, m in models.items():
+                if policy:
+                    m.compile([tx], is_train=True, use_graph=True,
+                              policy=policy)
+                r = graph_run(m, start, tx, ty, None, S2D_STEPS)
+                stats = list(m.graph_stats().values())
+                check(stats == [{"n_captures": 1,
+                                 "n_replays": S2D_STEPS - 1}] and
+                      r["launches"] == {"sgd_multi": 2 * per_step} and
+                      all(v == v and abs(v) < float("inf")
+                          for v in r["losses"]),
+                      f"{what} {stem}: {stats}, host launches "
+                      f"{r['launches']}, losses {r['losses']}")
+                runs[stem] = r
+            a, b = runs["space_to_depth"]["losses"][0], \
+                runs["conv7"]["losses"][0]
+            tol = S2D_TOL["float32" if policy is None else "bfloat16"]
+            check(abs(a - b) <= tol * abs(b) + tol,
+                  f"{what}: first loss {a} (s2d) against {b} (conv7)")
+            times = alternating_rounds(
+                {stem: lambda n, m=m: timed_steps(m, tx, ty, n)
+                 for stem, m in models.items()}, S2D_ROUNDS,
+                S2D_ROUND_STEPS)
+            rec = {}
+            for stem, r in runs.items():
+                q = quantiles(times[stem])
+                rec[stem] = {"step_p50_ms": q["p50_ms"],
+                             "step_p99_ms": q["p99_ms"],
+                             "steps_timed": q["n"], "step_ms": times[stem],
+                             "img_per_s": BATCH * len(times[stem])
+                             / (sum(times[stem]) / 1e3),
+                             "losses": r["losses"],
+                             "peak_above_start_bytes":
+                             r["peak_above_start_bytes"]}
+            out[f"{layout}_{pname}"] = rec
+            s, c = rec["space_to_depth"], rec["conv7"]
+            print(f"{what}: s2d step p50 {s['step_p50_ms']:.2f} ms p99 "
+                  f"{s['step_p99_ms']:.2f} ms img/s {s['img_per_s']:.1f} "
+                  f"against conv7 p50 {c['step_p50_ms']:.2f} ms p99 "
+                  f"{c['step_p99_ms']:.2f} ms img/s {c['img_per_s']:.1f} "
+                  f"({S2D_ROUNDS} alternating rounds of {S2D_ROUND_STEPS}); "
+                  f"peak above the start s2d "
+                  f"{s['peak_above_start_bytes'] / 2**30:.2f} GiB, conv7 "
+                  f"{c['peak_above_start_bytes'] / 2**30:.2f}; first loss "
+                  f"{a:.5f} against {b:.5f}; last {s['losses'][-1]:.5f} "
+                  f"against {c['losses'][-1]:.5f}", flush=True)
+        del models
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3038,6 +3634,10 @@ def main():
     del models, tx, ty, start
     torch.cuda.empty_cache()
     graph_serve = graph_serve_phase(dev)
+    zoo = zoo_train_phase(dev)
+    pure_bf16 = pure_bf16_phase(dev)
+    xception_serve = xception_serve_phase(dev)
+    s2d = s2d_phase(dev)
     torch.backends.cudnn.deterministic = False
     torch.cuda.empty_cache()
 
@@ -3140,6 +3740,19 @@ def main():
                 "max_abs_err": max(errs), "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    # the launches per replay on the paths of train_cnn.py's other models:
+    # K1-multi per zoo and pure-bf16 step, K2 per Xception tick
+    per_replay = {"sgd_multi": {
+        **{k: v["sgd_multi"]["launches_per_replay"] for k, v in zoo.items()
+           if isinstance(v, dict)},
+        **{f"{k}_bfloat16": v["sgd_multi"]["launches_per_replay"]
+           for k, v in pure_bf16.items()}}}
+    for pname, rec in xception_serve.items():
+        for key, n in rec["launches_per_replay"].items():
+            per_replay.setdefault(key, {})[f"xceptionnet_{pname}"] = n
+    for row in kernels:
+        if row["name"] in per_replay:
+            row["other_paths_launches_per_replay"] = per_replay[row["name"]]
     kind = torch.cuda.get_device_name(0)
     record = {"card": card, "torch": torch.__version__, "build_s": build_s,
               "kernel_cases": cases, "serve_runs": runs,
@@ -3152,7 +3765,10 @@ def main():
               "flash_f32_resources": flash_res,
               "lm_eval": lm_eval, "lm_train": lm_train,
               "graph_train": graph_train, "graph_serve": graph_serve,
-              "graph_lm": graph_lm, "kernels": kernels}
+              "graph_lm": graph_lm, "zoo_train": zoo,
+              "pure_bf16_train": pure_bf16,
+              "xception_serve": xception_serve, "s2d": s2d,
+              "kernels": kernels}
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

@@ -5,6 +5,8 @@ NVIDIA card.
     python3 profile_training.py [--model resnet50|lm] [--steps 3] [--warmup 3]
                                 [--optimizer sgd|rmsprop|adagrad]
                                 [--policy float32|bf16_mixed] [--graph]
+                                [--layout NCHW|NHWC]
+                                [--stem conv7|space_to_depth]
 
 ``--model resnet50`` (the default) builds chip_smoke.py's ResNet training
 setup (ResNet-50, 224 px, batch 32, f32, TF32 off, NCHW, weights and BN
@@ -58,8 +60,8 @@ kernel name in its trace, beside the host counts of the same steps (0
 for replays, which move no host counter).
 
 Everything also goes to ``chiprun_out/profile_training.json`` (or
-``profile_training_lm.json``; ``_graph`` before ``.json`` with
-``--graph``). Imports nothing of JAX or ``singa_tpu``;
+``profile_training_lm.json``; ``_<policy>``, ``_nhwc``, ``_s2d`` and
+``_graph`` before ``.json`` with those options). Imports nothing of JAX or ``singa_tpu``;
 exits nonzero without a CUDA device.
 """
 
@@ -286,6 +288,10 @@ def main(argv=None):
     ap.add_argument("--policy", choices=("float32", "bf16_mixed"),
                     default="float32",
                     help="the ResNet's precision policy")
+    ap.add_argument("--layout", choices=("NCHW", "NHWC"), default="NCHW",
+                    help="the ResNet's conv-trunk layout")
+    ap.add_argument("--stem", choices=("conv7", "space_to_depth"),
+                    default="conv7", help="the ResNet's stem conv")
     ap.add_argument("--graph", action="store_true",
                     help="trace graph-mode steps (CUDA-graph replays) "
                     "beside eager ones")
@@ -308,7 +314,8 @@ def main(argv=None):
         recs = main_lm(dev, args.steps, args.warmup, args.graph)
         name = "profile_training_lm.json"
     else:
-        (model, _), tx, ty, start = chip_smoke.train_models(dev)
+        (model, _), tx, ty, start = chip_smoke.train_models(
+            dev, layout=args.layout, stem=args.stem)
         if args.policy != "float32":
             model.compile([tx], is_train=True, policy=args.policy)
         if args.graph:
@@ -324,6 +331,10 @@ def main(argv=None):
             name = f"profile_training_{args.optimizer}.json"
         if args.policy != "float32":
             name = name.replace(".json", f"_{args.policy}.json")
+        if args.layout != "NCHW":
+            name = name.replace(".json", f"_{args.layout.lower()}.json")
+        if args.stem != "conv7":
+            name = name.replace(".json", "_s2d.json")
         recs = [run(model, tx, ty, start, args.optimizer, u, d, args.steps,
                     args.warmup, g) for d, u, g in turns]
     if args.graph:

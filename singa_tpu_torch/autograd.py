@@ -7,8 +7,8 @@ residual tag, ``autograd.py:832-847``), ``transpose``, ``flatten``,
 ``cross_entropy`` (``autograd.py:333-364``), and for the LM ``gelu``
 (``GELU`` ``:297``), ``reshape`` (``Reshape`` ``:496``), ``onehot``
 (``OneHot`` ``:698``), ``embedding`` (``Embedding`` ``:714``), ``astype``
-(``AsType`` ``:778``) and ``layernorm`` (``_LayerNorm`` ``:793``). Each
-takes and returns
+(``AsType`` ``:778``) and ``layernorm`` (``_LayerNorm`` ``:793``), and
+``dropout`` (``Dropout`` ``:814``). Each takes and returns
 :class:`~.tensor.Tensor`s. Torch autograd records their gradients when
 they run outside ``no_grad`` (:func:`~.autograd_base.backward`); the
 peephole declines in training, so a training forward never makes a lazy
@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from .autograd_base import is_training
 from .mixed_precision import accum_f32, cast_compute
 from .tensor import Tensor
 
@@ -166,3 +167,19 @@ def layernorm(x, scale, bias, eps=1e-5):
     var = xf.var(-1, unbiased=False, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps) * scale.data + bias.data
     return Tensor(data=y.to(x.dtype), device=x.device)
+
+
+def dropout(x, ratio=0.5):
+    """Inverted dropout: the identity outside training and at ``ratio``
+    0; in training each element is kept with probability ``1 - ratio``
+    and scaled by ``1 / (1 - ratio)``, the rest set to 0, so the gradient
+    is ``mask / (1 - ratio)``. The keep mask is ``U[0, 1) < 1 - ratio``
+    drawn from ``x``'s device generator (never torch's global one), which
+    a captured step registers, so each replay draws a fresh mask."""
+    if not is_training() or ratio <= 0.0:
+        return x
+    keep = 1.0 - ratio
+    u = torch.rand(x.shape, generator=x.device.generator,
+                   dtype=torch.float32, device=x.device.torch_device)
+    return Tensor(data=torch.where(u < keep, x.data / keep, 0.0),
+                  device=x.device)

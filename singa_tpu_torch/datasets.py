@@ -1,20 +1,24 @@
-"""CIFAR-10 ingestion and batched host-side transforms.
+"""Dataset ingestion (CIFAR-10, CIFAR-100, MNIST) and batched host-side
+transforms.
 
-Counterpart of ``singa_tpu/datasets.py:37-235`` for CIFAR-10: the python
-pickle batches (``cifar-10-batches-py/data_batch_N``) and the binary
-records (``cifar-10-batches-bin/data_batch_N.bin``) parsed into uint8 NCHW
-arrays, :func:`normalize_cifar`, :func:`augment_crop_flip` (the same numpy
+Counterpart of ``singa_tpu/datasets.py:37-235``: the CIFAR-10 python
+pickle batches (``cifar-10-batches-py/data_batch_N``) and binary records
+(``cifar-10-batches-bin/data_batch_N.bin``), the CIFAR-100 pickles
+(``cifar-100-python/{train,test}``, fine or coarse labels) and the MNIST
+IDX files (plain or ``.gz``) parsed into uint8 NCHW arrays and int32
+labels, :func:`normalize_cifar`, :func:`augment_crop_flip` (the same numpy
 draws as the JAX package, so a seed gives the same batch) and
 :func:`resize_batch` (bilinear, on a torch device). Nothing is downloaded:
 the files are read from ``dir_path`` or from ``data/`` (or the root) of
 this checkout, and :class:`DatasetNotFoundError` says where to put them.
-CIFAR-100 and MNIST are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
 
+import gzip
 import os
 import pickle
+import struct
 
 import numpy as np
 
@@ -82,6 +86,59 @@ def load_cifar10(dir_path=None, num_batches=5):
     return np.concatenate(xs), np.concatenate(ys), vx, vy
 
 
+def load_cifar100(dir_path=None, label_mode="fine"):
+    """Returns (train_x, train_y, val_x, val_y) from the python-format
+    ``cifar-100-python/{train,test}`` pickles; ``label_mode`` picks the
+    fine (100) or coarse (20) labels."""
+    key = "fine_labels" if label_mode == "fine" else "coarse_labels"
+    train = _resolve(dir_path, ["cifar-100-python/train", "train"],
+                     "CIFAR-100 (python format)", "cifar-100-python/train")
+    tx, ty = _load_cifar_pickle(train, key)
+    vx, vy = _load_cifar_pickle(
+        os.path.join(os.path.dirname(train), "test"), key)
+    return tx, ty, vx, vy
+
+
+def _open_maybe_gz(path):
+    return gzip.open(path, "rb") if path.endswith(".gz") else \
+        open(path, "rb")
+
+
+def _read_idx(path, magic, header_ints):
+    """The uint8 payload of an IDX file and its header fields after the
+    magic; raises on a wrong magic number."""
+    with _open_maybe_gz(path) as f:
+        data = f.read()
+    fields = struct.unpack(f">{header_ints}i", data[:4 * header_ints])
+    if fields[0] != magic:
+        raise ValueError(f"{path}: bad idx magic {fields[0]:#x}, "
+                         f"expected {magic:#x}")
+    arr = np.frombuffer(data, np.uint8, offset=4 * header_ints)
+    return arr, fields[1:]
+
+
+def load_mnist(dir_path=None):
+    """Returns (train_x, train_y, val_x, val_y); images uint8
+    (N, 1, 28, 28). Reads the standard IDX files, gzipped or plain."""
+    def find(stem):
+        return _resolve(dir_path, [stem + ".gz", stem,
+                                   os.path.join("mnist", stem + ".gz"),
+                                   os.path.join("mnist", stem)],
+                        f"MNIST ({stem})", stem + ".gz")
+
+    out = []
+    for stem_x, stem_y in [("train-images-idx3-ubyte",
+                            "train-labels-idx1-ubyte"),
+                           ("t10k-images-idx3-ubyte",
+                            "t10k-labels-idx1-ubyte")]:
+        xs, (n, rows, cols) = _read_idx(find(stem_x), 2051, 4)
+        ys, (ny,) = _read_idx(find(stem_y), 2049, 2)
+        if n != ny:
+            raise ValueError(f"MNIST image/label count mismatch {n}/{ny}")
+        out += [xs.reshape(n, 1, rows, cols), ys.astype(np.int32)]
+    return tuple(out)
+
+
 def normalize_cifar(*arrays, mean=CIFAR10_MEAN, std=CIFAR10_STD):
     """uint8/float NCHW -> per-channel standardized float32."""
     out = []
@@ -132,10 +189,11 @@ def resize_batch(x, image_size, as_numpy=False, device="cpu"):
 
 
 def load(name, dir_path=None):
-    """Dispatch by dataset name: ``'cifar10'``."""
-    if name == "cifar10":
-        return load_cifar10(dir_path)
-    if name in ("cifar100", "mnist"):
-        raise NotImplementedError(
-            f"the {name} loader is not ported yet (ROADMAP); use cifar10")
-    raise ValueError(f"unknown dataset '{name}' (expected 'cifar10')")
+    """Dispatch by dataset name: ``'cifar10'``, ``'cifar100'`` or
+    ``'mnist'``."""
+    table = {"cifar10": load_cifar10, "cifar100": load_cifar100,
+             "mnist": load_mnist}
+    if name not in table:
+        raise ValueError(f"unknown dataset '{name}' "
+                         f"(expected one of {sorted(table)})")
+    return table[name](dir_path)

@@ -1,30 +1,47 @@
 #!/usr/bin/env python3
-"""Train ResNet-50 with the PyTorch/CUDA port, on synthetic data or
-CIFAR-10.
+"""Train a CNN-family model with the PyTorch/CUDA port, on synthetic data,
+CIFAR-10/100 or MNIST.
 
-    python3 singa_tpu_torch/examples/train_cnn.py resnet synthetic --fused-optim
-    python3 singa_tpu_torch/examples/train_cnn.py resnet cifar10 --data-dir DIR
+    python3 singa_tpu_torch/examples/train_cnn.py
+        [cnn|alexnet|resnet|xceptionnet|mlp]
+        [cifar10|cifar100|mnist|synthetic] [--data-dir DIR]
+        [--npz path.npz] [--bs 64] [--epochs 10] [--lr 0.05]
+        [-p float32|bfloat16|bf16_mixed] [--layout auto|NCHW|NHWC]
+        [--stem conv7|space_to_depth] [--fused-optim] [--cpu]
 
-The ``resnet`` / ``synthetic|cifar10`` subset of ``examples/train_cnn.py``
-with the same SGD settings (``lr``, momentum 0.9, weight decay 1e-5,
-``fused=--fused-optim``, which sends the update through the optimizer
-kernel: K1's multi-tensor launch),
-the same epoch loop (shuffle, batched crop/flip augmentation for CIFAR-10,
-training loss and accuracy, then evaluation accuracy per epoch) and the
-same synthetic data (``--iters`` batches of N(0, 1) images at 224 px,
-seed 0). It runs on the card unless ``--cpu`` is given. CIFAR-10 is read
-from ``--data-dir`` (or ``data/`` of this checkout); nothing is
-downloaded. ``--layout auto`` of the JAX example reads a TPU A/B result,
-so the default here is NCHW.
+The single-device behaviour of ``examples/train_cnn.py``: the same models
+(``cnn`` by default), datasets and normalisation (CIFAR standardised per
+channel and augmented by batched crop/flip, MNIST scaled to [0, 1]),
+``--npz`` (arrays ``x`` and ``y``, the last tenth held out), the same
+synthetic shapes (``--iters`` batches of N(0, 1) images, seed 0: 1x28x28
+for ``cnn`` and ``mlp``, 3x224 for ``alexnet`` and ``resnet``, 3x299 for
+``xceptionnet``; ``mlp`` takes them flattened), the same SGD settings
+(``lr``, momentum 0.9, weight decay 1e-5, ``fused=--fused-optim``, which
+sends the update through the optimizer kernel: K1's multi-tensor launch)
+and the same epoch loop (shuffle, training loss and accuracy, then
+evaluation accuracy per epoch). The train step is compiled in graph mode
+(``use_graph=True``): on the card each step after the first two replays a
+CUDA graph. It runs on the card unless ``--cpu`` is given. Datasets are
+read from ``--data-dir`` (or ``data/`` of this checkout); nothing is
+downloaded.
 
-``-p bf16_mixed`` compiles the model under the mixed-precision policy
-(``Model.compile(policy="bf16_mixed")``): f32 master weights, bf16
-convolutions and products, and dynamic loss scaling through
-``resilience.GuardedOptimizer``, which skips a bad step on the card.
+Precision: ``-p bf16_mixed`` compiles the model under the mixed-precision
+policy (f32 master weights, bf16 convolutions and products, dynamic loss
+scaling through ``resilience.GuardedOptimizer``); ``-p bfloat16`` is the
+JAX example's pure-bf16 path: the input is cast to bf16, the conv and
+linear parameters follow its dtype, and no policy is set. ``--stem``
+picks ResNet's 7x7/s2 stem conv or its exact space-to-depth form.
+``--layout auto`` runs the JAX package's measured A/B winner there; no
+such A/B exists on this card, so it runs NCHW, the default.
 
-Not ported yet, each refused with a pointer to ROADMAP.md: the other
-models, ``-p bfloat16`` (the JAX example's pure-bf16 input cast),
-``--dist`` / ``--mesh`` (data-parallel training) and ``--resilient``.
+Refused, each naming ROADMAP.md: ``--dist``, ``--mesh``, ``--fsdp``,
+``--bucket-mb``, ``--no-overlap`` (data-parallel training, slice B);
+``--resilient``, ``--ckpt-dir``, ``--save-every``, ``--profile-every``,
+``--anomaly-factor`` (the fault-tolerant driver, slice E) and
+``--telemetry`` (observability, slice E). ``--dist-option`` and
+``--spars`` only shape ``--dist`` runs, and ``--verbosity`` only the JAX
+package's per-op timing, which the port does not record; they are
+accepted and do nothing here, as in the JAX example without ``--dist``.
 """
 
 import argparse
@@ -37,12 +54,29 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
 
+MODELS = ("cnn", "alexnet", "resnet", "xceptionnet", "mlp")
+DATASETS = ("cifar10", "cifar100", "mnist", "synthetic")
+SYNTHETIC = {"cnn": (1, 28), "mlp": (1, 28), "alexnet": (3, 224),
+             "resnet": (3, 224), "xceptionnet": (3, 299)}
+# flags refused with the part of ROADMAP.md that would port them
+REFUSED = {
+    "dist": "--dist", "mesh": "--mesh", "fsdp": "--fsdp",
+    "bucket_mb": "--bucket-mb", "no_overlap": "--no-overlap",
+    "resilient": "--resilient", "ckpt_dir": "--ckpt-dir",
+    "save_every": "--save-every", "profile_every": "--profile-every",
+    "anomaly_factor": "--anomaly-factor", "telemetry": "--telemetry"}
+SLICE_B = ("dist", "mesh", "fsdp", "bucket_mb", "no_overlap")
+OBSERVABILITY = ("telemetry",)
+
 
 def build_parser():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("model", nargs="?", default="resnet")
-    ap.add_argument("data", nargs="?", default="synthetic")
+    ap.add_argument("model", nargs="?", default="cnn", choices=MODELS)
+    ap.add_argument("data", nargs="?", default="synthetic",
+                    choices=DATASETS)
     ap.add_argument("--data-dir", default=None)
+    ap.add_argument("--npz", default=None,
+                    help="npz with arrays x, y (overrides the data arg)")
     ap.add_argument("--bs", "-b", type=int, default=64)
     ap.add_argument("--epochs", "-m", type=int, default=10)
     ap.add_argument("--iters", type=int, default=20,
@@ -51,38 +85,84 @@ def build_parser():
                     help="cap the train batches per epoch (0: all)")
     ap.add_argument("--lr", "-l", type=float, default=0.05)
     ap.add_argument("-p", "--precision", default="float32",
-                    help="float32, or bf16_mixed: f32 masters, bf16 compute, "
-                         "dynamic loss scaling")
+                    choices=["float32", "bfloat16", "bf16_mixed"],
+                    help="bf16_mixed: f32 masters, bf16 compute, dynamic "
+                         "loss scaling; bfloat16: the pure-bf16 input "
+                         "cast, parameters follow the input dtype")
     ap.add_argument("--fused-optim", action="store_true",
                     help="update the parameters through the optimizer "
                          "kernel (K1's multi-tensor launch)")
-    ap.add_argument("--layout", default="NCHW", choices=("NCHW", "NHWC"))
+    ap.add_argument("--layout", default="NCHW",
+                    choices=["auto", "NCHW", "NHWC"],
+                    help="resnet's conv-trunk activation layout")
+    ap.add_argument("--stem", default="conv7",
+                    choices=["conv7", "space_to_depth"],
+                    help="resnet stem: the 7x7/s2 conv or its exact "
+                         "space-to-depth reformulation")
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--no-augment", action="store_true")
+    ap.add_argument("--verbosity", "-v", type=int, default=0)
+    ap.add_argument("--dist-option", default="plain")
+    ap.add_argument("--spars", type=float, default=0.05)
     ap.add_argument("--dist", action="store_true")
-    ap.add_argument("--mesh", default=None)
+    ap.add_argument("--mesh", default=None, metavar="DxM")
+    ap.add_argument("--fsdp", action="store_true")
+    ap.add_argument("--bucket-mb", default=None)
+    ap.add_argument("--no-overlap", action="store_true")
+    ap.add_argument("--telemetry", default=None, metavar="DIR")
     ap.add_argument("--resilient", action="store_true")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--save-every", type=int, default=None)
+    ap.add_argument("--profile-every", type=int, default=None)
+    ap.add_argument("--anomaly-factor", type=float, default=None)
     return ap
 
 
 def _refuse(args):
-    """What this example does not do yet, each naming ROADMAP.md."""
-    if args.model != "resnet":
-        return f"model {args.model!r} is not ported yet (ROADMAP.md); " \
-            "use resnet"
-    if args.data not in ("synthetic", "cifar10"):
-        return f"dataset {args.data!r} is not ported yet (ROADMAP.md); " \
-            "use synthetic or cifar10"
-    if args.precision not in ("float32", "bf16_mixed"):
-        return f"-p {args.precision} training is not ported yet " \
-            "(ROADMAP.md); use -p float32 or -p bf16_mixed"
-    if args.dist or args.mesh:
-        return "--dist/--mesh: data-parallel training is not ported yet " \
-            "(ROADMAP.md: slice B)"
-    if args.resilient:
-        return "--resilient: the fault-tolerant driver is not ported yet " \
-            "(ROADMAP.md)"
-    return None
+    """The flags this example does not take yet, each naming ROADMAP.md;
+    None when every flag given is ported."""
+    given = [k for k in REFUSED
+             if getattr(args, k) not in (None, False)]
+    if not given:
+        return None
+    k = given[0]
+    if k in SLICE_B:
+        why = "data-parallel training is not ported yet (ROADMAP.md: " \
+            "slice B)"
+    elif k in OBSERVABILITY:
+        why = "run telemetry is not ported yet (ROADMAP.md: slice E, " \
+            "observability)"
+    else:
+        why = "the fault-tolerant driver is not ported yet (ROADMAP.md: " \
+            "slice E, resilience)"
+    return f"{REFUSED[k]}: {why}"
+
+
+def load_data(args):
+    """(train_x, train_y, val_x, val_y, num_classes, augment) as the JAX
+    example makes them."""
+    from singa_tpu_torch import datasets
+    if args.npz:
+        blob = np.load(args.npz)
+        x, y = blob["x"].astype(np.float32), blob["y"].astype(np.int32)
+        n_val = max(1, len(x) // 10)
+        return (x[:-n_val], y[:-n_val], x[-n_val:], y[-n_val:],
+                int(y.max()) + 1, False)
+    if args.data == "synthetic":
+        chans, size = SYNTHETIC[args.model]
+        rng = np.random.RandomState(0)
+        n = args.bs * args.iters
+        train_x = rng.randn(n, chans, size, size).astype(np.float32)
+        train_y = rng.randint(0, 10, n).astype(np.int32)
+        return train_x, train_y, train_x[:args.bs], train_y[:args.bs], \
+            10, False
+    train_x, train_y, val_x, val_y = datasets.load(args.data, args.data_dir)
+    if args.data.startswith("cifar"):
+        train_x, val_x = datasets.normalize_cifar(train_x, val_x)
+        return train_x, train_y, val_x, val_y, \
+            100 if args.data == "cifar100" else 10, not args.no_augment
+    return (np.asarray(train_x, np.float32) / 255.0, train_y,
+            np.asarray(val_x, np.float32) / 255.0, val_y, 10, False)
 
 
 def main(argv=None):
@@ -91,39 +171,50 @@ def main(argv=None):
     if refused:
         raise SystemExit(refused)
 
-    from singa_tpu_torch import datasets, device, metric, opt, tensor
-    from singa_tpu_torch.models import resnet
+    from singa_tpu_torch import datasets, device, metric, models, opt, \
+        tensor
 
     dev = device.create_cpu_device() if args.cpu \
         else device.create_cuda_gpu(0)
     dev.SetRandSeed(0)
     print(f"device: {dev.torch_device}", flush=True)
 
-    num_classes, augment = 10, False
-    if args.data == "synthetic":
-        rng = np.random.RandomState(0)
-        n = args.bs * args.iters
-        train_x = rng.randn(n, 3, 224, 224).astype(np.float32)
-        train_y = rng.randint(0, 10, n).astype(np.int32)
-        val_x, val_y = train_x[:args.bs], train_y[:args.bs]
+    train_x, train_y, val_x, val_y, num_classes, augment = load_data(args)
+    factory = getattr(models, args.model)
+    if args.model == "mlp":
+        train_x = train_x.reshape(len(train_x), -1)
+        val_x = val_x.reshape(len(val_x), -1)
+        model = factory.create_model(data_size=train_x.shape[1],
+                                     num_classes=num_classes)
+        augment = False
     else:
-        train_x, train_y, val_x, val_y = datasets.load(args.data,
-                                                       args.data_dir)
-        train_x, val_x = datasets.normalize_cifar(train_x, val_x)
-        augment = not args.no_augment
-
-    model = resnet.create_model(num_channels=train_x.shape[1],
-                                num_classes=num_classes, layout=args.layout)
+        kw = {}
+        if args.model == "resnet":
+            layout = args.layout
+            if layout == "auto":
+                layout = "NCHW"
+                print("conv layout: NCHW (no layout A/B measured on this "
+                      "card)", flush=True)
+            kw = {"layout": layout, "stem": args.stem}
+        model = factory.create_model(num_channels=train_x.shape[1],
+                                     num_classes=num_classes, **kw)
     model.set_optimizer(opt.SGD(lr=args.lr, momentum=0.9,
                                 weight_decay=1e-5, fused=args.fused_optim))
-    need_resize = train_x.shape[-1] != model.input_size
+    input_size = getattr(model, "input_size", None)
+    need_resize = (getattr(model, "dimension", 4) == 4
+                   and input_size is not None
+                   and train_x.shape[-1] != input_size)
 
     def stage(x):
         if need_resize:
-            return tensor.Tensor(data=datasets.resize_batch(
-                x, model.input_size, device=dev), device=dev)
-        return tensor.Tensor(data=np.ascontiguousarray(x, np.float32),
-                             device=dev)
+            t = tensor.Tensor(data=datasets.resize_batch(
+                x, input_size, device=dev), device=dev)
+        else:
+            t = tensor.Tensor(data=np.ascontiguousarray(x, np.float32),
+                              device=dev)
+        # pure bf16: the parameters follow the input's dtype
+        return t.as_type("bfloat16") if args.precision == "bfloat16" \
+            else t
 
     model.compile([stage(train_x[:args.bs])], is_train=True, use_graph=True,
                   policy="bf16_mixed" if args.precision == "bf16_mixed"

@@ -2,8 +2,9 @@
 state names.
 
 Counterpart of the CNN and LM subset of ``singa_tpu/layer.py``: ``Layer``,
-``Conv2d``, ``BatchNorm2d`` (training and inference), ``ReLU``,
-``MaxPool2d``, ``AvgPool2d``, ``Add``, ``Flatten``, ``Linear``,
+``Conv2d``, ``SeparableConv2d`` (``:404``), ``BatchNorm2d`` (training
+and inference), ``ReLU``, ``MaxPool2d``, ``AvgPool2d``, ``Add``,
+``Flatten``, ``Dropout`` (``:790``), ``Linear``,
 ``Embedding`` (``:257``), ``LayerNorm`` (``:501``) and the losses
 ``SoftMaxCrossEntropy`` and ``CrossEntropy``, with the same constructor
 arguments
@@ -301,6 +302,61 @@ class Conv2d(Layer):
         return p
 
 
+class SeparableConv2d(Layer):
+    """Depthwise conv (``group`` = input channels) then a 1x1 pointwise
+    conv. The two convs are named ``<name>.depthwise`` and
+    ``<name>.pointwise`` at the first call, and the layer's states are
+    theirs under those names, as in the JAX package."""
+
+    def __init__(self, nb_kernels, kernel_size, *args, stride=1, padding=0,
+                 bias=False):
+        super().__init__()
+        # legacy form SeparableConv2d(in_ch, nb_kernels, k[, stride[, pad]])
+        if len(args) > 0:
+            nb_kernels = kernel_size
+            kernel_size = args[0]
+        if len(args) > 1:
+            stride = args[1]
+        if len(args) > 2:
+            padding = args[2]
+        self.depthwise = None
+        self.pointwise = None
+        self.nb_kernels = nb_kernels
+        self.kernel_size = kernel_size
+        self.stride = stride
+        self.padding = padding
+        self.bias = bias
+
+    def initialize(self, x):
+        from .ops.layout import channel_axis
+        in_channels = x.shape[channel_axis(len(x.shape))]
+        self.depthwise = Conv2d(in_channels, self.kernel_size,
+                                stride=self.stride, padding=self.padding,
+                                group=in_channels, bias=self.bias)
+        self.pointwise = Conv2d(self.nb_kernels, 1, bias=self.bias)
+        self.depthwise.name = f"{self.name}{self.sep}depthwise"
+        self.pointwise.name = f"{self.name}{self.sep}pointwise"
+
+    def forward(self, x):
+        return self.pointwise(self.depthwise(x))
+
+    def _convs(self):
+        return [c for c in (self.depthwise, self.pointwise) if c is not None]
+
+    def get_params(self):
+        out = {}
+        for sub in self._convs():
+            out.update(sub.get_params())
+        return out
+
+    def get_states(self):
+        return self.get_params()
+
+    def set_states(self, states):
+        for sub in self._convs():
+            sub.set_states(states)
+
+
 class BatchNorm2d(Layer):
     """BN over the channel axis: batch statistics and a running-stat
     update in training, the running statistics in inference."""
@@ -377,6 +433,18 @@ class ReLU(Layer):
 class Add(Layer):
     def forward(self, a, b):
         return autograd.add(a, b)
+
+
+class Dropout(Layer):
+    """:func:`~.autograd.dropout` at ``ratio``: the identity outside
+    training."""
+
+    def __init__(self, ratio=0.5):
+        super().__init__()
+        self.ratio = ratio
+
+    def forward(self, x):
+        return autograd.dropout(x, self.ratio)
 
 
 class Flatten(Layer):

@@ -1,5 +1,6 @@
-"""Model zoo of the port (counterpart of ``singa_tpu/models``): the ResNet
-family and the Transformer LM.
+"""Model zoo of the port (counterpart of ``singa_tpu/models``): the MLP,
+the LeNet-style CNN, AlexNet, the ResNet family, Xception and the
+Transformer LM.
 
 :class:`TrainStepMixin` is the shared ``dist_option`` dispatch of
 ``train_one_batch`` (``singa_tpu/models/__init__.py:12-44``). Only
@@ -25,4 +26,5 @@ class TrainStepMixin:
             raise ValueError(f"unknown dist_option {dist_option!r}")
 
 
-from . import resnet, transformer  # noqa: F401,E402
+from . import (mlp, cnn, alexnet, resnet, xceptionnet,  # noqa: F401,E402
+               transformer)

@@ -6,7 +6,9 @@ the JAX package, and the same ``train_one_batch`` (forward, softmax cross
 entropy, optimizer). ResNet-50 at 224 px is the flagship model. The
 ``layout=`` knob keeps both trunks: ``"NHWC"`` transposes once at the stem
 and runs the trunk on logical channels-last tensors. ``stem=
-"space_to_depth"`` is not ported yet (ROADMAP).
+"space_to_depth"`` runs the 7x7/s2 stem conv as its exact
+space-to-depth reformulation (``ops/conv.py``): the same weights and
+state names, 12 input channels at stride 1.
 """
 
 from .. import autograd, layer, model
@@ -90,15 +92,12 @@ class ResNet(model.Model, TrainStepMixin):
         self.input_size = 224
         self.dimension = 4
         self.layout = str(layout).upper()
-        if stem == "space_to_depth":
-            raise NotImplementedError(
-                "stem='space_to_depth' is not ported yet (ROADMAP: left "
-                "out of the serving slice); use stem='conv7'")
-        if stem != "conv7":
+        if stem not in ("conv7", "space_to_depth"):
             raise ValueError(f"stem must be 'conv7' or 'space_to_depth', "
                              f"got {stem!r}")
         self.inplanes = 64
-        self.conv1 = layer.Conv2d(64, 7, stride=2, padding=3, bias=False)
+        self.conv1 = layer.Conv2d(64, 7, stride=2, padding=3, bias=False,
+                                  space_to_depth=(stem == "space_to_depth"))
         self.bn1 = layer.BatchNorm2d()
         self.relu = layer.ReLU()
         self.maxpool = layer.MaxPool2d(kernel_size=3, stride=2, padding=1)

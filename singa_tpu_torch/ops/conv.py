@@ -11,11 +11,20 @@ input is handed to ``F.conv2d`` as a channels-last NCHW view
 (``permute``), and the output comes back as a contiguous logical NHWC
 tensor, which is what the NHWC epilogue kernel takes.
 
-The ``space_to_depth`` stem is not ported yet (ROADMAP).
+``space_to_depth=True`` (``singa_tpu/ops/conv.py:113-168``) runs a KxK
+stride-2 stem conv as the same function of the same OIHW weights: one
+``F.conv2d`` at stride 1 on the space-to-depth'd input (4x the channels,
+half the height and width) with a re-indexed kernel. The re-index is one
+gather from the OIHW weights, so gradients land on ``W`` and checkpoints
+do not change; its index table is built once per handle and device, on
+the device, at the first (eager) call, so a CUDA-graph capture copies
+nothing from the host.
 """
 
 from __future__ import annotations
 
+import numpy as np
+import torch
 import torch.nn.functional as F
 
 from ..mixed_precision import cast_compute
@@ -45,10 +54,6 @@ class ConvHandle:
                  out_channels, bias=True, group=1, pad_mode=None,
                  dilation=1, layout=None, space_to_depth=False):
         from .layout import resolve as _resolve_layout
-        if space_to_depth:
-            raise NotImplementedError(
-                "the space_to_depth stem is not ported yet (ROADMAP: left "
-                "out of the serving slice); use stem='conv7'")
         self.kernel_size = _pair(kernel_size)
         self.stride = _pair(stride)
         self.dilation = _pair(dilation)
@@ -73,6 +78,22 @@ class ConvHandle:
                 self.height, self.width = int(xs[1]), int(xs[2])
             else:
                 self.height, self.width = int(xs[2]), int(xs[3])
+        self.space_to_depth = bool(space_to_depth)
+        self._s2d_index = {}    # torch device -> gather index on it
+        if self.space_to_depth:
+            kh, kw = self.kernel_size
+            (p0, p1), (q0, q1) = self.padding
+            if (self.stride != (2, 2) or kh != kw or p0 != p1
+                    or q0 != q1 or p0 != q0 or 2 * p0 != kh - 1
+                    or self.group != 1 or self.dilation != (1, 1)
+                    or self.pad_mode
+                    or (getattr(self, "height", 0) and self.height % 2)
+                    or (getattr(self, "width", 0) and self.width % 2)):
+                raise ValueError(
+                    "space_to_depth stem requires stride 2, square odd "
+                    "kernel with pad = (K-1)/2, group 1, no dilation, "
+                    "and even spatial dims (the 7x7/s2 ResNet stem "
+                    "shape)")
 
     def pads(self, h, w):
         """((top, bottom), (left, right)) for an (h, w) input."""
@@ -87,12 +108,75 @@ class ConvHandle:
         return self.padding
 
 
+def _s2d_geometry(K, P):
+    """Tap decomposition of a stride-2 conv axis: kernel position p maps
+    to block offset t and parity a via p - P = 2t + a. Returns
+    (t_min, t_max): the transformed kernel spans t_max - t_min + 1."""
+    qs = [p - P for p in range(K)]
+    ts = [(q - (q % 2)) // 2 for q in qs]
+    return min(ts), max(ts)
+
+
+def _s2d_gather_index(handle):
+    """numpy table ``idx`` of the weight re-index: the transformed kernel
+    ``W4[o].ravel()`` (shape (4C, Kp, Kp), channel ``c*4 + ah*2 + aw``) is
+    ``Wpad[o, idx]`` with ``Wpad[o] = [W[o].ravel(), 0]``: each tap
+    ``W[o, c, p_h, p_w]`` lands at ``(c*4 + ah*2 + aw, th - t_min, tw -
+    t_min)`` with ``p - P = 2t + a``; a position no tap reaches reads the
+    appended zero."""
+    K, _ = handle.kernel_size
+    (P, _), _ = handle.padding
+    C = handle.in_channels
+    t_min, t_max = _s2d_geometry(K, P)
+    Kp = t_max - t_min + 1
+    idx = np.full((C * 4, Kp, Kp), C * K * K, np.int64)
+    c_i, ph_i, pw_i = np.meshgrid(np.arange(C), np.arange(K), np.arange(K),
+                                  indexing="ij")
+    qh, qw = ph_i - P, pw_i - P
+    ah, aw = qh % 2, qw % 2
+    th, tw = (qh - ah) // 2, (qw - aw) // 2
+    idx[c_i * 4 + ah * 2 + aw, th - t_min, tw - t_min] = \
+        (c_i * K + ph_i) * K + pw_i
+    return idx.ravel(), Kp, -t_min, t_max
+
+
+def _space_to_depth_conv(h, xa, wa, ba):
+    """The stem conv of ``h`` on logical-layout input ``xa`` as one
+    stride-1 ``F.conv2d`` of the space-to-depth'd input (NCHW out)."""
+    dev = wa.device
+    entry = h._s2d_index.get(dev)
+    if entry is None:
+        idx, Kp, lo, hi = _s2d_gather_index(h)
+        entry = h._s2d_index[dev] = (torch.from_numpy(idx).to(dev), Kp,
+                                     lo, hi)
+    idx, Kp, lo, hi = entry
+    O, C = wa.shape[0], h.in_channels
+    wflat = F.pad(wa.reshape(O, -1), (0, 1))
+    w4 = wflat[:, idx].reshape(O, C * 4, Kp, Kp)
+    if h.layout == "NHWC":
+        N, H, Wd, _ = xa.shape
+        xb = xa.reshape(N, H // 2, 2, Wd // 2, 2, C) \
+            .permute(0, 1, 3, 5, 2, 4).reshape(N, H // 2, Wd // 2, C * 4) \
+            .permute(0, 3, 1, 2)
+    else:
+        N, _, H, Wd = xa.shape
+        xb = xa.reshape(N, C, H // 2, 2, Wd // 2, 2) \
+            .permute(0, 1, 3, 5, 2, 4).reshape(N, C * 4, H // 2, Wd // 2)
+    xb = F.pad(xb, (lo, hi, lo, hi))
+    return F.conv2d(xb, w4, ba)
+
+
 def conv2d(handle: ConvHandle, x, W, b=None):
     """Conv of Tensor ``x`` with OIHW ``W`` (+ bias) under the active
     precision policy; returns a Tensor in the (cast) input's dtype."""
     h = handle
     xa, wa, ba = cast_compute(x.data, W.data,
                               b.data if b is not None else None)
+    if h.space_to_depth:
+        y = _space_to_depth_conv(h, xa, wa, ba)
+        if h.layout == "NHWC":
+            y = y.permute(0, 2, 3, 1)
+        return Tensor(data=y.contiguous(), device=x.device)
     if h.layout == "NHWC":
         xa = xa.permute(0, 3, 1, 2)
     (p0, p1), (q0, q1) = h.pads(xa.shape[2], xa.shape[3])

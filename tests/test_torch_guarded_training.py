@@ -773,5 +773,9 @@ def test_train_cnn_example_trains_under_bf16_mixed(monkeypatch, capsys,
         stats["skipped_total"]
     for k, t in model.get_states().items():
         assert t.dtype == torch.float32, k
+    # -p bfloat16 (the pure-bf16 input cast) is ported now; the guarded
+    # resilient driver is not
+    assert example._refuse(example.build_parser().parse_args(
+        ["resnet", "-p", "bfloat16", "--cpu"])) is None
     with pytest.raises(SystemExit, match="ROADMAP"):
-        example.main(["resnet", "-p", "bfloat16", "--cpu"])
+        example.main(["resnet", "-p", "bf16_mixed", "--resilient", "--cpu"])

@@ -23,11 +23,13 @@ def _forbidden(name):
 
 def _sources():
     files = sorted(PKG.rglob("*.py"))
-    assert len(files) >= 21
+    assert len(files) >= 25
     names = {str(f.relative_to(PKG)) for f in files}
     assert {"ops/attention.py", "ops/losses.py",
             "parallel/tensor_parallel.py", "models/transformer.py",
-            "examples/train_transformer.py"} <= names
+            "examples/train_transformer.py", "models/mlp.py",
+            "models/cnn.py", "models/alexnet.py",
+            "models/xceptionnet.py"} <= names
     return files
 
 
@@ -56,6 +58,8 @@ def test_importing_the_port_loads_no_jax():
         "from singa_tpu_torch.ops import fused_optim, attention, losses\n"
         "from singa_tpu_torch.parallel import tensor_parallel\n"
         "from singa_tpu_torch.models import transformer\n"
+        "from singa_tpu_torch.models import mlp, cnn, alexnet, "
+        "xceptionnet\n"
         "import runpy\n"
         "for ex in ('train_cnn', 'train_transformer'):\n"
         "    runpy.run_path(f'singa_tpu_torch/examples/{ex}.py',"

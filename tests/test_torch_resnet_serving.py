@@ -213,12 +213,15 @@ def test_port_save_load_round_trip(tmp_path):
 
 
 def test_space_to_depth_stem_and_training_bn_are_not_ported():
-    """The space_to_depth stem is still refused. Training-mode BN is
-    ported now: a train-mode forward normalises by batch statistics into
-    an ordinary (not lazy) tensor and moves the running statistics."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tresnet.ResNet(tresnet.Bottleneck, [1, 1, 1, 1],
-                       stem="space_to_depth")
+    """Both are ported now. The space_to_depth stem builds (its tests are
+    ``tests/test_torch_space_to_depth.py``) and an unknown stem raises.
+    A train-mode forward normalises by batch statistics into an ordinary
+    (not lazy) tensor and moves the running statistics."""
+    s2d = tresnet.ResNet(tresnet.Bottleneck, [1, 1, 1, 1],
+                         stem="space_to_depth")
+    assert s2d.conv1.space_to_depth
+    with pytest.raises(ValueError, match="stem must be"):
+        tresnet.ResNet(tresnet.Bottleneck, [1, 1, 1, 1], stem="conv5")
     m, eng = _port_engine("basic", "NCHW")
     dev = tdevice.create_cpu_device()
     from singa_tpu_torch.tensor import Tensor

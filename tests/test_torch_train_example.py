@@ -63,10 +63,13 @@ def test_cifar10_training_runs(example, capsys, tmp_path):
                                   ["resnet", "--mesh", "2x1"],
                                   ["resnet", "--resilient"]], ids=str)
 def test_what_is_not_ported_names_the_roadmap(example, argv):
-    """Each case is refused naming ROADMAP.md, except ``-p bf16_mixed``,
-    which is ported now: ``_refuse`` lets it through (its training run is
-    ``test_bf16_mixed_cifar10_training_runs``)."""
-    if argv == ["resnet", "-p", "bf16_mixed"]:
+    """Each case is refused naming ROADMAP.md, except those ported since:
+    ``-p bf16_mixed``, the ``cnn`` model and the ``mnist`` dataset, which
+    ``_refuse`` lets through (their runs are
+    ``test_bf16_mixed_cifar10_training_runs`` and
+    ``tests/test_torch_cnn_example.py``)."""
+    if argv in (["cnn"], ["resnet", "mnist"],
+                ["resnet", "-p", "bf16_mixed"]):
         assert example._refuse(example.build_parser().parse_args(
             argv + ["--cpu"])) is None
         return
