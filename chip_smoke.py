@@ -190,7 +190,37 @@ failure exits nonzero:
    then ResNet-50 b32 with each stem, NCHW and NHWC, f32 and bf16_mixed,
    12 graphed fused-SGD steps each from the same start (one capture, the
    first losses agreeing), the two stems timed in 3 alternating rounds of
-   4 steps: step p50/p99, img/s, peak memory above the start.
+   4 steps: step p50/p99, img/s, peak memory above the start;
+17. dist: (a) ResNet-50 b32 through ``opt.DistOpt`` (the SGD of phase 6,
+   fused) over NCCL at world 1 on the card, graphed (the collectives
+   captured with the step), 6 steps from the training phases' start,
+   cuDNN deterministic, in nine cases, each bitwise (losses and every
+   state) with the same graphed steps through its plain version: per
+   gradient and in 25 MiB buckets against the plain SGD; under
+   bf16_mixed (the guard over the DistOpt, step 6 poisoned, a no-op under
+   replay), per gradient and bucketed, against the guarded SGD with each
+   gradient rounded through bf16 (the wire's plain version); ``half``
+   against SGD fed ``g.to(bfloat16).float()``; ``partialUpdate`` with
+   rotation 0 and traced against the plain SGD; ``sparseTopK`` (0.05)
+   and ``sparseThreshold`` (1e-3) against the same error-feedback
+   sparsification in plain PyTorch (the top-k cut from a sort), the
+   residuals included; one capture and K1-multi's launches at the eager
+   call and the capture only; the collectives each step starts (host
+   calls), and for the per-gradient and bucketed cases the NCCL kernels
+   and K1-multi's launches in the trace of 3 replays and the step p50
+   against the plain SGD's in 5 alternating rounds; (b) two processes of
+   this script (``--dist-rank``) on the one card joined over gloo (NCCL
+   refuses two ranks on one device), eager, each on its half of every
+   batch: the CNN (b64) under all six options, the replicas' fingerprints
+   bitwise equal after every step (under partialUpdate unequal after the
+   first, by design) and the losses equal on the ranks; graph mode over
+   gloo refused; ResNet-50 b32 (16 a rank, sync-BN, lr 1e-3) 3 steps,
+   the ranks bitwise equal; in f32 the first loss and every state after
+   the first step within ``tests/test_torch_resnet_training.py``'s
+   bounds of one rank's whole-batch run here (f32 summation-order noise
+   grows past them over later steps), and the same 3 steps with every
+   state and the batch in f64, each loss and state within 1e-9 of the
+   f64 whole-batch run's.
 
 Rows of kernels that a graph replays (K2, K1-multi with and without the
 flag, K5-multi with the flag, K3/K4) carry ``replays`` and
@@ -199,7 +229,8 @@ replayed run (K1, K5, K3 and K4 with ``replayed_launches``, the count in
 that trace; K2's ``launches`` are its count). K1-multi's row and K2's
 NCHW rows also carry ``other_paths_launches_per_replay``: the launches
 per replayed step of each phase-13/14 model and per replayed Xception
-tick. Its last lines are the ``{"kernels": [...]}`` record, the
+tick, and the launches per replayed step of phase 17's DistOpt runs.
+Its last lines are the ``{"kernels": [...]}`` record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``. In
 that record ``ms`` and ``plain_ms`` are CUDA-event times of one call,
 host work included; a flash kernel's ``library_ms`` is the device time
@@ -399,6 +430,41 @@ S2D_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 S2D_STEPS = 12
 S2D_ROUNDS = 3
 S2D_ROUND_STEPS = 4
+# data parallelism: ResNet-50 b32 through DistOpt over NCCL at world 1,
+# graphed, DIST_STEPS steps per case (step POISON_STEP poisoned under
+# bf16_mixed) against the same steps without it; the sparse drivers'
+# share and threshold; the buckets' size target
+DIST_STEPS = 6
+DIST_SPARS = {"sparseTopK": 0.05, "sparseThreshold": 1e-3}
+DIST_BUCKET_MB = 25
+# then DIST_RANKS gloo ranks on the one card (NCCL refuses two ranks on
+# one device), eager: the CNN, one input's shape, global batch and steps,
+# under each option; ResNet-50's global batch and steps, with sync-BN
+DIST_RANKS = 2
+DIST_OPTIONS = ("plain", "half", "fp16", "partialUpdate", "sparseTopK",
+                "sparseThreshold")
+DIST_CNN = ((1, 28, 28), 64, 3)
+DIST_RESNET = (32, 3)
+# the gloo ranks' SGD learning rate: at 0.1 the seeded ResNet-50's loss
+# climbs 3.0 -> 22 -> 67 over its first steps, and two ranks' and one
+# rank's runs drift apart by 0.2-0.9% of the loss there (b32 on the
+# card); at 1e-3 it falls (PURE_BF16_LR)
+DIST_LR = 1e-3
+DIST_RANK_TIMEOUT_S = 300
+# two ranks' ResNet-50 against one rank's whole batch. A half batch sums
+# its convolutions and moments in another order, and the seeded ResNet-50
+# amplifies that in f32: two whole-batch runs that differ only in the
+# order of the batch's rows are 1.7% of a norm apart in BN momenta after
+# one step and up to 95% after three (b32, H100). So the f32 run is held
+# to tests/test_torch_resnet_training.py's bounds (the loss; each
+# parameter and running statistic, each momentum: |got - want| <= tol
+# |want|, Frobenius norms) after its first step, and the same
+# DIST_RESNET steps run again with every state and the batch in f64
+# (plain SGD), where the two agree to 1.7e-13 (H100): every loss and
+# state of that run is held within DIST_F64_TOL
+DIST_LOSS_RTOL, DIST_LOSS_ATOL = 1e-3, 1e-4
+DIST_STATE_TOL, DIST_MOMENTUM_TOL = 5e-3, 5e-2
+DIST_F64_TOL = 1e-9
 # why an optimizer case has no PyTorch call timed beside it
 # a port kernel's name in a profiler trace: ``<name>_kernel<template
 # arguments>``, in an anonymous namespace; the launch-counter keys that
@@ -1028,7 +1094,7 @@ def serve(model, dev, inputs, policy, fused, batch=BATCH, use_graph=True,
             before = eng.graph_stats()["n_replays"]
             out = serve_requests(eng, inputs)
             return out, eng.graph_stats()["n_replays"] - before
-        (logits, replays), counts, host, _, _ = profiled(
+        (logits, replays), counts, host, _, _, _ = profiled(
             counted, attempts, want, f"serve {lo} {policy or 'float32'} "
             f"fused={fused} graph={use_graph}")
         host_tails = fe.fused_tails
@@ -1194,15 +1260,29 @@ def train_run(model, optimizer, start, tx, ty, steps, kernel):
     return losses, times, mine, sum(counts.values()), update_ms
 
 
-def held_equal(a, b, what):
-    """Every state of model a (and of its optimizer) equals b's bitwise."""
+def same_bits(a, b):
+    """``a`` and ``b`` hold the same bits (a NaN equals the same NaN)."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a, b = (t.contiguous().view(ints[t.element_size()]) for t in (a, b))
+    return torch.equal(a, b)
+
+
+def held_equal(a, b, what, nan_ok=()):
+    """Every state of model a (and of its optimizer) equals b's bitwise;
+    the states named in ``nan_ok`` may hold the same NaN on both sides
+    (``same_bits``), every other state must be equal as numbers."""
     import torch
     sa, sb = a.get_states(), b.get_states()
     sa.update(a.optimizer.state_tensor_dict())
     sb.update(b.optimizer.state_tensor_dict())
     check(sorted(sa) == sorted(sb), f"{what}: state names differ")
+    same = {k: same_bits if k in nan_ok else torch.equal for k in sa}
     diff = {k: (sa[k].data.float() - sb[k].data.float()).abs().max().item()
-            for k in sa if not torch.equal(sa[k].data, sb[k].data)}
+            for k in sa if not same[k](sa[k].data, sb[k].data)}
     check(not diff, f"{what}: fused and unfused runs differ in "
           f"{len(diff)} of {len(sa)} states, e.g. "
           f"{sorted(diff.items(), key=lambda kv: -kv[1])[:3]}")
@@ -1505,14 +1585,15 @@ def guarded_run(model, optimizer, start, tx, bad_tx, ty):
 
 def timed_guard(guard):
     """Time the guard's own host work in each step (host clock, no
-    sync): the unscale and norm, the BN shadows and the bookkeeping, the
-    optimizer update not included. Returns the list the times (ms, one per
-    step) go to."""
+    sync): the loss check, the unscale and norm, the BN shadows and the
+    bookkeeping, the optimizer update not included. Returns the list the
+    times (ms, one per step) go to."""
     times = []
-    for name in ("_unscale", "_restore_shadows", "_bookkeeping"):
+    for name in ("_loss_ok", "_unscale", "_restore_shadows",
+                 "_bookkeeping"):
         real = getattr(guard, name)
 
-        def timed(*args, _real=real, _first=name == "_unscale"):
+        def timed(*args, _real=real, _first=name == "_loss_ok"):
             t0 = time.perf_counter()
             out = _real(*args)
             ms = (time.perf_counter() - t0) * 1e3
@@ -1766,8 +1847,9 @@ def profiled(fn, attempts, want, what):
     whose count is not ``want`` (a trace that misses some of a run's
     kernels is seen now and then on the card's machine) is run again, up
     to ``attempts`` sessions, then fails. Returns ``fn``'s result, the
-    trace's counts, the host counts, the device events (ms, count) and
-    the wall ms of the session."""
+    trace's counts, the host counts, the device events (ms, count), the
+    wall ms of the session and the device kernels whose name holds
+    "nccl" (NCCL's collectives), counted."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for attempt in range(attempts):
@@ -1782,18 +1864,19 @@ def profiled(fn, attempts, want, what):
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         host = host_launches()
-        counts, busy, ops = {}, 0.0, 0
+        counts, busy, ops, nccl = {}, 0.0, 0, 0
         for e in prof.events():
             if e.device_type != torch.autograd.DeviceType.CUDA \
                     or "spin_kernel" in e.name:
                 continue
             busy += e.time_range.elapsed_us() / 1e3
             ops += 1
+            nccl += "nccl" in e.name.lower()
             key = port_kernel(e.name)
             if key is not None:
                 counts[key] = counts.get(key, 0) + 1
         if counts == want:
-            return out, counts, host, (busy, ops), wall
+            return out, counts, host, (busy, ops), wall, nccl
         print(f"profiler session {attempt + 1} of {what} counted the "
               f"port's kernels {counts}, expected {want}", flush=True)
     raise SmokeFailure(f"{what}: no profiler session in {attempts} counted "
@@ -1807,7 +1890,7 @@ def traced(fn, calls, per_call, what, attempts=5):
     trace holds), device ops per call, the device's idle share, 1 - busy /
     wall, and the launches of the port's kernels counted in the trace,
     which must be ``per_call`` (``{key: n}``) times ``calls``, beside the
-    host counts of the same calls."""
+    host counts of the same calls, and NCCL's kernels in the trace."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -1816,11 +1899,12 @@ def traced(fn, calls, per_call, what, attempts=5):
         for _ in range(calls):
             fn()
     want = {k: n * calls for k, n in per_call.items() if n}
-    _, counts, host, (busy, ops), wall = profiled(run, attempts, want,
-                                                  what)
+    _, counts, host, (busy, ops), wall, nccl = profiled(run, attempts,
+                                                        want, what)
     return {"wall_ms": wall / calls, "busy_ms": busy / calls,
             "ops": ops / calls, "idle_share": 1.0 - busy / wall,
-            "calls": calls, "launches": counts, "host_launches": host}
+            "calls": calls, "launches": counts, "host_launches": host,
+            "nccl_launches": nccl}
 
 
 def alternating_rounds(runs, rounds, steps):
@@ -3580,6 +3664,562 @@ def s2d_phase(dev):
     return out
 
 
+def plain_driver(option, spars=None):
+    """The plain PyTorch version, at world 1, of the ``DistOpt`` driver
+    that ``option`` runs: :func:`graph_sgd` whose update first takes each
+    gradient as the driver hands it to the sum of one rank -- rounded
+    through bf16 (``"half"``), or plus its residual and sparsified
+    (``"sparseTopK"``: the ``spars`` share of largest |g|, the cut found
+    by a sort; ``"sparseThreshold"``: |g| >= ``spars``) with the rest kept
+    as the residual (``residual/<name>`` states) -- and as it is for
+    ``"plain"`` and ``"partialUpdate"`` (a world of one is every
+    partition)."""
+    import torch
+    from singa_tpu_torch import opt
+    from singa_tpu_torch.tensor import Tensor
+
+    class Plain(opt.SGD):
+        def __init__(self):
+            super().__init__(lr=0.1, momentum=0.9, weight_decay=1e-5,
+                             fused=True)
+            self.residuals = {}
+
+        def update_params(self, pairs, ok=None):
+            pairs = list(pairs)
+            with torch.no_grad():
+                for p, g in pairs:
+                    if option == "half":
+                        g.data = g.data.to(torch.bfloat16).float()
+                    elif option in DIST_SPARS:
+                        res = self.residuals.get(p.name)
+                        if res is None:
+                            res = self.residuals[p.name] = Tensor(
+                                shape=p.shape, device=p.device)
+                        acc = g.data + res.data
+                        mag = acc.abs()
+                        cut = spars
+                        if option == "sparseTopK":
+                            k = max(1, int(spars * mag.numel()))
+                            cut = mag.reshape(-1).sort(
+                                descending=True).values[k - 1]
+                        kept = torch.where(mag >= cut, acc, 0.0)
+                        res.data.copy_(acc - kept)
+                        g.data = kept
+            super().update_params(pairs, ok)
+
+        def state_tensor_dict(self):
+            d = super().state_tensor_dict()
+            d.update({f"residual/{k}": v
+                      for k, v in self.residuals.items()})
+            return d
+    return Plain()
+
+
+class wire_rounded:
+    """The plain version of a ``DistOpt``'s bf16 wire at world 1 (what the
+    guard over a ``DistOpt`` reduces under bf16_mixed): within it, every
+    gradient ``autograd_base.backward`` yields comes back rounded through
+    bf16 to f32, before the guard unscales it."""
+
+    def __enter__(self):
+        import torch
+        from singa_tpu_torch import autograd_base
+        self.real = real = autograd_base.backward
+
+        def backward(y, dy=None):
+            for p, g in real(y, dy):
+                g.data = g.data.to(torch.bfloat16).float()
+                yield p, g
+        autograd_base.backward = backward
+
+    def __exit__(self, *exc):
+        from singa_tpu_torch import autograd_base
+        autograd_base.backward = self.real
+
+
+def dist_sgd(opt, fused=True):
+    """The gloo ranks' SGD: :func:`graph_sgd`'s at ``DIST_LR``."""
+    return opt.SGD(lr=DIST_LR, momentum=0.9, weight_decay=1e-5,
+                   fused=fused)
+
+
+def as_float64(model):
+    """Every state of the compiled ``model`` in f64, the parameters still
+    parameters (the f64 witness of phase 17 (b))."""
+    from singa_tpu_torch.autograd_base import register_param
+    for t in model.get_states().values():
+        param = getattr(t.data, "_singa_param", None) is not None
+        t.data = t.data.detach().double()
+        if param:
+            register_param(t)
+    return model
+
+
+def resnet_steps(model, optimizer, start, tx, ty, steps, dtype):
+    """``steps`` eager train calls of ResNet-50 ``model`` with
+    ``optimizer`` from ``start``, every state cast to ``dtype``, on
+    ``tx``/``ty`` (in ``dtype``). Returns the losses, whether the replicas'
+    fingerprints agreed after each step (over a ``DistOpt``), and every
+    state as f64 host arrays: after the first step for f32, after the
+    last for f64 (the steps the phase holds)."""
+    import torch
+    from singa_tpu_torch.model import load_numpy_states
+    from singa_tpu_torch.opt import DistOpt
+    from singa_tpu_torch.parallel import communicator as C
+    model.set_optimizer(optimizer)
+    model.compile([tx], is_train=True, use_graph=False)
+    load_numpy_states(model, start)
+    if dtype == torch.float64:
+        as_float64(model)
+    model.train()
+    held = 1 if dtype == torch.float32 else steps
+    losses, agree, states = [], [], None
+    for i in range(1, steps + 1):
+        _, loss = model(tx, ty)
+        losses.append(float(loss.data.detach()))
+        if isinstance(optimizer, DistOpt):
+            agree.append(bool(C.replica_fingerprint(
+                list(model.get_states().values()),
+                optimizer.communicator)[1]))
+        if i == held:
+            states = {k: v.double().cpu().numpy()
+                      for k, v in live_states(model).items()}
+    return {"losses": losses, "agree": agree, "states": states}
+
+
+def dist_run(model, optimizer, start, tx, ty, args=(), bad_tx=None,
+             steps=None):
+    """``steps`` (``DIST_STEPS``) train calls ``model(x, ty, *args)`` from
+    ``start`` with ``optimizer``, step ``POISON_STEP`` on ``bad_tx`` unless
+    it is None;
+    the launch counts zeroed just before and read just after. Returns the
+    losses, copies of every state around the poisoned step and the
+    launches."""
+    import torch
+    from singa_tpu_torch.model import load_numpy_states
+    load_numpy_states(model, start)
+    model.set_optimizer(optimizer)
+    model.train()
+    losses, snaps = [], {}
+    zero_counts()
+    for i in range(1, (steps or DIST_STEPS) + 1):
+        poisoned = bad_tx is not None and i == POISON_STEP
+        _, loss = model(bad_tx if poisoned else tx, ty, *args)
+        losses.append(loss.data.detach())
+        if bad_tx is not None and i in (POISON_STEP - 1, POISON_STEP):
+            snaps[i] = live_states(model)
+    counts = host_launches()
+    torch.cuda.synchronize()
+    return {"losses": [float(v) for v in losses], "snapshots": snaps,
+            "launches": counts}
+
+
+# phase 17 (a): case -> (policy, DistOpt keyword arguments, the train
+# call's extra arguments, the plain version it is held against)
+DIST_CASES = {
+    "plain": (None, {}, (), "plain"),
+    "bucketed": (None, {"bucket_mb": DIST_BUCKET_MB}, (), "plain"),
+    "bf16_mixed": ("bf16_mixed", {}, (), "wire"),
+    "bf16_mixed_bucketed": ("bf16_mixed", {"bucket_mb": DIST_BUCKET_MB},
+                            (), "wire"),
+    "half": (None, {}, ("half",), "half"),
+    "partialUpdate_rotation0": (None, {}, ("partialUpdate", None, 0),
+                                "plain"),
+    "partialUpdate_traced": (None, {}, ("partialUpdate",), "plain"),
+    "sparseTopK": (None, {}, ("sparseTopK", DIST_SPARS["sparseTopK"]),
+                   "sparseTopK"),
+    "sparseThreshold": (None, {}, ("sparseThreshold",
+                                   DIST_SPARS["sparseThreshold"]),
+                        "sparseThreshold"),
+}
+
+
+def dist_nccl_phase(dev, models, tx, ty, start):
+    """Phase 17 (a): ResNet-50 b32 through ``DistOpt(SGD(lr=0.1,
+    momentum=0.9, weight_decay=1e-5, fused=True))`` over NCCL at world 1,
+    in graph mode (call 1 eager, call 2 captured with its collectives,
+    replays after), against the same graphed steps through the plain
+    version of each case (:data:`DIST_CASES`, :func:`plain_driver`,
+    :func:`wire_rounded`) from the same start, cuDNN deterministic: the
+    losses and every state bitwise, one capture, K1-multi's launches on
+    the host at the eager call and the capture only, under bf16_mixed the
+    poisoned step (a replay) a bitwise no-op. Readings: the collectives
+    started per step (host calls), and for the per-gradient and the
+    bucketed reduction the NCCL kernels and K1-multi's launches in the
+    trace of ``GRAPH_TRACED`` replays and the step p50 against the plain
+    step's in ``GRAPH_ROUNDS`` alternating rounds."""
+    import tempfile
+    import numpy as np
+    import torch
+    from singa_tpu_torch import opt
+    from singa_tpu_torch.parallel import communicator
+    from singa_tpu_torch.tensor import Tensor
+    g_model, e_model = models
+    bad = tx.data.clone()
+    bad.view(-1)[0] = float("nan")
+    bad_tx = Tensor(data=bad, device=dev)
+    per_step = multi_chunks("sgd_multi", PARAMS_PER_STEP)
+    store = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    communicator.init_process(
+        communicator.NcclIdHolder(file=os.path.join(store, "store")), 0, 1,
+        device=dev, timeout_s=120)
+    out = {"backend": torch.distributed.get_backend(), "world": 1}
+    try:
+        for name, (policy, kw, args, ref) in DIST_CASES.items():
+            what = f"dist nccl {name}"
+            poison = bad_tx if policy else None
+            for m in models:
+                m.compile([tx], is_train=True, use_graph=True,
+                          policy=policy)
+            dist = opt.DistOpt(graph_sgd(opt), **kw)
+            d = dist_run(g_model, dist, start, tx, ty, args, poison)
+            collectives = dist.communicator.n_collectives
+            spars = DIST_SPARS.get(ref)
+            plain = graph_sgd(opt) if ref in ("plain", "wire") \
+                else plain_driver(ref, spars)
+            if ref == "wire":
+                with wire_rounded():
+                    p = dist_run(e_model, plain, start, tx, ty, args,
+                                 poison)
+            else:
+                p = dist_run(e_model, plain, start, tx, ty, args, poison)
+            stats = list(g_model.graph_stats().values())
+            check(stats == [{"n_captures": 1,
+                             "n_replays": DIST_STEPS - 1}],
+                  f"{what}: {stats} after {DIST_STEPS} steps, expected "
+                  "one signature captured once")
+            check(np.array_equal(d["losses"], p["losses"], equal_nan=True),
+                  f"{what}: losses {d['losses']} against the plain "
+                  f"version's {p['losses']}")
+            check(d["launches"] == p["launches"] ==
+                  {"sgd_multi": 2 * per_step},
+                  f"{what}: host-counted launches {d['launches']} "
+                  f"(plain {p['launches']}), expected {per_step} sgd_multi "
+                  "at the eager call and at the capture")
+            # the poisoned last step leaves a NaN norm on both sides
+            n_states = held_equal(
+                g_model, e_model, what,
+                nan_ok=("guard/last_grad_norm",) if policy else ())
+            if policy:
+                before, after = d["snapshots"][POISON_STEP - 1], \
+                    d["snapshots"][POISON_STEP]
+                moved = [k for k in before if not k.startswith(
+                    ("optimizer/loss_scale", "optimizer/guard/"))
+                    and not torch.equal(before[k], after[k])]
+                check(not moved and "optimizer/guard/skipped_total"
+                      in after and float(
+                          after["optimizer/guard/skipped_total"]) == 1,
+                      f"{what}: the poisoned step {POISON_STEP} (a replay) "
+                      f"moved {len(moved)} states, e.g. {moved[:3]}")
+            rec = {"policy": policy or "float32", "args": list(args),
+                   "plain_version": ref, "losses": d["losses"],
+                   "states_held": n_states,
+                   "collectives_per_step": collectives / 2,
+                   "host_launches": d["launches"]}
+            if name in ("plain", "bucketed"):
+                times = alternating_rounds(
+                    {"dist": lambda n: timed_steps(g_model, tx, ty, n),
+                     "plain": lambda n: timed_steps(e_model, tx, ty, n)},
+                    GRAPH_ROUNDS, GRAPH_ROUND_STEPS)
+                trace = traced(lambda: g_model(tx, ty), GRAPH_TRACED,
+                               {"sgd_multi": per_step}, f"{what} replays")
+                check(not trace["host_launches"],
+                      f"{what}: traced replays counted "
+                      f"{trace['host_launches']} on the host")
+                rec.update({
+                    "dist_step": quantiles(times["dist"]),
+                    "plain_step": quantiles(times["plain"]),
+                    "traced": trace,
+                    "sgd_multi_per_replay":
+                    trace["launches"]["sgd_multi"] / GRAPH_TRACED,
+                    "nccl_kernels_per_replay":
+                    trace["nccl_launches"] / GRAPH_TRACED})
+            out[name] = rec
+            line = (f"dist nccl world 1 resnet50 b{BATCH} {name} "
+                    f"({rec['policy']}): {DIST_STEPS} graphed steps bitwise "
+                    f"with the plain version ({ref}) over {n_states} "
+                    f"states and the losses, 1 capture; "
+                    f"{collectives / 2:g} collectives per step on the host")
+            if policy:
+                line += f"; step {POISON_STEP} a no-op under replay"
+            if "traced" in rec:
+                line += (
+                    f"; step p50 {rec['dist_step']['p50_ms']:.2f} ms p99 "
+                    f"{rec['dist_step']['p99_ms']:.2f} against the plain "
+                    f"step's {rec['plain_step']['p50_ms']:.2f} / "
+                    f"{rec['plain_step']['p99_ms']:.2f} ({GRAPH_ROUNDS} "
+                    f"alternating rounds of {GRAPH_ROUND_STEPS}); in the "
+                    f"trace of {GRAPH_TRACED} replays: "
+                    f"{rec['nccl_kernels_per_replay']:g} NCCL kernels and "
+                    f"{rec['sgd_multi_per_replay']:g} sgd_multi launches "
+                    "per replay, none on the host; idle "
+                    f"{rec['traced']['idle_share']:.3f}")
+            print(line, flush=True)
+    finally:
+        torch.distributed.destroy_process_group()
+        import shutil
+        shutil.rmtree(store, ignore_errors=True)
+    return out
+
+
+def norm_close(got, want, tol):
+    """|got - want| <= tol |want| (Frobenius norms) and the ratio."""
+    import numpy as np
+    err = float(np.linalg.norm(np.asarray(got, np.float64) - want))
+    ref = float(np.linalg.norm(want))
+    return err <= tol * ref + 1e-7, err / max(ref, 1e-30)
+
+
+def dist_gloo_phase(dev, models, tx, ty, start):
+    """Phase 17 (b): ``DIST_RANKS`` processes of this script on the one
+    card (:func:`dist_rank_main`), joined over gloo (NCCL refuses two
+    ranks on one device), eager, each on its ``datasets.partition`` of the
+    batch: the CNN under each option and ResNet-50 with sync-BN
+    (:func:`dist_sgd`). Gates:
+    every rank exits 0 within ``DIST_RANK_TIMEOUT_S``; the ranks see the
+    same (mean) losses; ``replica_fingerprint`` agrees bitwise after every
+    step (under partialUpdate it must not after the first: its unselected
+    parameters take each rank's own gradient, reference
+    ``opt.py:922-992``); graph mode over gloo raises; ResNet-50's states
+    bitwise equal on the ranks; in f32 rank 0's first loss and every state
+    after the first step within the bounds of one rank's whole-batch run
+    here (``DIST_LOSS_*``, ``DIST_STATE_TOL``, ``DIST_MOMENTUM_TOL``); in
+    f64 its losses and every state after ``DIST_RESNET``'s steps within
+    ``DIST_F64_TOL`` of the f64 whole-batch run's."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from singa_tpu_torch import opt
+    from singa_tpu_torch.models import resnet
+    from singa_tpu_torch.tensor import Tensor
+    e_model = models[1]
+    rsteps = DIST_RESNET[1]
+    ref = resnet_steps(e_model, dist_sgd(opt), start, tx, ty, rsteps,
+                       torch.float32)
+    ref64 = resnet_steps(
+        resnet.resnet50(num_classes=10), dist_sgd(opt, fused=False), start,
+        Tensor(data=tx.data.double(), device=dev),
+        Tensor(data=ty.data.double(), device=dev), rsteps, torch.float64)
+    work = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
+    try:
+        np.savez(os.path.join(work, "inputs.npz"),
+                 x=tx.data.cpu().numpy(), y=ty.data.cpu().numpy(),
+                 **{f"start/{k}": v for k, v in start.items()})
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-rank",
+             str(r), str(DIST_RANKS), work],
+            stdout=open(os.path.join(work, f"rank{r}.log"), "w"),
+            stderr=subprocess.STDOUT) for r in range(DIST_RANKS)]
+        try:
+            for p in procs:
+                p.wait(timeout=max(0.0, DIST_RANK_TIMEOUT_S
+                                   - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        logs = [open(os.path.join(work, f"rank{r}.log")).read()
+                for r in range(DIST_RANKS)]
+        codes = [p.returncode for p in procs]
+        check(codes == [0] * DIST_RANKS,
+              f"dist gloo: rank exit codes {codes} (deadline "
+              f"{DIST_RANK_TIMEOUT_S} s):\n" + "\n".join(
+                  f"--- rank {r} ---\n{log[-4000:]}"
+                  for r, log in enumerate(logs)))
+        outs = []
+        for r in range(DIST_RANKS):
+            with np.load(os.path.join(work, f"rank{r}.npz")) as z:
+                outs.append({k: z[k] for k in z.files})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    o0 = outs[0]
+    check(all(str(o["backend"]) == "gloo" for o in outs),
+          f"dist gloo: backends {[str(o['backend']) for o in outs]}")
+    rec = {"backend": "gloo", "ranks": DIST_RANKS, "seconds": seconds,
+           "cnn": {}}
+    for option in DIST_OPTIONS:
+        losses = o0[f"cnn/{option}/losses"]
+        agree = [o[f"cnn/{option}/agree"] for o in outs]
+        check(np.all(np.isfinite(losses)) and all(
+            np.array_equal(o[f"cnn/{option}/losses"], losses)
+            for o in outs),
+              f"dist gloo cnn {option}: losses "
+              f"{[o[f'cnn/{option}/losses'].tolist() for o in outs]}")
+        if option == "partialUpdate":
+            check(not any(a[1:].any() for a in agree),
+                  f"dist gloo cnn partialUpdate: replicas agree after "
+                  f"the first step ({[a.tolist() for a in agree]}): no "
+                  "rank's own gradient was applied")
+        else:
+            check(all(a.all() for a in agree),
+                  f"dist gloo cnn {option}: replica fingerprints "
+                  f"disagree after steps {[a.tolist() for a in agree]}")
+        launches = [int(o[f"cnn/{option}/sgd_multi"]) for o in outs]
+        check(all(n >= DIST_CNN[2] for n in launches),
+              f"dist gloo cnn {option}: sgd_multi launches {launches}")
+        rec["cnn"][option] = {"losses": losses.tolist(),
+                              "agree": [a.tolist() for a in agree],
+                              "sgd_multi_launches": launches}
+    refused = str(o0["graph_refused"])
+    check("gloo" in refused and "CUDA graph" in refused,
+          f"dist gloo: use_graph=True over gloo did not raise ({refused!r})")
+    for tag in ("resnet", "resnet64"):
+        check(all(np.array_equal(o[f"{tag}/losses"], o0[f"{tag}/losses"])
+                  and bool(o[f"{tag}/agree"].all()) for o in outs),
+              f"dist gloo {tag}: the ranks' losses or fingerprints differ: "
+              + str([(o[f"{tag}/losses"].tolist(),
+                      o[f"{tag}/agree"].tolist()) for o in outs]))
+    losses, losses64 = o0["resnet/losses"], o0["resnet64/losses"]
+    check(abs(losses[0] - ref["losses"][0]) <= DIST_LOSS_ATOL
+          + DIST_LOSS_RTOL * abs(ref["losses"][0]),
+          f"dist gloo resnet50: first loss {losses[0]} against one rank's "
+          f"whole batch {ref['losses'][0]}")
+    check(np.allclose(losses64, ref64["losses"], rtol=DIST_F64_TOL, atol=0),
+          f"dist gloo resnet50 f64: losses {losses64.tolist()} against one "
+          f"rank's whole batch {ref64['losses']}")
+    worst = {"state": 0.0, "momentum": 0.0}
+    worst64 = 0.0
+    for tag, want in (("resnet", ref["states"]),
+                      ("resnet64", ref64["states"])):
+        for k, w in want.items():
+            got = o0[f"{tag}/state/{k}"]
+            for o in outs[1:]:
+                check(np.array_equal(o[f"{tag}/state/{k}"], got),
+                      f"dist gloo {tag}: {k} differs between the ranks")
+            if tag == "resnet64":
+                ok, ratio = norm_close(got, w, DIST_F64_TOL)
+                check(ok, f"dist gloo resnet50 f64: {k} is {ratio:.3g} of "
+                      f"its norm away from one rank's whole-batch run "
+                      f"after {rsteps} steps, above {DIST_F64_TOL}")
+                worst64 = max(worst64, ratio)
+                continue
+            kind = "momentum" if k.endswith(":momentum") else "state"
+            tol = DIST_MOMENTUM_TOL if kind == "momentum" \
+                else DIST_STATE_TOL
+            ok, ratio = norm_close(got, w, tol)
+            check(ok, f"dist gloo resnet50: {k} is {ratio:.3g} of its norm "
+                  f"away from one rank's whole-batch run after the first "
+                  f"step, above {tol}")
+            worst[kind] = max(worst[kind], ratio)
+    rec.update({"graph_refused": refused, "resnet_losses": losses.tolist(),
+                "resnet_whole_batch_losses": ref["losses"],
+                "resnet_step1_worst_rel_diff": worst,
+                "resnet_f64_losses": losses64.tolist(),
+                "resnet_f64_whole_batch_losses": ref64["losses"],
+                "resnet_f64_worst_rel_diff": worst64,
+                "resnet_states_held": {"f32_step1": len(ref["states"]),
+                                       "f64": len(ref64["states"])},
+                "resnet_sgd_multi_launches": [
+                    int(o["resnet/sgd_multi"]) for o in outs]})
+    print(f"dist backend=\"gloo\" {DIST_RANKS} ranks on one card: cnn "
+          f"b{DIST_CNN[1]} x{DIST_CNN[2]} under "
+          f"{', '.join(DIST_OPTIONS)}: equal losses on the ranks, replica "
+          f"fingerprints bitwise equal after every step (partialUpdate: "
+          f"unequal, as designed); use_graph=True refused; resnet50 "
+          f"b{DIST_RESNET[0]} ({DIST_RESNET[0] // DIST_RANKS} a rank, "
+          f"sync-BN) x{DIST_RESNET[1]}: losses "
+          + " ".join(f"{v:.6f}" for v in losses)
+          + " against one rank's whole batch "
+          + " ".join(f"{v:.6f}" for v in ref["losses"])
+          + f" (held: the first), states after the first step within "
+          f"{worst['state']:.3g} (momenta {worst['momentum']:.3g}) of their "
+          f"norms (bounds {DIST_STATE_TOL} / {DIST_MOMENTUM_TOL}); in f64 "
+          f"losses " + " ".join(f"{v:.12f}" for v in losses64)
+          + f" and every state after {DIST_RESNET[1]} steps within "
+          f"{worst64:.3g} (bound {DIST_F64_TOL}); {seconds:.1f} s",
+          flush=True)
+    return rec
+
+
+def dist_rank_main(rank, world, work):
+    """One rank of phase 17 (b): joins the gloo group on ``cuda:0``, then
+    trains the CNN under each option and ResNet-50 on its shard, and
+    writes what it saw to ``work/rank<rank>.npz``."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, HERE)
+    from singa_tpu_torch import datasets, device, opt
+    from singa_tpu_torch.model import load_numpy_states
+    from singa_tpu_torch.models import cnn, resnet
+    from singa_tpu_torch.ops import fused_optim as fo
+    from singa_tpu_torch.parallel import communicator as C
+    from singa_tpu_torch.tensor import Tensor
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    dev = device.create_cuda_gpu(0)
+    C.init_process(C.NcclIdHolder(file=os.path.join(work, "store")), rank,
+                   world, device=dev, backend="gloo",
+                   timeout_s=DIST_RANK_TIMEOUT_S)
+    try:
+        with np.load(os.path.join(work, "inputs.npz")) as z:
+            inputs = {k: z[k] for k in z.files}
+        out = {"backend": np.asarray(torch.distributed.get_backend())}
+        shape, batch, steps = DIST_CNN
+        rng = np.random.default_rng(SEED + 20)
+        x = rng.standard_normal((batch,) + shape, dtype=np.float32)
+        y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, batch)]
+        xs, ys = datasets.partition(rank, world, x, y)
+        tx, ty = Tensor(data=xs, device=dev), Tensor(data=ys, device=dev)
+        cnn_start = None
+        for option in DIST_OPTIONS:
+            m = cnn.create_model()
+            d = opt.DistOpt(opt.SGD(lr=ZOO_LR, momentum=0.9,
+                                    weight_decay=1e-5, fused=True))
+            m.set_optimizer(d)
+            m.compile([tx], is_train=True, use_graph=False)
+            cnn_start = cnn_start or seeded_states(m, SEED + 21)
+            load_numpy_states(m, cnn_start)
+            fo.reset_counts()
+            losses, agree = [], []
+            for _ in range(steps):
+                _, loss = m(tx, ty, option, DIST_SPARS.get(option))
+                losses.append(float(loss.data.detach()))
+                agree.append(bool(C.replica_fingerprint(
+                    list(m.get_states().values()), d.communicator)[1]))
+            out[f"cnn/{option}/losses"] = np.asarray(losses)
+            out[f"cnn/{option}/agree"] = np.asarray(agree)
+            out[f"cnn/{option}/sgd_multi"] = np.asarray(
+                fo.launches["sgd_multi"])
+        m.compile([tx], is_train=True, use_graph=True)
+        try:
+            m(tx, ty)
+            refused = ""
+        except RuntimeError as e:
+            refused = str(e)
+        out["graph_refused"] = np.asarray(refused)
+
+        rbatch, rsteps = DIST_RESNET
+        bx, by = datasets.partition(rank, world, inputs["x"][:rbatch],
+                                    inputs["y"][:rbatch])
+        start = {k[len("start/"):]: v for k, v in inputs.items()
+                 if k.startswith("start/")}
+        for tag, dtype in (("resnet", torch.float32),
+                           ("resnet64", torch.float64)):
+            rx = Tensor(data=torch.from_numpy(bx).to(dtype), device=dev)
+            ry = Tensor(data=torch.from_numpy(by).to(dtype), device=dev)
+            m = resnet.resnet50(num_classes=10)
+            d = opt.DistOpt(dist_sgd(opt, fused=dtype == torch.float32))
+            fo.reset_counts()
+            run = resnet_steps(m, d, start, rx, ry, rsteps, dtype)
+            out[f"{tag}/losses"] = np.asarray(run["losses"])
+            out[f"{tag}/agree"] = np.asarray(run["agree"])
+            out[f"{tag}/sgd_multi"] = np.asarray(fo.launches["sgd_multi"])
+            for k, v in run["states"].items():
+                out[f"{tag}/state/{k}"] = v
+            del m, d, run
+        np.savez(os.path.join(work, f"rank{rank}.npz"), **out)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3649,6 +4289,16 @@ def main():
     lm_eval = lm_eval_phase(dev, lm_tx, lm_start)
     lm_train = lm_train_phase(dev, lm_tx, lm_ty, lm_start)
     graph_lm = graph_lm_phase(dev, lm_tx, lm_ty, lm_start)
+    del lm_tx, lm_ty, lm_start
+    torch.cuda.empty_cache()
+
+    # data parallelism, from the training phases' start and batch
+    torch.backends.cudnn.deterministic = True
+    models, tx, ty, start = train_models(dev)
+    dist = {"nccl": dist_nccl_phase(dev, models, tx, ty, start),
+            "gloo": dist_gloo_phase(dev, models, tx, ty, start)}
+    del models, tx, ty, start
+    torch.backends.cudnn.deterministic = False
 
     # one line per kernel: its f32 case at main-path shapes, launches from
     # the f32 run of its layout
@@ -3750,6 +4400,9 @@ def main():
     for pname, rec in xception_serve.items():
         for key, n in rec["launches_per_replay"].items():
             per_replay.setdefault(key, {})[f"xceptionnet_{pname}"] = n
+    for case in ("plain", "bucketed"):
+        per_replay["sgd_multi"][f"resnet50_dist_nccl_{case}"] = \
+            dist["nccl"][case]["sgd_multi_per_replay"]
     for row in kernels:
         if row["name"] in per_replay:
             row["other_paths_launches_per_replay"] = per_replay[row["name"]]
@@ -3768,7 +4421,7 @@ def main():
               "graph_lm": graph_lm, "zoo_train": zoo,
               "pure_bf16_train": pure_bf16,
               "xception_serve": xception_serve, "s2d": s2d,
-              "kernels": kernels}
+              "dist": dist, "kernels": kernels}
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
@@ -3782,4 +4435,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 5 and sys.argv[1] == "--dist-rank":
+        sys.exit(dist_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                                sys.argv[4]))
     sys.exit(main())

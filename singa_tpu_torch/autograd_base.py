@@ -42,10 +42,24 @@ def register_param(t):
     t.data._singa_param = weakref.ref(t)
 
 
+def _leaf_chain(fn):
+    """Whether ``fn`` reaches a leaf through nodes of one input each: the
+    reshape or cast of a parameter that the JAX package does inside the op
+    consuming it."""
+    while not hasattr(fn, "variable"):
+        if len(fn.next_functions) != 1 or fn.next_functions[0][0] is None:
+            return False
+        fn = fn.next_functions[0][0]
+    return True
+
+
 def _param_leaves(root):
     """The parameter Tensors ``root``'s autograd graph reaches, in reverse
-    topological order (a node after every node that consumes it): the
-    last layer's first, as the JAX package's tape walk yields them."""
+    topological order (a node after every node that consumes it), in the
+    order of the JAX package's tape walk (``singa_tpu/autograd_base.py``:
+    first in, first out over ops; the last layer's first, its bias before
+    its weight). A node that only reshapes or casts a parameter is no op
+    of the JAX tape: the walk goes through it at once."""
     consumers, stack, seen = {}, [root], {root}
     while stack:
         for fn, _ in stack.pop().next_functions:
@@ -64,12 +78,16 @@ def _param_leaves(root):
             t = ref() if ref is not None else None
             if t is not None and t.stores_grad and t.data is leaf:
                 out.append(t)
+        through = leaf is None and _leaf_chain(fn)
         for nxt, _ in fn.next_functions:
             if nxt is None:
                 continue
             consumers[nxt] -= 1
             if consumers[nxt] == 0:
-                ready.append(nxt)
+                if through:
+                    ready.appendleft(nxt)
+                else:
+                    ready.append(nxt)
     return out
 
 

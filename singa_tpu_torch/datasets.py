@@ -7,8 +7,9 @@ pickle batches (``cifar-10-batches-py/data_batch_N``) and binary records
 (``cifar-100-python/{train,test}``, fine or coarse labels) and the MNIST
 IDX files (plain or ``.gz``) parsed into uint8 NCHW arrays and int32
 labels, :func:`normalize_cifar`, :func:`augment_crop_flip` (the same numpy
-draws as the JAX package, so a seed gives the same batch) and
-:func:`resize_batch` (bilinear, on a torch device). Nothing is downloaded:
+draws as the JAX package, so a seed gives the same batch),
+:func:`resize_batch` (bilinear, on a torch device) and :func:`partition`
+(a rank's shard for data parallelism). Nothing is downloaded:
 the files are read from ``dir_path`` or from ``data/`` (or the root) of
 this checkout, and :class:`DatasetNotFoundError` says where to put them.
 """
@@ -186,6 +187,16 @@ def resize_batch(x, image_size, as_numpy=False, device="cpu"):
                         align_corners=False,
                         antialias=image_size < max(x.shape[2], x.shape[3]))
     return out.cpu().numpy() if as_numpy else out
+
+
+def partition(global_rank, world_size, *arrays):
+    """Contiguous equal shards of each array for data parallelism
+    (reference ``train_cnn.py:58-72``)."""
+    out = []
+    for a in arrays:
+        per = a.shape[0] // world_size
+        out.append(a[global_rank * per:(global_rank + 1) * per])
+    return tuple(out)
 
 
 def load(name, dir_path=None):

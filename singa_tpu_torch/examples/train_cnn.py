@@ -8,6 +8,12 @@ CIFAR-10/100 or MNIST.
         [--npz path.npz] [--bs 64] [--epochs 10] [--lr 0.05]
         [-p float32|bfloat16|bf16_mixed] [--layout auto|NCHW|NHWC]
         [--stem conv7|space_to_depth] [--fused-optim] [--cpu]
+        [--dist] [--dist-option plain|half|fp16|partialUpdate|
+                  sparseTopK|sparseThreshold] [--spars 0.05]
+        [--bucket-mb 0] [--no-overlap]
+
+    torchrun --nproc_per_node N singa_tpu_torch/examples/train_cnn.py ...
+        --dist
 
 The single-device behaviour of ``examples/train_cnn.py``: the same models
 (``cnn`` by default), datasets and normalisation (CIFAR standardised per
@@ -34,14 +40,24 @@ picks ResNet's 7x7/s2 stem conv or its exact space-to-depth form.
 ``--layout auto`` runs the JAX package's measured A/B winner there; no
 such A/B exists on this card, so it runs NCHW, the default.
 
-Refused, each naming ROADMAP.md: ``--dist``, ``--mesh``, ``--fsdp``,
-``--bucket-mb``, ``--no-overlap`` (data-parallel training, slice B);
-``--resilient``, ``--ckpt-dir``, ``--save-every``, ``--profile-every``,
-``--anomaly-factor`` (the fault-tolerant driver, slice E) and
-``--telemetry`` (observability, slice E). ``--dist-option`` and
-``--spars`` only shape ``--dist`` runs, and ``--verbosity`` only the JAX
-package's per-op timing, which the port does not record; they are
-accepted and do nothing here, as in the JAX example without ``--dist``.
+Data parallelism: ``--dist`` trains through ``opt.DistOpt`` (gradients
+summed over the ranks, ``--bucket-mb`` MiB buckets, ``--no-overlap`` the
+no-overlap baseline, ``--dist-option`` picks the driver, ``--spars`` the
+sparse drivers' share or threshold). Under ``torchrun`` (``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``) each
+rank joins the process group (NCCL on the card ``cuda:LOCAL_RANK``, gloo
+with ``--cpu``), takes its ``datasets.partition`` of each global batch
+(``--bs`` stays the global batch) and only rank 0 prints; the training
+and evaluation accuracies are summed over the ranks. Without those
+variables ``--dist`` runs a world of 1.
+
+Refused, each naming ROADMAP.md: ``--mesh`` and ``--fsdp`` (the GSPMD
+train mesh and FSDP, slice B), ``--bucket-mb auto`` (it reads the JAX
+package's measured A/B winner); ``--resilient``, ``--ckpt-dir``,
+``--save-every``, ``--profile-every``, ``--anomaly-factor`` (the
+fault-tolerant driver, slice E) and ``--telemetry`` (observability, slice
+E). ``--verbosity`` only shapes the JAX package's per-op timing, which
+the port does not record; it is accepted and does nothing here.
 """
 
 import argparse
@@ -60,12 +76,11 @@ SYNTHETIC = {"cnn": (1, 28), "mlp": (1, 28), "alexnet": (3, 224),
              "resnet": (3, 224), "xceptionnet": (3, 299)}
 # flags refused with the part of ROADMAP.md that would port them
 REFUSED = {
-    "dist": "--dist", "mesh": "--mesh", "fsdp": "--fsdp",
-    "bucket_mb": "--bucket-mb", "no_overlap": "--no-overlap",
+    "mesh": "--mesh", "fsdp": "--fsdp",
     "resilient": "--resilient", "ckpt_dir": "--ckpt-dir",
     "save_every": "--save-every", "profile_every": "--profile-every",
     "anomaly_factor": "--anomaly-factor", "telemetry": "--telemetry"}
-SLICE_B = ("dist", "mesh", "fsdp", "bucket_mb", "no_overlap")
+SLICE_B = ("mesh", "fsdp")
 OBSERVABILITY = ("telemetry",)
 
 
@@ -107,7 +122,10 @@ def build_parser():
     ap.add_argument("--dist", action="store_true")
     ap.add_argument("--mesh", default=None, metavar="DxM")
     ap.add_argument("--fsdp", action="store_true")
-    ap.add_argument("--bucket-mb", default=None)
+    ap.add_argument("--bucket-mb", default="0",
+                    help="with --dist: gradient bucket size target in MiB "
+                         "(DistOpt bucket_mb; 0: one collective per "
+                         "gradient)")
     ap.add_argument("--no-overlap", action="store_true")
     ap.add_argument("--telemetry", default=None, metavar="DIR")
     ap.add_argument("--resilient", action="store_true")
@@ -121,14 +139,18 @@ def build_parser():
 def _refuse(args):
     """The flags this example does not take yet, each naming ROADMAP.md;
     None when every flag given is ported."""
+    if args.bucket_mb == "auto":
+        return "--bucket-mb auto: it reads the JAX package's measured " \
+            "bucket A/B (bench.py), which the port has not measured " \
+            "(ROADMAP.md: slice B); give a size in MiB"
     given = [k for k in REFUSED
              if getattr(args, k) not in (None, False)]
     if not given:
         return None
     k = given[0]
     if k in SLICE_B:
-        why = "data-parallel training is not ported yet (ROADMAP.md: " \
-            "slice B)"
+        why = "the GSPMD train mesh and FSDP are not ported yet " \
+            "(ROADMAP.md: slice B)"
     elif k in OBSERVABILITY:
         why = "run telemetry is not ported yet (ROADMAP.md: slice E, " \
             "observability)"
@@ -171,13 +193,40 @@ def main(argv=None):
     if refused:
         raise SystemExit(refused)
 
-    from singa_tpu_torch import datasets, device, metric, models, opt, \
-        tensor
+    from singa_tpu_torch import device
+    from singa_tpu_torch.parallel import communicator
 
+    bucket_mb = float(args.bucket_mb)
+    # torchrun's variables; without them --dist is a world of 1
+    launched = args.dist and "WORLD_SIZE" in os.environ
+    rank = int(os.environ["RANK"]) if launched else 0
+    world = int(os.environ["WORLD_SIZE"]) if launched else 1
     dev = device.create_cpu_device() if args.cpu \
-        else device.create_cuda_gpu(0)
+        else device.create_cuda_gpu(int(os.environ.get("LOCAL_RANK", 0))
+                                    if launched else 0)
+    if launched:
+        communicator.init_process(communicator.NcclIdHolder(), rank, world,
+                                  device=dev)
+    try:
+        return train(args, dev, rank, world, bucket_mb)
+    finally:
+        if launched:
+            import torch.distributed
+            torch.distributed.destroy_process_group()
+
+
+def train(args, dev, rank, world, bucket_mb):
+    """The epoch loop of ``main`` as rank ``rank`` of ``world``."""
+    import torch
+    from singa_tpu_torch import datasets, metric, models, opt, tensor
+
+    def say(*a):
+        if rank == 0:
+            print(*a, flush=True)
+
     dev.SetRandSeed(0)
-    print(f"device: {dev.torch_device}", flush=True)
+    say(f"device: {dev.torch_device}" + (
+        f", data-parallel world {world}" if args.dist else ""))
 
     train_x, train_y, val_x, val_y, num_classes, augment = load_data(args)
     factory = getattr(models, args.model)
@@ -193,13 +242,23 @@ def main(argv=None):
             layout = args.layout
             if layout == "auto":
                 layout = "NCHW"
-                print("conv layout: NCHW (no layout A/B measured on this "
-                      "card)", flush=True)
+                say("conv layout: NCHW (no layout A/B measured on this "
+                    "card)")
             kw = {"layout": layout, "stem": args.stem}
         model = factory.create_model(num_channels=train_x.shape[1],
                                      num_classes=num_classes, **kw)
-    model.set_optimizer(opt.SGD(lr=args.lr, momentum=0.9,
-                                weight_decay=1e-5, fused=args.fused_optim))
+    sgd = opt.SGD(lr=args.lr, momentum=0.9, weight_decay=1e-5,
+                  fused=args.fused_optim)
+    model.set_optimizer(opt.DistOpt(sgd, bucket_mb=bucket_mb,
+                                    overlap=not args.no_overlap)
+                        if args.dist else sgd)
+    if not args.dist and (bucket_mb or args.no_overlap):
+        say("note: --bucket-mb/--no-overlap shape the gradient collectives "
+            "and need --dist; ignored on a single replica")
+
+    def shard(*arrays):
+        return datasets.partition(rank, world, *arrays)
+
     input_size = getattr(model, "input_size", None)
     need_resize = (getattr(model, "dimension", 4) == 4
                    and input_size is not None
@@ -216,7 +275,8 @@ def main(argv=None):
         return t.as_type("bfloat16") if args.precision == "bfloat16" \
             else t
 
-    model.compile([stage(train_x[:args.bs])], is_train=True, use_graph=True,
+    model.compile([stage(shard(train_x[:args.bs])[0])], is_train=True,
+                  use_graph=True,
                   policy="bf16_mixed" if args.precision == "bf16_mixed"
                   else None)
 
@@ -230,9 +290,21 @@ def main(argv=None):
         n_train = min(n_train, args.max_batches)
     n_val = len(val_x) // args.bs or 1
 
+    dist_args = (args.dist_option, args.spars) \
+        if args.dist and args.dist_option != "plain" else ()
+
+    def over_ranks(values):
+        """The mean of ``values`` over every rank's values (each rank
+        holds the same count)."""
+        total = np.array([np.sum(values), len(values)], np.float64)
+        if args.dist:
+            total = model.optimizer.communicator.all_reduce(
+                torch.tensor(total, device=dev.torch_device)).cpu().numpy()
+        return total[0] / total[1]
+
     rng = np.random.RandomState(1)
     for epoch in range(args.epochs):
-        print(f"Starting Epoch {epoch}:", flush=True)
+        say(f"Starting Epoch {epoch}:")
         idx = rng.permutation(len(train_x))
         t0, losses, accs = time.time(), [], []
         model.train()
@@ -241,21 +313,22 @@ def main(argv=None):
             bx = train_x[sel]
             if augment:
                 bx = datasets.augment_crop_flip(bx, rng=rng)
+            bx, by = shard(bx, train_y[sel])
             out, loss = model(stage(bx), tensor.Tensor(
-                data=eye[train_y[sel]], device=dev))
+                data=eye[by], device=dev), *dist_args)
             losses.append(float(loss.data.detach()))
-            accs.append(acc.evaluate(out, train_y[sel]))
-        print(f"Training loss = {np.mean(losses):.6f}, "
-              f"training accuracy = {np.mean(accs):.6f}", flush=True)
-        print(graph_line(model, dev), flush=True)
+            accs.append(acc.evaluate(out, by))
+        say(f"Training loss = {np.mean(losses):.6f}, "
+            f"training accuracy = {over_ranks(accs):.6f}")
+        say(graph_line(model, dev))
         model.eval()
         vaccs = []
         for b in range(n_val):
-            bx = val_x[b * args.bs:(b + 1) * args.bs]
-            by = val_y[b * args.bs:(b + 1) * args.bs]
+            bx, by = shard(val_x[b * args.bs:(b + 1) * args.bs],
+                           val_y[b * args.bs:(b + 1) * args.bs])
             vaccs.append(acc.evaluate(model(stage(bx)), by))
-        print(f"Evaluation accuracy = {np.mean(vaccs):.6f}, "
-              f"Elapsed Time = {time.time() - t0:.3f}s", flush=True)
+        say(f"Evaluation accuracy = {over_ranks(vaccs):.6f}, "
+            f"Elapsed Time = {time.time() - t0:.3f}s")
     return model
 
 

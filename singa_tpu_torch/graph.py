@@ -29,7 +29,11 @@ capture counted.
 
 A replay runs what was captured: a process-wide switch that ``fn`` reads
 (``fused_epilogue.enable``, ``attention.USE_PLAIN``) counts as it stood at
-the capture.
+the capture. A data-parallel step's NCCL collectives (``opt.DistOpt``) are
+captured with it: the communicator exists before the capture
+(``parallel.communicator.init_process`` makes it eagerly) and call 1 has
+run every collective once. A gloo group's collectives go through the host
+and cannot be captured; ``Model`` refuses graph mode on the card over one.
 
 On the CPU the same class keeps the same books (static buffers, the eager
 first call, clone-out) and runs ``fn`` on the static buffers where the
@@ -40,6 +44,8 @@ signature's next call captures again).
 """
 
 from __future__ import annotations
+
+import gc
 
 import torch
 
@@ -185,6 +191,14 @@ class StepGraph:
                 graph.register_generator_state(self.device.generator)
                 self.stream.wait_stream(
                     torch.cuda.current_stream(self.device.torch_device))
+                # a dropped model and its StepGraphs hold each other (the
+                # step is a bound method), so the cyclic collector frees
+                # their CUDA graphs, whenever it runs; freeing a graph
+                # inside a capture invalidates it: collect now, and hold
+                # the collector off until the capture ends
+                gc.collect()
+                collecting = gc.isenabled()
+                gc.disable()
                 try:
                     with torch.cuda.graph(graph, pool=self.pool,
                                           stream=self.stream):
@@ -192,6 +206,9 @@ class StepGraph:
                 except BaseException:
                     self._recover_from_capture()
                     raise
+                finally:
+                    if collecting:
+                        gc.enable()
             else:
                 out = self.fn(*self._wrap(args, static))
         finally:

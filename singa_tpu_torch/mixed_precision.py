@@ -13,7 +13,9 @@ A policy with 16-bit compute trains with dynamic loss scaling by default
 (:attr:`Policy.wants_loss_scaling`): ``Model.compile(policy=...,
 is_train=True)`` wraps the optimizer in
 :class:`~.resilience.GuardedOptimizer`, which starts at
-:attr:`Policy.default_loss_scale`. ``loss_scaling=False`` opts out.
+:attr:`Policy.default_loss_scale`. ``loss_scaling=False`` opts out. Its
+data-parallel gradients cross the wire in that 16-bit dtype
+(:attr:`Policy.comm_dtype`, read by ``opt.DistOpt``).
 
 The quantized presets of the JAX package (``int8_weight_only``,
 ``fp8_serving``, ``fp8_mixed``, ``int8_qat``) are not part of this slice
@@ -80,6 +82,14 @@ class Policy:
     def is_mixed(self):
         """True when compute happens below the masters' precision."""
         return self.compute_dtype != self.param_dtype
+
+    @property
+    def comm_dtype(self):
+        """Wire dtype of the gradient collectives under this policy (None:
+        the gradients' own dtype): a 16-bit compute dtype makes the wire
+        16-bit too, since the values were computed at that precision."""
+        return self.compute_dtype if self.compute_dtype in _LOW_BITS \
+            else None
 
     @property
     def wants_loss_scaling(self):

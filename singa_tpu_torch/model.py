@@ -29,6 +29,16 @@ optimizer, a re-compile (a policy change rebinds the masters), a flip
 between train and eval, a load that makes a new optimizer state. Eval
 runs eagerly, as the JAX package's single-device eval does
 (``model.py:1355-1390``).
+
+Data-parallel training: ``set_optimizer``/``compile`` take an
+``opt.DistOpt`` (or a guard around one). Each rank is a process that
+calls the model on its own shard of the batch; the train step runs inside
+``parallel.communicator.collective_context`` (sync-BN reads it), and of
+its outputs a floating one whose leading dimension is not the batch's (the
+loss) comes back as the mean over the ranks, as the JAX step averages
+its replicated outputs (``model.py:698-708``), while the logits stay the
+rank's own. In graph mode the collectives are captured with the step,
+which needs NCCL: a CUDA step over a gloo process group raises.
 """
 
 from __future__ import annotations
@@ -274,14 +284,42 @@ class Model(Layer):
             CTX.training = prev
         return out if self._policy is None else self._cast_outputs(out)
 
+    def _dist_opt(self):
+        """The model's ``DistOpt``, bare or inside a guard, or None."""
+        from .opt import DistOpt
+        opt = self.optimizer
+        if not isinstance(opt, DistOpt):
+            opt = getattr(opt, "inner", None)
+        return opt if isinstance(opt, DistOpt) else None
+
     def _train_step(self, *args):
         from . import mixed_precision as mp
-        with mp.policy_scope(self._policy):
+        from .parallel.communicator import collective_context
+        dist = self._dist_opt()
+        comm = dist.communicator if dist is not None else None
+        with mp.policy_scope(self._policy), collective_context(comm):
             out = self.train_one_batch(*args)
-        if self._policy is None:
-            return out
         with torch.no_grad():
-            return self._cast_outputs(out)
+            if self._policy is not None:
+                out = self._cast_outputs(out)
+            if comm is not None and comm.effective_world_size() > 1:
+                batch = next(a.shape[0] for a in args
+                             if isinstance(a, Tensor) and a.ndim)
+                out = self._mean_over_ranks(out, comm, batch)
+        return out
+
+    def _mean_over_ranks(self, out, comm, batch):
+        """Each floating Tensor of ``out`` whose leading dimension is not
+        ``batch`` averaged over the ranks; the rest as it is."""
+        if isinstance(out, (tuple, list)):
+            return type(out)(self._mean_over_ranks(o, comm, batch)
+                             for o in out)
+        if isinstance(out, Tensor) and out.data.is_floating_point() and \
+                (out.ndim == 0 or out.shape[0] != batch):
+            total = comm.all_reduce(out.data.clone())
+            return Tensor(data=total / comm.effective_world_size(),
+                          device=out.device)
+        return out
 
     def _step_graph(self, args):
         """The :class:`~.graph.StepGraph` of ``args``' signature, made on
@@ -291,6 +329,14 @@ class Model(Layer):
         if g is None:
             dev = self.dev or next(
                 (a.device for a in args if isinstance(a, Tensor)), None)
+            dist = self._dist_opt()
+            backend = dist.communicator.backend if dist is not None \
+                else None
+            if dev.is_cuda and backend not in (None, "nccl"):
+                raise RuntimeError(
+                    f"graph mode over a {backend} process group: its "
+                    "collectives cannot be captured in a CUDA graph; "
+                    "train over NCCL, or compile with use_graph=False")
             if self._graph_resources is None:
                 self._graph_resources = resources(dev)
             g = self._graphs[key] = StepGraph(

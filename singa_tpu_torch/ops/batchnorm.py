@@ -12,9 +12,16 @@ takes the vjp of the same expression). The running statistics update in
 place as ``m * running + (1 - m) * batch`` with ``m`` the layer's momentum,
 from the biased variance for both -- ``F.batch_norm(training=True)`` would
 update ``running_var`` with the unbiased variance and read ``momentum`` as
-``1 - m``, so it is not used. One device only: the JAX package's
-cross-replica ``pmean`` of the moments comes with data-parallel training
-(ROADMAP, slice B).
+``1 - m``, so it is not used.
+
+Sync-BN (``_global_moments``, ``singa_tpu/ops/batchnorm.py:53-80``): in
+the train step of a ``DistOpt`` over more than one rank
+(``parallel.communicator.collective_context``) each rank holds its shard
+of the batch, and the moments are averaged over the ranks: the mean, then
+the variance around that global mean, each through a differentiable
+all-reduce divided by the world. The normalisation and the running
+statistics then use the global batch's moments, and the sharded step is
+the full-batch step. At world 1 nothing is added.
 
 Inference: the 4-D output is a LAZY tensor tagged with its folding
 ingredients (``_bn_epilogue``): a ReLU that consumes it may fuse
@@ -23,8 +30,9 @@ scale/shift (+ residual add) + ReLU into one pass over the conv output
 Anything else that reads the output (a downsample branch feeding a
 residual, a disabled epilogue) runs it on first read.
 
-Statistics and the normalisation stay f32 under every precision policy;
-the output takes the input's dtype.
+Statistics and the normalisation stay f32 under every precision policy
+(f64 for an f64 input, which the data-parallel checks use as a witness
+free of summation-order noise); the output takes the input's dtype.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from __future__ import annotations
 import torch
 
 from ..autograd_base import is_training
+from ..mixed_precision import accum_f32
 from ..tensor import Tensor
 
 # how many times the plain inference normalisation actually ran
@@ -76,12 +85,21 @@ def batchnorm_inference(x, scale, bias, rmean, rvar, eps, bshape):
 
 
 def batch_moments(x, axes):
-    """Batch mean and biased variance of ``x`` over ``axes`` in f32, two
-    passes (the variance is taken around the mean)."""
-    xb = x.float()
+    """Batch mean and biased variance of ``x`` over ``axes`` in f32 (f64
+    for f64), two passes (the variance is taken around the mean),
+    averaged over the ranks of an active data-parallel step (sync-BN,
+    module docstring)."""
+    from ..parallel.communicator import active_communicator
+    comm = active_communicator()
+    world = comm.effective_world_size() if comm is not None else 1
+    xb = accum_f32(x)
     mean = torch.mean(xb, dim=axes)
+    if world > 1:
+        mean = comm.all_reduce_grad(mean) / world
     shape = [1 if i in axes else d for i, d in enumerate(xb.shape)]
     var = torch.mean(torch.square(xb - mean.reshape(shape)), dim=axes)
+    if world > 1:
+        var = comm.all_reduce_grad(var) / world
     return mean, var
 
 
@@ -93,10 +111,12 @@ def batchnorm_training(x, scale, bias, running_mean, running_var, momentum,
     with torch.no_grad():
         m = momentum
         for run, batch in ((running_mean, mean), (running_var, var)):
-            run.copy_((run.float() * m + batch * (1 - m)).to(run.dtype))
+            run.copy_((accum_f32(run) * m + batch * (1 - m))
+                      .to(run.dtype))
     inv = torch.rsqrt(var + eps).reshape(bshape)
-    y = (x.float() - mean.reshape(bshape)) * inv \
-        * scale.float().reshape(bshape) + bias.float().reshape(bshape)
+    y = (accum_f32(x) - mean.reshape(bshape)) * inv \
+        * accum_f32(scale).reshape(bshape) \
+        + accum_f32(bias).reshape(bshape)
     return y.to(x.dtype)
 
 

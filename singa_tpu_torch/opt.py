@@ -1,10 +1,11 @@
 """Optimizers.
 
-Counterpart of ``singa_tpu/opt.py:30-492``: the tensor-resident learning
+Counterpart of ``singa_tpu/opt.py:30-962``: the tensor-resident learning
 rate schedules (``DecayScheduler``, ``Constant``, ``ExponentialDecay``),
 ``Regularizer`` and ``Constraint``, the ``Optimizer`` base with its step
 counter, loss scale and per-parameter aux states, and ``SGD``,
-``RMSProp``, ``AdaGrad`` and ``Adam`` with the same update math.
+``RMSProp``, ``AdaGrad`` and ``Adam`` with the same update math, and
+``DistOpt``.
 
 The learning rate is a 0-d f32 tensor on the parameters' device, computed
 from the step counter (a device tensor too) once per step. The fused
@@ -37,8 +38,12 @@ and :meth:`Optimizer.step` its verdict ``ok`` (a 0-d device tensor), and a
 bad step is a no-op on every parameter, state and the step counter, with
 no host sync: the multi-tensor kernels skip on the flag, a parameter that
 :meth:`Optimizer.apply` updates alone is put back from a snapshot.
-``DistOpt`` raises until data-parallel training is ported (ROADMAP, slice
-B).
+
+:class:`DistOpt` wraps any of them for data-parallel training over
+``torch.distributed`` (NCCL on the card, gloo on the CPU): each rank's
+gradients are summed over the ranks, averaged, and handed to the wrapped
+optimizer's :meth:`Optimizer.update_params`, so the fused step stays one
+multi-tensor call.
 """
 
 from __future__ import annotations
@@ -590,11 +595,365 @@ class Adam(Optimizer):
                       / (torch.sqrt(vhat) + self.epsilon)).to(p.dtype))
 
 
-class DistOpt:
-    """Data-parallel optimizer: not ported yet."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "DistOpt (data-parallel training) is not ported yet (ROADMAP: "
-            "slice B, torch.distributed); train on one device with a plain "
-            "optimizer")
+
+class DistOpt:
+    """Data-parallel optimizer: the gradients summed over the ranks of the
+    ``data`` axis and averaged before the wrapped optimizer updates
+    (reference ``opt.py:686-1094``, ``src/io/communicator.cc``; the JAX
+    package's ``opt.py:494-962``).
+
+    Each rank is a process with its own shard of the global batch and a
+    replica of the parameters; ``communicator`` (``parallel.communicator.
+    Communicator``) sums over the process group that
+    ``parallel.communicator.init_process`` joined, and outside one it is
+    the identity (a world of 1), so single-device scripts run unchanged.
+    Every driver hands its reduced ``(param, grad)`` pairs to the wrapped
+    optimizer's :meth:`Optimizer.update_params`, so a fused step stays one
+    multi-tensor launch per chunk (K1-multi, K5-multi), then advances the
+    step counter.
+
+    ``bucket_mb`` (MiB of wire bytes; 0 or None: one collective per
+    gradient) concatenates the gradients into buckets, one per wire dtype
+    that fills to the target, and reduces each with one collective.
+    ``overlap`` (default) starts every collective of the step before
+    waiting for any, so a bucket's concatenation runs while the previous
+    bucket is on the wire; ``overlap=False`` is the no-overlap baseline:
+    each collective is waited for before the next starts. The backward
+    returns every gradient at once (one ``torch.autograd.grad``), so in
+    neither mode does a collective overlap the backward (ROADMAP.md, Queue
+    1b).
+
+    ``zero=True`` (ZeRO/FSDP) and ``reduce_axes`` beyond the data axis
+    raise (ROADMAP.md). ``nccl_id``, ``buffSize`` and a driver's
+    ``threshold`` are accepted for parity and ignored; ``world_size`` is
+    the process group's (an explicit value that disagrees raises).
+    """
+
+    def __init__(self, opt=None, nccl_id=None, local_rank=None,
+                 world_size=None, buffSize=None, axis_name="data",
+                 reduce_axes=None, bucket_mb=None, overlap=True,
+                 zero=False):
+        from .parallel.communicator import Communicator
+        if zero:
+            raise NotImplementedError(
+                "DistOpt(zero=True): ZeRO/FSDP sharding of the optimizer "
+                "state is not ported yet (ROADMAP.md: slice B, GSPMD/FSDP); "
+                "construct the DistOpt without zero=True")
+        self.opt = opt if opt is not None else SGD()
+        self.communicator = Communicator(axis_name=axis_name,
+                                         world_size=world_size,
+                                         reduce_axes=reduce_axes)
+        self.local_rank = local_rank if local_rank is not None \
+            else self.communicator.local_rank
+        self.axis_name = axis_name
+        self.bucket_mb = float(bucket_mb) if bucket_mb else 0.0
+        if self.bucket_mb < 0:
+            raise ValueError(f"bucket_mb must be >= 0, got {bucket_mb!r}")
+        self.overlap = bool(overlap)
+        # sparsification error-feedback residuals, per parameter name
+        self._residuals = {}
+        self._bucket_warned = set()
+
+    @property
+    def world_size(self):
+        return self.communicator.world_size
+
+    @property
+    def global_rank(self):
+        return self.communicator.global_rank
+
+    # -- the wrapped optimizer's surface ---------------------------------
+    @property
+    def step_counter(self):
+        return self.opt.step_counter
+
+    @property
+    def loss_scale(self):
+        return self.opt.loss_scale
+
+    @property
+    def device(self):
+        return self.opt.device
+
+    def bind(self, device):
+        self.opt.bind(device)
+        return self
+
+    def state_tensors(self):
+        return self.opt.state_tensors() + list(self._residuals.values())
+
+    def state_tensor_dict(self):
+        d = self.opt.state_tensor_dict()
+        d.update({f"residual/{k}": v for k, v in self._residuals.items()})
+        return d
+
+    def restore_state_tensor(self, name, array):
+        self.set_states({name: array})
+
+    def get_states(self):
+        states = self.opt.get_states()
+        states.update({f"residual/{k}": v.to_numpy()
+                       for k, v in self._residuals.items()})
+        return states
+
+    def set_states(self, states):
+        self.opt.set_states({k: v for k, v in states.items()
+                             if not k.startswith("residual/")})
+        for k, v in states.items():
+            if not k.startswith("residual/"):
+                continue
+            name = k[len("residual/"):]
+            if name in self._residuals:
+                self._residuals[name].copy_from_numpy(np.asarray(v))
+            else:
+                self._residuals[name] = Tensor(
+                    data=np.asarray(v), device=self.opt.device, name=k)
+
+    def step(self, ok=None):
+        self.opt.step(ok)
+
+    def __call__(self, loss):
+        self.backward_and_update(loss)
+
+    # -- collectives ------------------------------------------------------
+    def all_reduce(self, arr, exclude=(), async_op=False):
+        return self.communicator.all_reduce(arr, exclude=exclude,
+                                            async_op=async_op)
+
+    def all_reduce_wire(self, arr, exclude=(), wire=None):
+        """All-reduce on the policy's (or an explicit) 16-bit wire,
+        returning f32 when a cast happened; without a wire (no policy, or
+        the gradient already in the wire dtype) it reduces as it is."""
+        if wire is None:
+            wire = self._policy_wire()
+        if wire is not None and arr.dtype != wire:
+            return self.all_reduce(arr.to(wire), exclude=exclude).float()
+        return self.all_reduce(arr, exclude=exclude)
+
+    @staticmethod
+    def _policy_wire():
+        """The wire dtype of the active precision policy (``Model``'s train
+        step enters the model's), or None."""
+        from .mixed_precision import active_policy
+        pol = active_policy()
+        return pol.comm_dtype if pol is not None else None
+
+    def _mean(self, pairs):
+        """Divide each summed gradient by the world, in place (one
+        ``_foreach_div_``): the one place the sum over the ranks becomes
+        their average. Returns ``pairs``."""
+        if pairs:
+            with torch.no_grad():
+                torch._foreach_div_(
+                    [g.data for _p, g in pairs],
+                    float(self.communicator.effective_world_size()))
+        return pairs
+
+    def reduced_mean(self, pairs, wire=None):
+        """Backward's ``(param, grad)`` pairs averaged over the ranks:
+        :meth:`grad_reduce_stream` (bucketing, overlap, ``wire``), then
+        :meth:`_mean`. The plain and the guarded drivers both reduce
+        through here."""
+        return self._mean(list(self.grad_reduce_stream(pairs, wire=wire)))
+
+    def _update(self, pairs):
+        """Update through the wrapped optimizer with the averaged
+        gradients, advance the step counter."""
+        self.opt.update_params(pairs)
+        self.opt.step()
+
+    # -- bucketed gradient reduction --------------------------------------
+    @staticmethod
+    def _wire_cast_back(arr, orig_dtype, wire):
+        """A gradient cast to a 16-bit wire comes back f32; one already in
+        the wire dtype (or reduced without a wire) keeps its dtype."""
+        if wire is not None and orig_dtype != wire:
+            return arr.float()
+        return arr
+
+    def _buckets(self, pairs, wire):
+        """``(wire dtype, members)`` in the order their collectives start:
+        each gradient alone without ``bucket_mb``; else a bucket as soon as
+        its bytes reach the target, the partly filled ones at the end in
+        the order they were opened."""
+        if not self.bucket_mb:
+            for p, g in pairs:
+                yield (wire if wire is not None else g.data.dtype), [(p, g)]
+            return
+        target = int(self.bucket_mb * (1 << 20))
+        buckets = {}          # wire dtype -> [members, bytes]
+        for p, g in pairs:
+            eff = wire if wire is not None else g.data.dtype
+            slot = buckets.setdefault(eff, [[], 0])
+            slot[0].append((p, g))
+            slot[1] += g.data.numel() * eff.itemsize
+            if slot[1] >= target:
+                yield eff, buckets.pop(eff)[0]
+        for eff, (items, _n) in buckets.items():
+            yield eff, items
+
+    def _flush_bucket(self, eff, items):
+        """Start one bucket's collective (``async_op=True``): its members'
+        gradients cast to ``eff`` and concatenated (a lone member is
+        reduced as it is). Returns each member with its view of the
+        reduced buffer, to be read after :meth:`Communicator.wait`."""
+        casts = [g.data if g.data.dtype == eff else g.data.to(eff)
+                 for _p, g in items]
+        if len(items) == 1:
+            buf = casts[0].contiguous()
+            self.all_reduce(buf, async_op=True)
+            return [(items[0][0], items[0][1], buf)]
+        buf = torch.cat([c.reshape(-1) for c in casts])
+        self.all_reduce(buf, async_op=True)
+        out, off = [], 0
+        for (p, g), c in zip(items, casts):
+            out.append((p, g, buf[off:off + c.numel()].view(c.shape)))
+            off += c.numel()
+        return out
+
+    def grad_reduce_stream(self, pairs, wire=None):
+        """Backward's ``(param, grad)`` pairs with each ``grad.data``
+        SUMMED over the ranks (the average is the caller's): the one
+        reduction the plain and the guarded drivers share, so the
+        bucketing, overlap and wire-cast rules cannot differ between them.
+        ``wire`` defaults to the active policy's; a gradient cast to it
+        comes back f32, bucketed or not (:meth:`all_reduce_wire`'s rule),
+        so bucketed and per-gradient reduction give the same numbers."""
+        if wire is None:
+            wire = self._policy_wire()
+        started = []
+        for eff, items in self._buckets(pairs, wire):
+            started += self._flush_bucket(eff, items)
+            if not self.overlap:
+                self.communicator.wait()
+        self.communicator.wait()
+        for p, g, red in started:
+            g.data = self._wire_cast_back(red, g.data.dtype, wire)
+            yield p, g
+
+    def _warn_driver_skips_bucketing(self, driver):
+        """The half, partial and sparse drivers reduce per gradient: a
+        ``bucket_mb``/``overlap`` setting has no effect there, so say so,
+        once per driver."""
+        if (not self.bucket_mb and self.overlap) or \
+                driver in self._bucket_warned:
+            return
+        self._bucket_warned.add(driver)
+        import warnings
+        warnings.warn(
+            f"DistOpt(bucket_mb={self.bucket_mb}, overlap={self.overlap}) "
+            f"has no effect on {driver}: only the plain and guarded "
+            "drivers ride grad_reduce_stream; this driver streams "
+            "per-gradient collectives", stacklevel=3)
+
+    # -- training drivers -------------------------------------------------
+    def backward_and_update(self, loss, threshold=2097152):
+        """Sum every gradient over the ranks (:meth:`grad_reduce_stream`:
+        per gradient, or in buckets; on the policy's 16-bit wire under a
+        16-bit compute policy), average, update (reference
+        ``opt.py:826-865``)."""
+        self._update(self.reduced_mean(autograd_base.backward(loss)))
+
+    @classmethod
+    def _half_wire_defaults(cls, dtype, clipping):
+        """An explicit ``dtype`` keeps the caller's choices; None takes the
+        active policy's wire (else bfloat16), and a policy's fp16 wire
+        turns clipping on (fp16 overflows above 65504 and this driver runs
+        unguarded)."""
+        if dtype is not None:
+            return dtype, clipping
+        wire_pol = cls._policy_wire()
+        if wire_pol == torch.float16:
+            return "float16", True
+        return wire_pol or "bfloat16", clipping
+
+    def backward_and_update_half(self, loss, threshold=2097152,
+                                 clipping=False, clip_value=2.5,
+                                 dtype=None):
+        """Reduced-precision communication: each gradient (clipped to
+        ``+-clip_value`` with ``clipping``) cast to ``dtype`` --
+        ``"bfloat16"`` or ``"float16"`` -- summed on that wire and cast
+        back to f32 (reference ``synchHalf``,
+        ``src/io/communicator.cc:262-299``)."""
+        self._warn_driver_skips_bucketing("backward_and_update_half")
+        dtype, clipping = self._half_wire_defaults(dtype, clipping)
+        wire = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+                torch.bfloat16: torch.bfloat16,
+                torch.float16: torch.float16}.get(dtype)
+        if wire is None:
+            raise ValueError(
+                f"dtype must be 'bfloat16' or 'float16', got {dtype!r}")
+        pairs = []
+        for p, g in autograd_base.backward(loss):
+            grad = g.data
+            if clipping:
+                grad = torch.clamp(grad, -clip_value, clip_value)
+            g.data = self.all_reduce(grad.to(wire)).float()
+            pairs.append((p, g))
+        self._update(self._mean(pairs))
+
+    def backward_and_partial_update(self, loss, threshold=2097152,
+                                    rotation=None):
+        """Partial synchronisation (reference ``opt.py:922-992``): each
+        step only the parameters ``i`` with ``i % world == rotation`` take
+        the averaged gradient, the rest their local one.
+
+        A static ``rotation`` (a python int, normally ``step % world``)
+        runs collectives for its partition only, one graph per value in
+        graph mode. ``rotation=None`` selects on the device step counter
+        (``(step + i) % world == 0``): one graph that keeps rotating, but
+        every gradient is reduced and only the update is masked."""
+        self._warn_driver_skips_bucketing("backward_and_partial_update")
+        n = max(1, self.communicator.effective_world_size())
+        pairs = list(autograd_base.backward(loss))
+        if rotation is not None:
+            rot = int(rotation) % n
+            chosen = [(p, g) for i, (p, g) in enumerate(pairs)
+                      if i % n == rot]
+            for _p, g in chosen:
+                g.data = self.all_reduce(g.data)
+            self._mean(chosen)
+        else:
+            step = self.opt.step_counter.data
+            for i, (_p, g) in enumerate(pairs):
+                summed = self.all_reduce(g.data.clone())
+                sel = torch.remainder(step + i, n) == 0
+                g.data = torch.where(sel, summed / n, g.data)
+        self.opt.update_params(pairs)
+        self.opt.step()
+
+    def backward_and_sparse_update(self, loss, spars=0.05, topK=False,
+                                   corr=True):
+        """Gradient sparsification with error feedback (reference
+        ``opt.py:994+``, ``Communicator::sparsification``): each gradient
+        plus its residual keeps the entries with ``|g| >= spars``
+        (``topK=False``) or its ``spars`` share of largest ``|g|``
+        (``torch.topk``; the entries tied with the k-th are kept too), the
+        rest becomes the next residual (``corr``), and the kept entries
+        are summed over the ranks as a dense tensor and averaged."""
+        self._warn_driver_skips_bucketing("backward_and_sparse_update")
+        pairs = []
+        for p, g in autograd_base.backward(loss):
+            name = p.name or f"param/{id(p)}"
+            grad = g.data
+            if corr:
+                res = self._residuals.get(name)
+                if res is None:
+                    res = self._residuals[name] = Tensor(
+                        shape=p.shape, device=p.device,
+                        name=f"residual/{name}")
+                grad = grad + res.data
+            absg = grad.abs()
+            if topK:
+                k = max(1, int(spars * grad.numel()))
+                thresh = torch.topk(absg.reshape(-1), k).values[-1]
+                mask = absg >= thresh
+            else:
+                mask = absg >= spars
+            sparse = torch.where(mask, grad, 0.0)
+            if corr:
+                res.data.copy_(grad - sparse)
+            g.data = self.all_reduce(sparse)
+            pairs.append((p, g))
+        self._update(self._mean(pairs))

@@ -1,5 +1,7 @@
-"""Parallel layers of the port (counterpart of ``singa_tpu/parallel``):
-the tensor-parallel layers in their single-device form. Meshes,
-collectives and the sharded forms are not ported yet (ROADMAP.md)."""
+"""Parallel training of the port (counterpart of ``singa_tpu/parallel``):
+the data-parallel ``communicator`` (collectives over ``torch.distributed``)
+and ``mesh`` (the ``data`` axis), and the tensor-parallel layers in their
+single-device form. The sharded forms and the other mesh axes are not
+ported yet (ROADMAP.md)."""
 
-from . import tensor_parallel  # noqa: F401
+from . import communicator, mesh, tensor_parallel  # noqa: F401

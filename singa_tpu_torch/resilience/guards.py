@@ -29,10 +29,16 @@ runs on the card and reads nothing back to the host:
   tensors, saved with the optimizer's states (``guard/...``,
   ``guard-shadow/...``).
 
+Over a ``DistOpt`` (``singa_tpu/resilience/guards.py:273-345``) the
+scaled gradients are averaged over the ranks by ``DistOpt.reduced_mean``
+(on the policy's wire) and then unscaled in f32; the
+loss verdict is summed over the ranks, so a NaN on one rank skips the step
+on every rank. Its half, partial and sparse drivers pass through
+unguarded, as in the JAX package.
+
 The host reads them only in :meth:`GuardedOptimizer.stats`,
 :meth:`~GuardedOptimizer.bad_streak_value` and the checkpoint routes.
-Not ported yet: ``record_metrics`` (``observability``, ROADMAP slice E)
-and the guard over a ``DistOpt`` (ROADMAP, slice B).
+Not ported yet: ``record_metrics`` (``observability``, ROADMAP slice E).
 """
 
 from __future__ import annotations
@@ -58,9 +64,6 @@ class GuardedOptimizer:
                  init_scale=1.0, growth_factor=2.0, backoff_factor=0.5,
                  growth_interval=2000, min_scale=2.0 ** -14,
                  max_scale=2.0 ** 24, max_loss=None, max_grad_norm=None):
-        if isinstance(optimizer, DistOpt):
-            raise NotImplementedError(
-                "a guard over DistOpt is not ported yet (ROADMAP: slice B)")
         self.inner = optimizer
         self.dynamic_loss_scale = bool(dynamic_loss_scale)
         self.init_scale = float(init_scale)
@@ -226,22 +229,40 @@ class GuardedOptimizer:
     def backward_and_update(self, loss):
         if self._own is None:
             self.bind(loss.device)
-        base = self.inner
+        dist = self.inner if isinstance(self.inner, DistOpt) else None
+        base = self.inner if dist is None else dist.opt
         scale = base.loss_scale.data
         loss_arr = loss.data
-        pairs = list(autograd_base.backward(
-            loss, dy=scale.expand(loss_arr.shape).to(loss_arr.dtype)))
+        pairs = autograd_base.backward(
+            loss, dy=scale.expand(loss_arr.shape).to(loss_arr.dtype))
+        if dist is not None:
+            pairs = dist.reduced_mean(pairs)
+        pairs = list(pairs)
         with torch.no_grad():
-            ok, norm_sq = self._unscale(pairs, loss_arr.detach(), scale)
+            ok = self._loss_ok(loss_arr.detach())
+            if dist is not None:
+                # a bad loss on one rank skips the step on every rank
+                ok = dist.all_reduce((~ok).float()) == 0
+            ok, norm_sq = self._unscale(pairs, scale, ok)
             okf = ok.to(torch.float32)
             base.update_params(pairs, ok=okf)
             base.step(okf)
             self._restore_shadows(ok)
             self._bookkeeping(ok, okf, norm_sq, scale)
 
-    def _unscale(self, pairs, loss_arr, scale):
+    def _loss_ok(self, loss_arr):
+        """The loss half of the verdict: finite (and within ``max_loss``)."""
+        loss32 = loss_arr.float()
+        ok = torch.isfinite(loss32).all()
+        if self.max_loss is not None:
+            ok = ok & ~(loss32 > self.max_loss).any()
+        return ok
+
+    def _unscale(self, pairs, scale, ok):
         """Unscale every gradient in f32 (cast back to its parameter's
-        dtype) and return the step's verdict and global squared norm."""
+        dtype) and return the step's verdict (``ok``, the loss's, and a
+        finite global norm within ``max_grad_norm``) and the global squared
+        norm."""
         g32 = [g.data.float() for _, g in pairs]
         norm_sq = torch.zeros((), dtype=torch.float32, device=scale.device)
         if g32:
@@ -250,10 +271,6 @@ class GuardedOptimizer:
                 torch._foreach_norm(g32)).square())
         for (p, g), a in zip(pairs, g32):
             g.data = a if a.dtype == p.dtype else a.to(p.dtype)
-        loss32 = loss_arr.float()
-        ok = torch.isfinite(loss32).all()
-        if self.max_loss is not None:
-            ok = ok & ~(loss32 > self.max_loss).any()
         ok = ok & torch.isfinite(norm_sq)
         if self.max_grad_norm is not None:
             ok = ok & (norm_sq <= float(self.max_grad_norm) ** 2)

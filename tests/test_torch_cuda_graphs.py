@@ -223,3 +223,46 @@ def test_a_capture_error_raises_and_nothing_runs_eagerly():
     assert g.pool != pool
     assert again.tolist() == [2.0] * 16
     assert g.stats() == {"n_captures": 1, "n_replays": 1}
+
+
+@pytest.mark.cuda
+def test_a_dropped_model_is_not_freed_inside_a_capture(deterministic):
+    """A model and its captured steps hold each other, so a dropped model's
+    CUDA graphs wait for the cyclic collector; freeing one inside another
+    model's capture would invalidate that capture. A captured model is
+    dropped just before another one captures a step that runs the
+    collector: the capture holds and replays."""
+    import gc
+
+    class Collecting(ConvBN):
+        def train_one_batch(self, x, y):
+            gc.collect()        # where the collector may run on its own
+            return super().train_one_batch(x, y)
+
+    _need_card()
+    dev = device.create_cuda_gpu(0)
+    (x, y), = _batches(1)
+    tx, ty = tensor.Tensor(data=x, device=dev), \
+        tensor.Tensor(data=y, device=dev)
+
+    def compiled(cls):
+        m = cls()
+        m.set_optimizer(opt.SGD(lr=0.05, momentum=0.9, fused=True))
+        m.compile([tx], is_train=True, use_graph=True)
+        return m
+
+    dropped, m = compiled(ConvBN), compiled(Collecting)
+    for _ in range(2):
+        dropped(tx, ty)         # eager, then captured
+    m(tx, ty)                   # eager: the next call captures
+    collecting = gc.isenabled()
+    gc.disable()                # nothing frees the dropped one before
+    try:
+        del dropped             # only a cycle holds its graph now
+        m(tx, ty)
+        m(tx, ty)
+    finally:
+        if collecting:
+            gc.enable()
+    assert list(m.graph_stats().values()) == [
+        {"n_captures": 1, "n_replays": 2}]

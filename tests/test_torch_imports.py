@@ -29,7 +29,8 @@ def _sources():
             "parallel/tensor_parallel.py", "models/transformer.py",
             "examples/train_transformer.py", "models/mlp.py",
             "models/cnn.py", "models/alexnet.py",
-            "models/xceptionnet.py"} <= names
+            "models/xceptionnet.py", "parallel/communicator.py",
+            "parallel/mesh.py"} <= names
     return files
 
 
@@ -57,6 +58,7 @@ def test_importing_the_port_loads_no_jax():
         "from singa_tpu_torch import opt, data, datasets, metric\n"
         "from singa_tpu_torch.ops import fused_optim, attention, losses\n"
         "from singa_tpu_torch.parallel import tensor_parallel\n"
+        "from singa_tpu_torch.parallel import communicator, mesh\n"
         "from singa_tpu_torch.models import transformer\n"
         "from singa_tpu_torch.models import mlp, cnn, alexnet, "
         "xceptionnet\n"

@@ -64,12 +64,13 @@ def test_cifar10_training_runs(example, capsys, tmp_path):
                                   ["resnet", "--resilient"]], ids=str)
 def test_what_is_not_ported_names_the_roadmap(example, argv):
     """Each case is refused naming ROADMAP.md, except those ported since:
-    ``-p bf16_mixed``, the ``cnn`` model and the ``mnist`` dataset, which
-    ``_refuse`` lets through (their runs are
-    ``test_bf16_mixed_cifar10_training_runs`` and
-    ``tests/test_torch_cnn_example.py``)."""
+    ``-p bf16_mixed``, the ``cnn`` model, the ``mnist`` dataset and
+    ``--dist``, which ``_refuse`` lets through (their runs are
+    ``test_bf16_mixed_cifar10_training_runs``,
+    ``tests/test_torch_cnn_example.py`` and
+    ``tests/test_torch_dist_example.py``)."""
     if argv in (["cnn"], ["resnet", "mnist"],
-                ["resnet", "-p", "bf16_mixed"]):
+                ["resnet", "-p", "bf16_mixed"], ["resnet", "--dist"]):
         assert example._refuse(example.build_parser().parse_args(
             argv + ["--cpu"])) is None
         return

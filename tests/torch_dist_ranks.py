@@ -1,0 +1,443 @@
+"""Rank processes of the port's data-parallel CPU tests.
+
+:func:`launch` starts ``world`` processes of this file at once. Each joins
+one gloo process group through a file store in the work directory
+(``parallel.communicator.init_process``, 60 s timeout), runs
+``CASES[case]`` as its rank on the numpy arrays the test wrote to
+``inputs.npz`` and writes what it measured to ``rank<r>.npz``; its output
+goes to ``rank<r>.log``. The processes are waited for with one deadline,
+and a rank that fails or hangs fails the launch (every rank is killed).
+This file imports neither JAX nor the JAX package, so a rank starts in
+about two seconds; the tests hold the results against the JAX package in
+their own process.
+
+    python tests/torch_dist_ranks.py CASE RANK WORLD WORKDIR
+"""
+
+from __future__ import annotations
+
+import os
+import socket
+import subprocess
+import sys
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TIMEOUT_S = 120
+
+# dist_option -> (spars, steps), as tests/test_parallel.py::TestDistOptions
+OPTIONS = {"plain": (None, 6), "half": (None, 6), "fp16": (None, 6),
+           "partialUpdate": (None, 10), "sparseTopK": (0.3, 10),
+           "sparseThreshold": (1e-3, 10)}
+# DistOpt settings held bitwise against the streaming reduction
+BUCKETINGS = {"bucket4": {"bucket_mb": 4}, "bucket_tiny": {"bucket_mb": 0.001},
+              "no_overlap": {"overlap": False},
+              "bucket4_no_overlap": {"bucket_mb": 4, "overlap": False}}
+GUARD_STEPS = 5
+POISONED = 2          # the step whose batch holds a NaN on rank 1
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def launch(case, world, inputs, workdir, torchrun_env=False,
+           timeout=TIMEOUT_S):
+    """Run ``case`` on ``world`` ranks; returns each rank's arrays (a dict
+    per rank) and its log. ``torchrun_env`` hands the ranks ``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT`` as
+    ``torchrun`` does, in place of the file store."""
+    workdir = str(workdir)
+    np.savez(os.path.join(workdir, "inputs.npz"), **inputs)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        env.pop(k, None)
+    port = free_port()
+    procs, logs = [], []
+    for r in range(world):
+        log = open(os.path.join(workdir, f"rank{r}.log"), "w")
+        logs.append(log)
+        renv = env if not torchrun_env else dict(
+            env, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+            MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), case, str(r),
+             str(world), workdir], env=renv, stdout=log,
+            stderr=subprocess.STDOUT, cwd=ROOT))
+    import time
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(0.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    texts = [open(os.path.join(workdir, f"rank{r}.log")).read()
+             for r in range(world)]
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise AssertionError(
+            f"{case}: rank(s) {bad} failed or hung (exit codes "
+            f"{[p.returncode for p in procs]}, deadline {timeout} s):\n"
+            + "\n".join(f"--- rank {r} ---\n{texts[r][-3000:]}"
+                        for r in bad))
+    outs = []
+    for r in range(world):
+        with np.load(os.path.join(workdir, f"rank{r}.npz")) as z:
+            outs.append({k: z[k] for k in z.files})
+    return outs, texts
+
+
+# -- models -------------------------------------------------------------------
+
+def bn_model():
+    """The port's counterpart of ``tests/test_parallel.py::BNModel``."""
+    from singa_tpu_torch import layer, model
+
+    class BNModel(model.Model):
+        def __init__(self):
+            super().__init__()
+            self.conv = layer.Conv2d(4, 3, padding=1)
+            self.bn = layer.BatchNorm2d()
+            self.flat = layer.Flatten()
+            self.fc = layer.Linear(4)
+            self.loss_fn = layer.SoftMaxCrossEntropy()
+
+        def forward(self, x):
+            return self.fc(self.flat(self.bn(self.conv(x))))
+
+        def train_one_batch(self, x, y):
+            out = self.forward(x)
+            loss = self.loss_fn(out, y)
+            self.optimizer(loss)
+            return out, loss
+
+    return BNModel()
+
+
+def mlp3():
+    """The port's counterpart of ``tests/test_grad_bucketing.py::MLP``."""
+    from singa_tpu_torch import layer, model
+
+    class MLP(model.Model):
+        def __init__(self, hidden=64, classes=4):
+            super().__init__()
+            self.fc1 = layer.Linear(hidden)
+            self.r1 = layer.ReLU()
+            self.fc2 = layer.Linear(hidden)
+            self.r2 = layer.ReLU()
+            self.fc3 = layer.Linear(classes)
+            self.loss_fn = layer.SoftMaxCrossEntropy()
+
+        def forward(self, x):
+            return self.fc3(self.r2(self.fc2(self.r1(self.fc1(x)))))
+
+        def train_one_batch(self, x, y):
+            out = self.forward(x)
+            loss = self.loss_fn(out, y)
+            self.optimizer(loss)
+            return out, loss
+
+    return MLP()
+
+
+# -- helpers ------------------------------------------------------------------
+
+def _init(inputs, prefix):
+    return {k[len(prefix):]: v for k, v in inputs.items()
+            if k.startswith(prefix)}
+
+
+def _compiled(model, dev, x, optimizer, init=None, policy=None):
+    from singa_tpu_torch import tensor
+    from singa_tpu_torch.model import load_numpy_states
+    model.set_optimizer(optimizer)
+    model.compile([tensor.Tensor(data=x, device=dev)], is_train=True,
+                  use_graph=True, policy=policy)
+    if init is not None:
+        load_numpy_states(model, init)
+    return model
+
+
+def _states(model, prefix, out):
+    """Copies (``to_numpy`` of a CPU tensor shares its memory) of the
+    model's and its optimizer's states."""
+    for k, v in model.get_states().items():
+        out[f"{prefix}/state/{k}"] = np.array(v.to_numpy())
+    for k, v in model.optimizer.get_states().items():
+        out[f"{prefix}/opt/{k}"] = np.array(v)
+
+
+def as_float64(model):
+    """Every state of the compiled ``model`` in f64, the parameters still
+    parameters: a run free of f32 summation-order noise (a batch split
+    over ranks sums in another order than the whole batch)."""
+    from singa_tpu_torch.autograd_base import register_param
+    for t in model.get_states().values():
+        param = getattr(t.data, "_singa_param", None) is not None
+        t.data = t.data.detach().double()
+        if param:
+            register_param(t)
+    return model
+
+
+def _agree(model, comm):
+    from singa_tpu_torch.parallel.communicator import replica_fingerprint
+    _, agree = replica_fingerprint(list(model.get_states().values()), comm)
+    return bool(agree)
+
+
+# -- cases --------------------------------------------------------------------
+
+def case_dist_opt(rank, world, dev, inputs):
+    """The MLP of ``TestDistOptions`` under each option, the static
+    rotation's collective counts, the graph cache, the communicator's
+    primitives and the mesh."""
+    import torch
+    from singa_tpu_torch import datasets, opt, tensor
+    from singa_tpu_torch.models import mlp
+    from singa_tpu_torch.parallel import communicator as C
+    from singa_tpu_torch.parallel import mesh as M
+    xs, ys = datasets.partition(rank, world, inputs["x"], inputs["y"])
+    tx = tensor.Tensor(data=xs, device=dev)
+    ty = tensor.Tensor(data=ys, device=dev)
+    init = _init(inputs, "init/")
+
+    def model(optimizer):
+        return _compiled(mlp.create_model(data_size=8, perceptron_size=16,
+                                          num_classes=4),
+                         dev, xs, optimizer, init)
+
+    out = {}
+    for option, (spars, steps) in OPTIONS.items():
+        d = opt.DistOpt(opt.SGD(lr=0.1, momentum=0.9))
+        m = model(d)
+        losses, agree = [], []
+        for step in range(steps):
+            _, loss = m(tx, ty, option, spars)
+            losses.append(float(loss.data.detach()))
+            agree.append(_agree(m, d.communicator))
+            if step == 0:
+                for k, res in d._residuals.items():
+                    out[f"{option}/kept1/{k}"] = res.to_numpy() == 0
+        out[f"{option}/losses"] = np.asarray(losses)
+        out[f"{option}/agree"] = np.asarray(agree)
+        _states(m, option, out)
+
+    # static rotation: one graph per value, collectives for its partition
+    d = opt.DistOpt(opt.SGD(lr=0.1, momentum=0.9))
+    m = model(d)
+    n = d.communicator.effective_world_size()
+    out["rot/losses"] = np.asarray([
+        float(m(tx, ty, "partialUpdate", None, step % n)[1].data.detach())
+        for step in range(2 * n)])
+    out["rot/n_graphs"] = np.asarray(len(m._graphs))
+    c0 = d.communicator.n_collectives
+    m(tx, ty, "partialUpdate", None, 0)
+    c1 = d.communicator.n_collectives
+    m(tx, ty, "partialUpdate", None)
+    out["rot/static"] = np.asarray(c1 - c0)
+    out["rot/fallback"] = np.asarray(d.communicator.n_collectives - c1)
+
+    # alternating options hit one graph each
+    m = model(opt.DistOpt(opt.SGD(lr=0.05)))
+    out["cache/losses"] = np.asarray([
+        float(m(tx, ty, option, None)[1].data.detach())
+        for option in ["plain", "half", "plain", "half"]])
+    out["cache/n_graphs"] = np.asarray(len(m._graphs))
+
+    # the communicator's primitives, and one over the mesh's group
+    comm = C.Communicator()
+    out["comm/rank"] = np.asarray(comm.rank())
+    out["comm/world"] = np.asarray(comm.effective_world_size())
+    d = opt.DistOpt(opt.SGD(), world_size=world)
+    out["comm/dist_world"] = np.asarray([d.world_size, d.global_rank])
+    try:
+        opt.DistOpt(opt.SGD(), world_size=world + 1)
+        out["comm/wrong_world"] = np.asarray("")
+    except ValueError as e:
+        out["comm/wrong_world"] = np.asarray(str(e))
+    out["comm/all_gather"] = comm.all_gather(
+        torch.full((1, 2), float(rank)), axis=0).numpy()
+    out["comm/reduce_scatter"] = comm.reduce_scatter(
+        torch.arange(2.0 * world) + rank).numpy()
+    out["comm/broadcast"] = comm.broadcast(
+        torch.full((3,), float(rank)), root=1).numpy()
+    grad_in = torch.full((2,), float(rank + 1), requires_grad=True)
+    summed = comm.all_reduce_grad(grad_in)
+    (g,) = torch.autograd.grad(summed, grad_in,
+                               torch.full((2,), float(rank + 1)))
+    out["comm/all_reduce_grad"] = summed.detach().numpy()
+    out["comm/all_reduce_grad_grad"] = g.numpy()
+    mesh = M.make_mesh()
+    out["mesh/size"] = np.asarray(mesh.size())
+    out["mesh/all_reduce"] = C.Communicator(mesh=mesh).all_reduce(
+        torch.ones(2)).numpy()
+    try:
+        M.make_mesh(config=M.MeshConfig(model=2))
+        out["mesh/model_refused"] = np.asarray("")
+    except NotImplementedError as e:
+        out["mesh/model_refused"] = np.asarray(str(e))
+    out["fingerprint/differs"] = np.asarray(bool(C.replica_fingerprint(
+        [torch.full((3,), float(rank))], comm)[1]))
+    return out
+
+
+def case_sync_bn(rank, world, dev, inputs):
+    """``BNModel`` under ``DistOpt(SGD(lr=0.1))``, 4 steps on the rank's
+    shard: losses, parameters and BN running statistics."""
+    from singa_tpu_torch import datasets, opt, tensor
+    xs, ys = datasets.partition(rank, world, inputs["x"], inputs["y"])
+    d = opt.DistOpt(opt.SGD(lr=0.1))
+    m = _compiled(bn_model(), dev, xs, d, _init(inputs, "init/"))
+    tx = tensor.Tensor(data=xs, device=dev)
+    ty = tensor.Tensor(data=ys, device=dev)
+    out = {"losses": np.asarray([float(m(tx, ty)[1].data.detach())
+                                 for _ in range(4)])}
+    out["agree"] = np.asarray(_agree(m, d.communicator))
+    _states(m, "bn", out)
+    # the same steps in f64
+    m = as_float64(_compiled(bn_model(), dev, xs, opt.DistOpt(
+        opt.SGD(lr=0.1)), _init(inputs, "init/")))
+    tx = tensor.Tensor(data=xs.astype(np.float64), device=dev)
+    ty = tensor.Tensor(data=ys.astype(np.float64), device=dev)
+    out["f64/losses"] = np.asarray([float(m(tx, ty)[1].data.detach())
+                                    for _ in range(4)])
+    _states(m, "f64", out)
+    return out
+
+
+def case_guard(rank, world, dev, inputs):
+    """Bucketed against streaming reduction (f32 and the ``bf16_mixed``
+    wire), then the guard over a ``DistOpt`` with rank 1's shard of step
+    ``POISONED`` holding a NaN."""
+    from singa_tpu_torch import datasets, opt, tensor
+    from singa_tpu_torch.resilience import GuardedOptimizer
+    out = {}
+    xs, ys = datasets.partition(rank, world, inputs["bx"], inputs["by"])
+    tx = tensor.Tensor(data=xs, device=dev)
+    ty = tensor.Tensor(data=ys, device=dev)
+    init = _init(inputs, "binit/")
+    runs = [("stream", {}, None)] + \
+        [(k, kw, None) for k, kw in BUCKETINGS.items()] + \
+        [("stream_bf16", {}, "bf16_mixed"),
+         ("bucket4_bf16", {"bucket_mb": 4}, "bf16_mixed")]
+    for name, kw, policy in runs:
+        d = opt.DistOpt(opt.SGD(lr=0.1, momentum=0.9), **kw)
+        m = _compiled(mlp3(), dev, xs, d, init, policy)
+        for _ in range(4):
+            m(tx, ty)
+        out[f"{name}/collectives"] = np.asarray(
+            d.communicator.n_collectives)
+        _states(m, name, out)
+
+    from singa_tpu_torch.models import mlp
+    guard = GuardedOptimizer(opt.DistOpt(opt.SGD(lr=0.1, momentum=0.9)),
+                             init_scale=2.0 ** 4, growth_interval=2)
+    m = _compiled(mlp.create_model(data_size=8, perceptron_size=16,
+                                   num_classes=4),
+                  dev, datasets.partition(rank, world, inputs["gx0"])[0],
+                  guard, _init(inputs, "ginit/"), "bf16_mixed")
+    for step in range(GUARD_STEPS):
+        xs, ys = datasets.partition(rank, world, inputs[f"gx{step}"],
+                                    inputs[f"gy{step}"])
+        before = {k: np.array(v.to_numpy())
+                  for k, v in m.get_states().items()}
+        _, loss = m(tensor.Tensor(data=xs, device=dev),
+                    tensor.Tensor(data=ys, device=dev))
+        out[f"guard/loss{step}"] = np.asarray(float(loss.data.detach()))
+        stats = guard.stats()
+        for k in ("loss_scale", "bad_streak", "good_streak",
+                  "skipped_total", "grad_norm"):
+            out[f"guard/{k}{step}"] = np.asarray(stats[k])
+        if step == POISONED:
+            for k, v in before.items():
+                out[f"guard/before/{k}"] = v
+            _states(m, "guard/after", out)
+    _states(m, "guard/final", out)
+    out["guard/agree"] = np.asarray(_agree(m, guard.communicator))
+
+    # the same good steps through the unguarded driver (bf16_mixed without
+    # loss scaling): the guard's scales are powers of two, so its
+    # reduction on the bf16 wire, average and unscale give the same bits
+    from singa_tpu_torch.mixed_precision import Policy
+    m = _compiled(mlp.create_model(data_size=8, perceptron_size=16,
+                                   num_classes=4),
+                  dev, datasets.partition(rank, world, inputs["gx0"])[0],
+                  opt.DistOpt(opt.SGD(lr=0.1, momentum=0.9)),
+                  _init(inputs, "ginit/"),
+                  Policy("bf16_mixed", loss_scaling=False))
+    for step in range(GUARD_STEPS):
+        if step != POISONED:
+            xs, ys = datasets.partition(rank, world, inputs[f"gx{step}"],
+                                        inputs[f"gy{step}"])
+            m(tensor.Tensor(data=xs, device=dev),
+              tensor.Tensor(data=ys, device=dev))
+    _states(m, "unguarded/final", out)
+    return out
+
+
+def case_example(rank, world, dev, inputs):
+    """``train_cnn.main`` with ``inputs["argv"]``, each training loss it
+    returned recorded (``Model.__call__`` wrapped)."""
+    import runpy
+    from singa_tpu_torch import model as model_mod
+    example = runpy.run_path(
+        os.path.join(ROOT, "singa_tpu_torch", "examples", "train_cnn.py"),
+        run_name="train_cnn")
+    losses = []
+    call = model_mod.Model.__call__
+
+    def recorded(self, *a, **kw):
+        out = call(self, *a, **kw)
+        if self._train:
+            losses.append(float(out[1].data.detach()))
+        return out
+
+    model_mod.Model.__call__ = recorded
+    m = example["main"]([str(a) for a in inputs["argv"]])
+    out = {"losses": np.asarray(losses)}
+    _states(m, "example", out)
+    return out
+
+
+CASES = {"dist_opt": case_dist_opt, "sync_bn": case_sync_bn,
+         "guard": case_guard, "example": case_example}
+
+
+def main(argv):
+    case, rank, world, workdir = argv[1], int(argv[2]), int(argv[3]), \
+        argv[4]
+    import torch
+    torch.set_num_threads(1)
+    sys.path.insert(0, ROOT)
+    from singa_tpu_torch import device
+    from singa_tpu_torch.parallel import communicator
+    dev = device.create_cpu_device()
+    joined = case != "example"
+    if joined:
+        communicator.init_process(
+            communicator.NcclIdHolder(file=os.path.join(workdir, "store")),
+            rank, world, device=dev, timeout_s=60)
+    try:
+        with np.load(os.path.join(workdir, "inputs.npz")) as z:
+            inputs = {k: z[k] for k in z.files}
+        out = CASES[case](rank, world, dev, inputs)
+        np.savez(os.path.join(workdir, f"rank{rank}.npz"), **out)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv)
