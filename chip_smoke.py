@@ -220,7 +220,31 @@ failure exits nonzero:
    bounds of one rank's whole-batch run here (f32 summation-order noise
    grows past them over later steps), and the same 3 steps with every
    state and the batch in f64, each loss and state within 1e-9 of the
-   f64 whole-batch run's.
+   f64 whole-batch run's;
+18. fsdp: (a) ResNet-50 b32 (the SGD of phase 6, fused) under the train
+   mesh and ZeRO/FSDP over NCCL at world 1 on the card, graphed (the
+   gathers and scatters captured with the step), 3 steps from the
+   training phases' start, cuDNN deterministic, in four cases: f32 and
+   bf16_mixed, each under ``compile(mesh=train_mesh(data=1),
+   fsdp_axis="data")`` with the plain SGD and under
+   ``DistOpt(zero=True)``; each bitwise (losses, every state and momentum)
+   with the plain graphed step (under bf16_mixed the guarded SGD with each
+   gradient rounded through bf16, the wire's plain version); one capture,
+   K1-multi's launches at the eager call and the capture only; the
+   collectives each step starts by kind (a gather and a scatter per
+   parameter); for the first spelling of each precision the NCCL kernels
+   and K1-multi's launches in the trace of 3 replays and the step p50/p99
+   against the plain step's in 5 alternating rounds; in f32 the bytes a
+   rank holds of its states and on the card between steps and at the
+   peak, FSDP and plain, graphed and eager; (b) two processes of this
+   script (``--zero-rank``) on the one card over gloo, eager, each on its
+   half of every batch: the CNN (b64, 3 steps) and ResNet-50 (b32, 16 a
+   rank, lr 1e-3, 2 steps) under ``DistOpt(zero=True)`` bitwise (losses,
+   every state and momentum, gathered) with the plain ``DistOpt``, a
+   rank's state bytes at most 0.55 of a replicated rank's; the ZeRO
+   ResNet-50's archive (``save_states``: rank 0 writes) equal to a
+   replicated rank's, restored into a fresh ZeRO model on both ranks
+   bitwise.
 
 Rows of kernels that a graph replays (K2, K1-multi with and without the
 flag, K5-multi with the flag, K3/K4) carry ``replays`` and
@@ -229,7 +253,8 @@ replayed run (K1, K5, K3 and K4 with ``replayed_launches``, the count in
 that trace; K2's ``launches`` are its count). K1-multi's row and K2's
 NCHW rows also carry ``other_paths_launches_per_replay``: the launches
 per replayed step of each phase-13/14 model and per replayed Xception
-tick, and the launches per replayed step of phase 17's DistOpt runs.
+tick, and the launches per replayed step of phase 17's DistOpt runs
+and of phase 18's FSDP steps.
 Its last lines are the ``{"kernels": [...]}`` record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``. In
 that record ``ms`` and ``plain_ms`` are CUDA-event times of one call,
@@ -465,6 +490,21 @@ DIST_RANK_TIMEOUT_S = 300
 DIST_LOSS_RTOL, DIST_LOSS_ATOL = 1e-3, 1e-4
 DIST_STATE_TOL, DIST_MOMENTUM_TOL = 5e-3, 5e-2
 DIST_F64_TOL = 1e-9
+# the train mesh and ZeRO/FSDP: ResNet-50 b32 under compile(mesh=
+# train_mesh(data=1), fsdp_axis="data") with the plain SGD and under
+# DistOpt(zero=True), over NCCL at world 1, graphed, ZERO_STEPS steps per
+# case, f32 and bf16_mixed, against the plain graphed step; then
+# DIST_RANKS gloo ranks: the CNN (shape, global batch, steps) and
+# ResNet-50 (global batch, steps) under DistOpt(zero=True) against the
+# plain DistOpt, a rank's state bytes at most ZERO_BYTES_SHARE of a
+# replicated rank's
+ZERO_STEPS = 3
+ZERO_CASES = {"fsdp_axis": (None, "fsdp_axis"), "zero": (None, "zero"),
+              "fsdp_axis_bf16_mixed": ("bf16_mixed", "fsdp_axis"),
+              "zero_bf16_mixed": ("bf16_mixed", "zero")}
+ZERO_CNN = ((1, 28, 28), 64, 3)
+ZERO_RESNET = (32, 2)
+ZERO_BYTES_SHARE = 0.55
 # why an optimizer case has no PyTorch call timed beside it
 # a port kernel's name in a profiler trace: ``<name>_kernel<template
 # arguments>``, in an anonymous namespace; the launch-counter keys that
@@ -3847,119 +3887,172 @@ def dist_nccl_phase(dev, models, tx, ty, start):
     started per step (host calls), and for the per-gradient and the
     bucketed reduction the NCCL kernels and K1-multi's launches in the
     trace of ``GRAPH_TRACED`` replays and the step p50 against the plain
-    step's in ``GRAPH_ROUNDS`` alternating rounds."""
-    import tempfile
+    step's in ``GRAPH_ROUNDS`` alternating rounds. Runs inside
+    :func:`nccl_world1`."""
     import numpy as np
     import torch
     from singa_tpu_torch import opt
-    from singa_tpu_torch.parallel import communicator
     from singa_tpu_torch.tensor import Tensor
     g_model, e_model = models
     bad = tx.data.clone()
     bad.view(-1)[0] = float("nan")
     bad_tx = Tensor(data=bad, device=dev)
     per_step = multi_chunks("sgd_multi", PARAMS_PER_STEP)
-    store = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
-    communicator.init_process(
-        communicator.NcclIdHolder(file=os.path.join(store, "store")), 0, 1,
-        device=dev, timeout_s=120)
     out = {"backend": torch.distributed.get_backend(), "world": 1}
-    try:
-        for name, (policy, kw, args, ref) in DIST_CASES.items():
-            what = f"dist nccl {name}"
-            poison = bad_tx if policy else None
-            for m in models:
-                m.compile([tx], is_train=True, use_graph=True,
-                          policy=policy)
-            dist = opt.DistOpt(graph_sgd(opt), **kw)
-            d = dist_run(g_model, dist, start, tx, ty, args, poison)
-            collectives = dist.communicator.n_collectives
-            spars = DIST_SPARS.get(ref)
-            plain = graph_sgd(opt) if ref in ("plain", "wire") \
-                else plain_driver(ref, spars)
-            if ref == "wire":
-                with wire_rounded():
-                    p = dist_run(e_model, plain, start, tx, ty, args,
-                                 poison)
-            else:
-                p = dist_run(e_model, plain, start, tx, ty, args, poison)
-            stats = list(g_model.graph_stats().values())
-            check(stats == [{"n_captures": 1,
-                             "n_replays": DIST_STEPS - 1}],
-                  f"{what}: {stats} after {DIST_STEPS} steps, expected "
-                  "one signature captured once")
-            check(np.array_equal(d["losses"], p["losses"], equal_nan=True),
-                  f"{what}: losses {d['losses']} against the plain "
-                  f"version's {p['losses']}")
-            check(d["launches"] == p["launches"] ==
-                  {"sgd_multi": 2 * per_step},
-                  f"{what}: host-counted launches {d['launches']} "
-                  f"(plain {p['launches']}), expected {per_step} sgd_multi "
-                  "at the eager call and at the capture")
-            # the poisoned last step leaves a NaN norm on both sides
-            n_states = held_equal(
-                g_model, e_model, what,
-                nan_ok=("guard/last_grad_norm",) if policy else ())
-            if policy:
-                before, after = d["snapshots"][POISON_STEP - 1], \
-                    d["snapshots"][POISON_STEP]
-                moved = [k for k in before if not k.startswith(
-                    ("optimizer/loss_scale", "optimizer/guard/"))
-                    and not torch.equal(before[k], after[k])]
-                check(not moved and "optimizer/guard/skipped_total"
-                      in after and float(
-                          after["optimizer/guard/skipped_total"]) == 1,
-                      f"{what}: the poisoned step {POISON_STEP} (a replay) "
-                      f"moved {len(moved)} states, e.g. {moved[:3]}")
-            rec = {"policy": policy or "float32", "args": list(args),
-                   "plain_version": ref, "losses": d["losses"],
-                   "states_held": n_states,
-                   "collectives_per_step": collectives / 2,
-                   "host_launches": d["launches"]}
-            if name in ("plain", "bucketed"):
-                times = alternating_rounds(
-                    {"dist": lambda n: timed_steps(g_model, tx, ty, n),
-                     "plain": lambda n: timed_steps(e_model, tx, ty, n)},
-                    GRAPH_ROUNDS, GRAPH_ROUND_STEPS)
-                trace = traced(lambda: g_model(tx, ty), GRAPH_TRACED,
-                               {"sgd_multi": per_step}, f"{what} replays")
-                check(not trace["host_launches"],
-                      f"{what}: traced replays counted "
-                      f"{trace['host_launches']} on the host")
-                rec.update({
-                    "dist_step": quantiles(times["dist"]),
-                    "plain_step": quantiles(times["plain"]),
-                    "traced": trace,
-                    "sgd_multi_per_replay":
-                    trace["launches"]["sgd_multi"] / GRAPH_TRACED,
-                    "nccl_kernels_per_replay":
-                    trace["nccl_launches"] / GRAPH_TRACED})
-            out[name] = rec
-            line = (f"dist nccl world 1 resnet50 b{BATCH} {name} "
-                    f"({rec['policy']}): {DIST_STEPS} graphed steps bitwise "
-                    f"with the plain version ({ref}) over {n_states} "
-                    f"states and the losses, 1 capture; "
-                    f"{collectives / 2:g} collectives per step on the host")
-            if policy:
-                line += f"; step {POISON_STEP} a no-op under replay"
-            if "traced" in rec:
-                line += (
-                    f"; step p50 {rec['dist_step']['p50_ms']:.2f} ms p99 "
-                    f"{rec['dist_step']['p99_ms']:.2f} against the plain "
-                    f"step's {rec['plain_step']['p50_ms']:.2f} / "
-                    f"{rec['plain_step']['p99_ms']:.2f} ({GRAPH_ROUNDS} "
-                    f"alternating rounds of {GRAPH_ROUND_STEPS}); in the "
-                    f"trace of {GRAPH_TRACED} replays: "
-                    f"{rec['nccl_kernels_per_replay']:g} NCCL kernels and "
-                    f"{rec['sgd_multi_per_replay']:g} sgd_multi launches "
-                    "per replay, none on the host; idle "
-                    f"{rec['traced']['idle_share']:.3f}")
-            print(line, flush=True)
-    finally:
-        torch.distributed.destroy_process_group()
-        import shutil
-        shutil.rmtree(store, ignore_errors=True)
+    for name, (policy, kw, args, ref) in DIST_CASES.items():
+        what = f"dist nccl {name}"
+        poison = bad_tx if policy else None
+        for m in models:
+            m.compile([tx], is_train=True, use_graph=True,
+                      policy=policy)
+        dist = opt.DistOpt(graph_sgd(opt), **kw)
+        d = dist_run(g_model, dist, start, tx, ty, args, poison)
+        collectives = dist.communicator.n_collectives
+        spars = DIST_SPARS.get(ref)
+        plain = graph_sgd(opt) if ref in ("plain", "wire") \
+            else plain_driver(ref, spars)
+        if ref == "wire":
+            with wire_rounded():
+                p = dist_run(e_model, plain, start, tx, ty, args,
+                             poison)
+        else:
+            p = dist_run(e_model, plain, start, tx, ty, args, poison)
+        stats = list(g_model.graph_stats().values())
+        check(stats == [{"n_captures": 1,
+                         "n_replays": DIST_STEPS - 1}],
+              f"{what}: {stats} after {DIST_STEPS} steps, expected "
+              "one signature captured once")
+        check(np.array_equal(d["losses"], p["losses"], equal_nan=True),
+              f"{what}: losses {d['losses']} against the plain "
+              f"version's {p['losses']}")
+        check(d["launches"] == p["launches"] ==
+              {"sgd_multi": 2 * per_step},
+              f"{what}: host-counted launches {d['launches']} "
+              f"(plain {p['launches']}), expected {per_step} sgd_multi "
+              "at the eager call and at the capture")
+        # the poisoned last step leaves a NaN norm on both sides
+        n_states = held_equal(
+            g_model, e_model, what,
+            nan_ok=("guard/last_grad_norm",) if policy else ())
+        if policy:
+            before, after = d["snapshots"][POISON_STEP - 1], \
+                d["snapshots"][POISON_STEP]
+            moved = [k for k in before if not k.startswith(
+                ("optimizer/loss_scale", "optimizer/guard/"))
+                and not torch.equal(before[k], after[k])]
+            check(not moved and "optimizer/guard/skipped_total"
+                  in after and float(
+                      after["optimizer/guard/skipped_total"]) == 1,
+                  f"{what}: the poisoned step {POISON_STEP} (a replay) "
+                  f"moved {len(moved)} states, e.g. {moved[:3]}")
+        rec = {"policy": policy or "float32", "args": list(args),
+               "plain_version": ref, "losses": d["losses"],
+               "states_held": n_states,
+               "collectives_per_step": collectives / 2,
+               "host_launches": d["launches"]}
+        if name in ("plain", "bucketed"):
+            times = alternating_rounds(
+                {"dist": lambda n: timed_steps(g_model, tx, ty, n),
+                 "plain": lambda n: timed_steps(e_model, tx, ty, n)},
+                GRAPH_ROUNDS, GRAPH_ROUND_STEPS)
+            trace = traced(lambda: g_model(tx, ty), GRAPH_TRACED,
+                           {"sgd_multi": per_step}, f"{what} replays")
+            check(not trace["host_launches"],
+                  f"{what}: traced replays counted "
+                  f"{trace['host_launches']} on the host")
+            rec.update({
+                "dist_step": quantiles(times["dist"]),
+                "plain_step": quantiles(times["plain"]),
+                "traced": trace,
+                "sgd_multi_per_replay":
+                trace["launches"]["sgd_multi"] / GRAPH_TRACED,
+                "nccl_kernels_per_replay":
+                trace["nccl_launches"] / GRAPH_TRACED})
+        out[name] = rec
+        line = (f"dist nccl world 1 resnet50 b{BATCH} {name} "
+                f"({rec['policy']}): {DIST_STEPS} graphed steps bitwise "
+                f"with the plain version ({ref}) over {n_states} "
+                f"states and the losses, 1 capture; "
+                f"{collectives / 2:g} collectives per step on the host")
+        if policy:
+            line += f"; step {POISON_STEP} a no-op under replay"
+        if "traced" in rec:
+            line += (
+                f"; step p50 {rec['dist_step']['p50_ms']:.2f} ms p99 "
+                f"{rec['dist_step']['p99_ms']:.2f} against the plain "
+                f"step's {rec['plain_step']['p50_ms']:.2f} / "
+                f"{rec['plain_step']['p99_ms']:.2f} ({GRAPH_ROUNDS} "
+                f"alternating rounds of {GRAPH_ROUND_STEPS}); in the "
+                f"trace of {GRAPH_TRACED} replays: "
+                f"{rec['nccl_kernels_per_replay']:g} NCCL kernels and "
+                f"{rec['sgd_multi_per_replay']:g} sgd_multi launches "
+                "per replay, none on the host; idle "
+                f"{rec['traced']['idle_share']:.3f}")
+        print(line, flush=True)
     return out
+
+
+class nccl_world1:
+    """A NCCL process group of one rank on ``dev``'s card (a file store in
+    a temporary directory) for phases 17 (a) and 18 (a), left and removed
+    on the way out."""
+
+    def __init__(self, dev):
+        self.dev = dev
+
+    def __enter__(self):
+        import tempfile
+        from singa_tpu_torch.parallel import communicator
+        self.store = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+        communicator.init_process(
+            communicator.NcclIdHolder(file=os.path.join(self.store,
+                                                        "store")),
+            0, 1, device=self.dev, timeout_s=120)
+        return self
+
+    def __exit__(self, *exc):
+        import shutil
+        import torch
+        torch.distributed.destroy_process_group()
+        shutil.rmtree(self.store, ignore_errors=True)
+
+
+def run_ranks(flag, work, what):
+    """``DIST_RANKS`` processes of this script (``flag R DIST_RANKS
+    work``) on the one card, waited for with one deadline
+    (``DIST_RANK_TIMEOUT_S``; a rank still running then is killed); each
+    must exit 0. Returns each rank's ``work/rank<r>.npz`` arrays."""
+    import numpy as np
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), flag,
+         str(r), str(DIST_RANKS), work],
+        stdout=open(os.path.join(work, f"rank{r}.log"), "w"),
+        stderr=subprocess.STDOUT) for r in range(DIST_RANKS)]
+    try:
+        for p in procs:
+            p.wait(timeout=max(0.0, DIST_RANK_TIMEOUT_S
+                               - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    logs = [open(os.path.join(work, f"rank{r}.log")).read()
+            for r in range(DIST_RANKS)]
+    codes = [p.returncode for p in procs]
+    check(codes == [0] * DIST_RANKS,
+          f"{what}: rank exit codes {codes} (deadline "
+          f"{DIST_RANK_TIMEOUT_S} s):\n" + "\n".join(
+              f"--- rank {r} ---\n{log[-4000:]}"
+              for r, log in enumerate(logs)))
+    outs = []
+    for r in range(DIST_RANKS):
+        with np.load(os.path.join(work, f"rank{r}.npz")) as z:
+            outs.append({k: z[k] for k in z.files})
+    return outs
 
 
 def norm_close(got, want, tol):
@@ -4007,34 +4100,7 @@ def dist_gloo_phase(dev, models, tx, ty, start):
                  x=tx.data.cpu().numpy(), y=ty.data.cpu().numpy(),
                  **{f"start/{k}": v for k, v in start.items()})
         t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--dist-rank",
-             str(r), str(DIST_RANKS), work],
-            stdout=open(os.path.join(work, f"rank{r}.log"), "w"),
-            stderr=subprocess.STDOUT) for r in range(DIST_RANKS)]
-        try:
-            for p in procs:
-                p.wait(timeout=max(0.0, DIST_RANK_TIMEOUT_S
-                                   - (time.perf_counter() - t0)))
-        except subprocess.TimeoutExpired:
-            pass
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        logs = [open(os.path.join(work, f"rank{r}.log")).read()
-                for r in range(DIST_RANKS)]
-        codes = [p.returncode for p in procs]
-        check(codes == [0] * DIST_RANKS,
-              f"dist gloo: rank exit codes {codes} (deadline "
-              f"{DIST_RANK_TIMEOUT_S} s):\n" + "\n".join(
-                  f"--- rank {r} ---\n{log[-4000:]}"
-                  for r, log in enumerate(logs)))
-        outs = []
-        for r in range(DIST_RANKS):
-            with np.load(os.path.join(work, f"rank{r}.npz")) as z:
-                outs.append({k: z[k] for k in z.files})
+        outs = run_ranks("--dist-rank", work, "dist gloo")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     seconds = time.perf_counter() - t0
@@ -4220,6 +4286,350 @@ def dist_rank_main(rank, world, work):
     return 0
 
 
+def zero_run(model, start, tx, ty, steps):
+    """``steps`` train calls of ``model`` (compiled with its optimizer)
+    from ``start``; the launch counts zeroed just before and read just
+    after, the peak memory reset just before. Returns the losses, the
+    launches, the collectives the host started by kind, the bytes the
+    model's and its optimizer's states take on this rank and in full, and
+    the bytes allocated on the card after the steps and at their peak."""
+    import torch
+    from singa_tpu_torch.model import load_numpy_states
+    from singa_tpu_torch.parallel.gspmd import Partitioner
+    load_numpy_states(model, start)
+    model.train()
+    comm = model._step_communicator()
+    before = dict(comm.counts) if comm is not None else {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses = [model(tx, ty)[1].data.detach() for _ in range(steps)]
+    counts = host_launches()
+    torch.cuda.synchronize()
+    live = model._state_tensors()
+    return {"losses": [float(v) for v in losses], "launches": counts,
+            "collectives": {k: comm.counts[k] - before[k]
+                            for k in comm.KINDS} if comm is not None
+            else {},
+            "state_bytes": Partitioner.per_device_bytes(live),
+            "state_full_bytes": Partitioner.global_bytes(live),
+            "allocated_bytes": torch.cuda.memory_allocated(),
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def zero_model(model, tx, policy, spelling, use_graph=True):
+    """``model`` compiled under ZeRO/FSDP at world 1 by ``spelling``:
+    ``"fsdp_axis"`` is ``compile(mesh=train_mesh(data=1),
+    fsdp_axis="data")`` with :func:`graph_sgd`, ``"zero"`` a
+    ``DistOpt(graph_sgd, zero=True)``."""
+    from singa_tpu_torch import opt
+    from singa_tpu_torch.parallel import gspmd
+    if spelling == "zero":
+        model.set_optimizer(opt.DistOpt(graph_sgd(opt), zero=True))
+        model.compile([tx], is_train=True, use_graph=use_graph,
+                      policy=policy)
+    else:
+        model.set_optimizer(graph_sgd(opt))
+        model.compile([tx], is_train=True, use_graph=use_graph,
+                      policy=policy, mesh=gspmd.train_mesh(data=1),
+                      fsdp_axis="data")
+    return model
+
+
+def zero_nccl_phase(dev, models, tx, ty, start):
+    """Phase 18 (a): ResNet-50 b32 under ZeRO/FSDP over NCCL at world 1
+    (:data:`ZERO_CASES`, :func:`zero_model`), graphed (call 1 eager, call
+    2 captured with its gathers and scatters, replays after), against the
+    plain graphed step from the same start, cuDNN deterministic: the
+    losses and every state bitwise (gathered), one capture, K1-multi's
+    launches on the host at the eager call and the capture only, a gather
+    and a scatter per parameter each step. Readings: the collectives per
+    step by kind; for the ``fsdp_axis`` cases the NCCL kernels and
+    K1-multi's launches in the trace of ``GRAPH_TRACED`` replays and the
+    step p50/p99 against the plain step's in ``GRAPH_ROUNDS`` alternating
+    rounds; in f32 the bytes of the states and on the card between steps
+    and at the peak, FSDP and plain, graphed and eager. Runs inside
+    :func:`nccl_world1`."""
+    import gc
+    import torch
+    from singa_tpu_torch import opt
+    g_model, e_model = models
+    per_step = multi_chunks("sgd_multi", PARAMS_PER_STEP)
+    out = {"backend": torch.distributed.get_backend(), "world": 1}
+    for name, (policy, spelling) in ZERO_CASES.items():
+        what = f"fsdp nccl {name}"
+        zero_model(g_model, tx, policy, spelling)
+        e_model.set_optimizer(graph_sgd(opt))
+        e_model.compile([tx], is_train=True, use_graph=True, policy=policy)
+        g = zero_run(g_model, start, tx, ty, ZERO_STEPS)
+        if policy:
+            with wire_rounded():
+                e = zero_run(e_model, start, tx, ty, ZERO_STEPS)
+        else:
+            e = zero_run(e_model, start, tx, ty, ZERO_STEPS)
+        stats = list(g_model.graph_stats().values())
+        check(stats == [{"n_captures": 1, "n_replays": ZERO_STEPS - 1}],
+              f"{what}: {stats} after {ZERO_STEPS} steps, expected one "
+              "signature captured once")
+        check(g["losses"] == e["losses"],
+              f"{what}: losses {g['losses']} against the plain step's "
+              f"{e['losses']}")
+        check(g["launches"] == e["launches"] ==
+              {"sgd_multi": 2 * per_step},
+              f"{what}: host-counted launches {g['launches']} (plain "
+              f"{e['launches']}), expected {per_step} sgd_multi at the "
+              "eager call and at the capture")
+        n_states = held_equal(g_model, e_model, what)
+        # the host runs the step twice: the eager call and the capture
+        coll = {k: v / 2 for k, v in g["collectives"].items()}
+        check(coll["all_gather"] == coll["reduce_scatter"] ==
+              PARAMS_PER_STEP and coll["all_reduce"] <= 2,
+              f"{what}: collectives per step {coll}, expected a gather and "
+              f"a scatter for each of the {PARAMS_PER_STEP} parameters")
+        rec = {"policy": policy or "float32", "spelling": spelling,
+               "losses": g["losses"], "states_held": n_states,
+               "collectives_per_step": coll,
+               "state_bytes": g["state_bytes"],
+               "state_full_bytes": g["state_full_bytes"]}
+        line = (f"fsdp nccl world 1 resnet50 b{BATCH} {name}: {ZERO_STEPS} "
+                f"graphed steps bitwise with the plain step over {n_states} "
+                f"states and the losses, 1 capture; per step "
+                f"{coll['all_gather']:g} gathers, {coll['reduce_scatter']:g}"
+                f" scatters, {coll['all_reduce']:g} all-reduces on the host")
+        if spelling == "fsdp_axis":
+            times = alternating_rounds(
+                {"fsdp": lambda n: timed_steps(g_model, tx, ty, n),
+                 "plain": lambda n: timed_steps(e_model, tx, ty, n)},
+                GRAPH_ROUNDS, GRAPH_ROUND_STEPS)
+            trace = traced(lambda: g_model(tx, ty), GRAPH_TRACED,
+                           {"sgd_multi": per_step}, f"{what} replays")
+            check(not trace["host_launches"],
+                  f"{what}: traced replays counted "
+                  f"{trace['host_launches']} on the host")
+            rec.update({
+                "fsdp_step": quantiles(times["fsdp"]),
+                "plain_step": quantiles(times["plain"]), "traced": trace,
+                "sgd_multi_per_replay":
+                trace["launches"]["sgd_multi"] / GRAPH_TRACED,
+                "nccl_kernels_per_replay":
+                trace["nccl_launches"] / GRAPH_TRACED})
+            line += (
+                f"; step p50 {rec['fsdp_step']['p50_ms']:.2f} ms p99 "
+                f"{rec['fsdp_step']['p99_ms']:.2f} against the plain "
+                f"step's {rec['plain_step']['p50_ms']:.2f} / "
+                f"{rec['plain_step']['p99_ms']:.2f} ({GRAPH_ROUNDS} "
+                f"alternating rounds of {GRAPH_ROUND_STEPS}); in the trace "
+                f"of {GRAPH_TRACED} replays: "
+                f"{rec['nccl_kernels_per_replay']:g} NCCL kernels and "
+                f"{rec['sgd_multi_per_replay']:g} sgd_multi launches per "
+                f"replay, none on the host; idle "
+                f"{rec['traced']['idle_share']:.3f}")
+        if name == "fsdp_axis":
+            memory = {}
+            for label, graphed, fsdp in (("fsdp_graphed", True, True),
+                                         ("fsdp_eager", False, True),
+                                         ("plain_graphed", True, False),
+                                         ("plain_eager", False, False)):
+                m = g_model if fsdp else e_model
+                if fsdp:
+                    zero_model(m, tx, None, spelling, use_graph=graphed)
+                else:
+                    m.set_optimizer(graph_sgd(opt))
+                    m.compile([tx], is_train=True, use_graph=graphed)
+                gc.collect()
+                torch.cuda.empty_cache()
+                r = zero_run(m, start, tx, ty, ZERO_STEPS)
+                memory[label] = {k: r[k] for k in (
+                    "state_bytes", "allocated_bytes", "peak_bytes")}
+            rec["memory"] = memory
+            line += "; bytes (states / on the card between steps / peak): " \
+                + ", ".join(f"{k} {v['state_bytes']} / "
+                            f"{v['allocated_bytes']} / {v['peak_bytes']}"
+                            for k, v in memory.items())
+        out[name] = rec
+        print(line, flush=True)
+    return out
+
+
+def zero_gloo_phase(dev, tx, ty, start):
+    """Phase 18 (b): ``DIST_RANKS`` processes of this script on the one
+    card (:func:`zero_rank_main`), over gloo, eager, each on its half of
+    every batch: the CNN and ResNet-50 under ``DistOpt(zero=True)`` against
+    the plain ``DistOpt``. Gates: every rank exits 0; on each rank the
+    losses and every state (gathered) bitwise; a rank's state bytes at
+    most ``ZERO_BYTES_SHARE`` of a replicated rank's; the ZeRO ResNet-50's
+    archive equal (names, shapes, dtypes, values) to a replicated rank's,
+    and restored into a fresh ZeRO model bitwise on both ranks."""
+    import shutil
+    import tempfile
+    import numpy as np
+    work = tempfile.mkdtemp(prefix="chip_smoke_zero_")
+    try:
+        np.savez(os.path.join(work, "inputs.npz"),
+                 x=tx.data.cpu().numpy(), y=ty.data.cpu().numpy(),
+                 **{f"start/{k}": v for k, v in start.items()})
+        t0 = time.perf_counter()
+        outs = run_ranks("--zero-rank", work, "fsdp gloo")
+        seconds = time.perf_counter() - t0
+        archives = [load_archive(os.path.join(work, f))
+                    for f in ("zero.zip", "rep0.zip", "rep1.zip")]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rec = {"backend": "gloo", "ranks": DIST_RANKS, "seconds": seconds}
+    for tag in ("cnn", "resnet"):
+        for r, o in enumerate(outs):
+            check(bool(o[f"{tag}/bitwise"]) and np.array_equal(
+                o[f"{tag}/zero_losses"], o[f"{tag}/plain_losses"]),
+                f"fsdp gloo {tag} rank {r}: ZeRO against the plain DistOpt: "
+                f"losses {o[f'{tag}/zero_losses'].tolist()} / "
+                f"{o[f'{tag}/plain_losses'].tolist()}, states differing: "
+                f"{str(o[f'{tag}/differing'])}")
+            share = float(o[f"{tag}/zero_bytes"]) / float(
+                o[f"{tag}/plain_bytes"])
+            check(share <= ZERO_BYTES_SHARE,
+                  f"fsdp gloo {tag} rank {r}: the rank holds {share:.3f} of "
+                  f"a replicated rank's state bytes, above "
+                  f"{ZERO_BYTES_SHARE}")
+        rec[tag] = {"losses": outs[0][f"{tag}/zero_losses"].tolist(),
+                    "state_bytes": [int(o[f"{tag}/zero_bytes"])
+                                    for o in outs],
+                    "replicated_state_bytes": int(
+                        outs[0][f"{tag}/plain_bytes"]),
+                    "share": float(outs[0][f"{tag}/zero_bytes"])
+                    / float(outs[0][f"{tag}/plain_bytes"])}
+    zero, rep0, rep1 = archives
+    for name, rep in (("rep0", rep0), ("rep1", rep1)):
+        check(zero[0] == rep[0] and sorted(zero[1]) == sorted(rep[1]) and
+              all(np.array_equal(zero[1][k], rep[1][k]) for k in zero[1]),
+              f"fsdp gloo: the ZeRO archive differs from {name}.zip")
+    check(all(bool(o["resnet/restored"]) for o in outs),
+          "fsdp gloo: the ZeRO archive restored into a ZeRO model differs "
+          "from the saved run: " + str([str(o["resnet/restored_differing"])
+                                        for o in outs]))
+    rec["archive_arrays"] = len(zero[1])
+    print(f"fsdp backend=\"gloo\" {DIST_RANKS} ranks on one card, ZeRO "
+          f"(DistOpt(zero=True)) bitwise with the plain DistOpt: cnn "
+          f"b{ZERO_CNN[1]} x{ZERO_CNN[2]}, a rank's state bytes "
+          f"{rec['cnn']['share']:.3f} of a replicated rank's; resnet50 "
+          f"b{ZERO_RESNET[0]} ({ZERO_RESNET[0] // DIST_RANKS} a rank) "
+          f"x{ZERO_RESNET[1]}, losses "
+          + " ".join(f"{v:.6f}" for v in rec["resnet"]["losses"])
+          + f", state bytes {rec['resnet']['state_bytes']} of "
+          f"{rec['resnet']['replicated_state_bytes']} "
+          f"({rec['resnet']['share']:.3f}); the archive "
+          f"({len(zero[1])} arrays) a replicated rank's, restored bitwise "
+          f"on both ranks; {seconds:.1f} s", flush=True)
+    return rec
+
+
+def load_archive(path):
+    """``(attributes, arrays)`` of a ``save_states`` archive."""
+    import io
+    import zipfile
+    import numpy as np
+    with zipfile.ZipFile(path) as zf:
+        attr = json.loads(zf.read("states_attr.json"))
+        with np.load(io.BytesIO(zf.read("tensor_dict.npz"))) as z:
+            return attr, {k: z[k] for k in z.files}
+
+
+def gathered_states(model):
+    """Host copies of every state of ``model`` and of its optimizer, a
+    shard gathered (collective), by name."""
+    import numpy as np
+    d = {k: np.array(v.to_numpy()) for k, v in model.get_states().items()}
+    d.update({f"optimizer/{k}": np.array(v)
+              for k, v in model.optimizer.get_states().items()})
+    return d
+
+
+def differing(a, b):
+    """The names whose arrays differ between ``a`` and ``b``."""
+    import numpy as np
+    if sorted(a) != sorted(b):
+        return sorted(set(a) ^ set(b))
+    return [k for k in a if not np.array_equal(a[k], b[k])]
+
+
+def zero_rank_main(rank, world, work):
+    """One rank of phase 18 (b): joins the gloo group on ``cuda:0``, then
+    trains the CNN and ResNet-50 on its shard of each batch under the
+    plain ``DistOpt`` and under ``DistOpt(zero=True)``, compares them
+    here, writes the archives of ResNet-50 (a replicated rank's
+    ``rep<rank>.zip``, the ZeRO run's ``zero.zip``), restores the ZeRO one,
+    and writes what it saw to ``work/rank<rank>.npz``."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, HERE)
+    from singa_tpu_torch import datasets, device, opt
+    from singa_tpu_torch.model import load_numpy_states
+    from singa_tpu_torch.models import cnn, resnet
+    from singa_tpu_torch.parallel import communicator as C
+    from singa_tpu_torch.parallel.gspmd import Partitioner
+    from singa_tpu_torch.tensor import Tensor
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    dev = device.create_cuda_gpu(0)
+    C.init_process(C.NcclIdHolder(file=os.path.join(work, "store")), rank,
+                   world, device=dev, backend="gloo",
+                   timeout_s=DIST_RANK_TIMEOUT_S)
+    try:
+        with np.load(os.path.join(work, "inputs.npz")) as z:
+            inputs = {k: z[k] for k in z.files}
+        out = {}
+        shape, batch, cnn_steps = ZERO_CNN
+        rng = np.random.default_rng(SEED + 22)
+        x = rng.standard_normal((batch,) + shape, dtype=np.float32)
+        y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, batch)]
+        cnn_x = datasets.partition(rank, world, x, y)
+        rbatch, rsteps = ZERO_RESNET
+        res_x = datasets.partition(rank, world, inputs["x"][:rbatch],
+                                   inputs["y"][:rbatch])
+        res_start = {k[len("start/"):]: v for k, v in inputs.items()
+                     if k.startswith("start/")}
+        for tag, factory, (bx, by), steps, sgd in (
+                ("cnn", cnn.create_model, cnn_x, cnn_steps,
+                 lambda: opt.SGD(lr=ZOO_LR, momentum=0.9, weight_decay=1e-5,
+                                 fused=True)),
+                ("resnet", lambda: resnet.resnet50(num_classes=10), res_x,
+                 rsteps, lambda: dist_sgd(opt))):
+            tx, ty = Tensor(data=bx, device=dev), Tensor(data=by, device=dev)
+            start = res_start if tag == "resnet" else None
+            runs = {}
+            for zero in (False, True):
+                m = factory()
+                m.set_optimizer(opt.DistOpt(sgd(), zero=zero))
+                m.compile([tx], is_train=True, use_graph=False)
+                start = start or seeded_states(m, SEED + 23)
+                load_numpy_states(m, start)
+                losses = [float(m(tx, ty)[1].data.detach())
+                          for _ in range(steps)]
+                label = "zero" if zero else "plain"
+                out[f"{tag}/{label}_losses"] = np.asarray(losses)
+                out[f"{tag}/{label}_bytes"] = np.asarray(
+                    Partitioner.per_device_bytes(m._state_tensors()))
+                runs[label] = gathered_states(m)
+                if tag == "resnet":
+                    m.save_states(os.path.join(
+                        work, "zero.zip" if zero else f"rep{rank}.zip"))
+                del m
+            diff = differing(runs["zero"], runs["plain"])
+            out[f"{tag}/bitwise"] = np.asarray(not diff)
+            out[f"{tag}/differing"] = np.asarray(", ".join(diff[:5]))
+        m = resnet.resnet50(num_classes=10)
+        m.set_optimizer(opt.DistOpt(dist_sgd(opt), zero=True))
+        m.compile([Tensor(data=res_x[0], device=dev)], is_train=True)
+        m.load_states(os.path.join(work, "zero.zip"))
+        diff = differing(gathered_states(m), runs["zero"])
+        out["resnet/restored"] = np.asarray(not diff)
+        out["resnet/restored_differing"] = np.asarray(", ".join(diff[:5]))
+        np.savez(os.path.join(work, f"rank{rank}.npz"), **out)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4292,12 +4702,19 @@ def main():
     del lm_tx, lm_ty, lm_start
     torch.cuda.empty_cache()
 
-    # data parallelism, from the training phases' start and batch
+    # data parallelism and ZeRO/FSDP, from the training phases' start and
+    # batch
     torch.backends.cudnn.deterministic = True
     models, tx, ty, start = train_models(dev)
-    dist = {"nccl": dist_nccl_phase(dev, models, tx, ty, start),
+    with nccl_world1(dev):
+        dist_nccl = dist_nccl_phase(dev, models, tx, ty, start)
+        fsdp_nccl = zero_nccl_phase(dev, models, tx, ty, start)
+    dist = {"nccl": dist_nccl,
             "gloo": dist_gloo_phase(dev, models, tx, ty, start)}
-    del models, tx, ty, start
+    del models
+    torch.cuda.empty_cache()
+    fsdp = {"nccl": fsdp_nccl, "gloo": zero_gloo_phase(dev, tx, ty, start)}
+    del tx, ty, start
     torch.backends.cudnn.deterministic = False
 
     # one line per kernel: its f32 case at main-path shapes, launches from
@@ -4403,6 +4820,11 @@ def main():
     for case in ("plain", "bucketed"):
         per_replay["sgd_multi"][f"resnet50_dist_nccl_{case}"] = \
             dist["nccl"][case]["sgd_multi_per_replay"]
+    # the FSDP step (phase 18 (a)): K1-multi per replay, f32 and flagged
+    for case, key in (("fsdp_axis", "sgd_multi"),
+                      ("fsdp_axis_bf16_mixed", "sgd_multi_flag")):
+        per_replay.setdefault(key, {})[f"resnet50_fsdp_nccl_{case}"] = \
+            fsdp["nccl"][case]["sgd_multi_per_replay"]
     for row in kernels:
         if row["name"] in per_replay:
             row["other_paths_launches_per_replay"] = per_replay[row["name"]]
@@ -4421,7 +4843,7 @@ def main():
               "graph_lm": graph_lm, "zoo_train": zoo,
               "pure_bf16_train": pure_bf16,
               "xception_serve": xception_serve, "s2d": s2d,
-              "dist": dist, "kernels": kernels}
+              "dist": dist, "fsdp": fsdp, "kernels": kernels}
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
@@ -4437,5 +4859,8 @@ def main():
 if __name__ == "__main__":
     if len(sys.argv) == 5 and sys.argv[1] == "--dist-rank":
         sys.exit(dist_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                                sys.argv[4]))
+    if len(sys.argv) == 5 and sys.argv[1] == "--zero-rank":
+        sys.exit(zero_rank_main(int(sys.argv[2]), int(sys.argv[3]),
                                 sys.argv[4]))
     sys.exit(main())

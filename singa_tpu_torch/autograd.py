@@ -175,11 +175,23 @@ def dropout(x, ratio=0.5):
     and scaled by ``1 / (1 - ratio)``, the rest set to 0, so the gradient
     is ``mask / (1 - ratio)``. The keep mask is ``U[0, 1) < 1 - ratio``
     drawn from ``x``'s device generator (never torch's global one), which
-    a captured step registers, so each replay draws a fresh mask."""
+    a captured step registers, so each replay draws a fresh mask. In the
+    train step of a model compiled with a mesh (``parallel.gspmd``) each
+    rank draws the mask of the global batch (its ranks' rows in rank
+    order; the ranks' generators seeded alike) and keeps its own rows, as
+    the JAX package draws one global-batch mask from one shared key: the
+    ranks then drop what one rank on the whole batch would."""
+    from .parallel.gspmd import active_step
     if not is_training() or ratio <= 0.0:
         return x
     keep = 1.0 - ratio
-    u = torch.rand(x.shape, generator=x.device.generator,
-                   dtype=torch.float32, device=x.device.torch_device)
+    step = active_step()
+    shape, rows = tuple(x.shape), slice(None)
+    if step is not None and step.world > 1:
+        n = shape[0]
+        shape = (n * step.world,) + shape[1:]
+        rows = slice(step.rank * n, (step.rank + 1) * n)
+    u = torch.rand(shape, generator=x.device.generator, dtype=torch.float32,
+                   device=x.device.torch_device)[rows]
     return Tensor(data=torch.where(u < keep, x.data / keep, 0.0),
                   device=x.device)

@@ -10,10 +10,10 @@ CIFAR-10/100 or MNIST.
         [--stem conv7|space_to_depth] [--fused-optim] [--cpu]
         [--dist] [--dist-option plain|half|fp16|partialUpdate|
                   sparseTopK|sparseThreshold] [--spars 0.05]
-        [--bucket-mb 0] [--no-overlap]
+        [--bucket-mb 0] [--no-overlap] [--mesh Dx1] [--fsdp]
 
     torchrun --nproc_per_node N singa_tpu_torch/examples/train_cnn.py ...
-        --dist
+        --dist | --mesh Nx1 [--fsdp] | --fsdp
 
 The single-device behaviour of ``examples/train_cnn.py``: the same models
 (``cnn`` by default), datasets and normalisation (CIFAR standardised per
@@ -51,8 +51,16 @@ with ``--cpu``), takes its ``datasets.partition`` of each global batch
 and evaluation accuracies are summed over the ranks. Without those
 variables ``--dist`` runs a world of 1.
 
-Refused, each naming ROADMAP.md: ``--mesh`` and ``--fsdp`` (the GSPMD
-train mesh and FSDP, slice B), ``--bucket-mb auto`` (it reads the JAX
+The train mesh and ZeRO/FSDP (``parallel.gspmd``): ``--mesh Dx1`` compiles
+the model with ``mesh=gspmd.train_mesh(data=D)`` (D the ranks of the
+``torchrun`` world; a plain SGD's gradients are averaged over them as
+well), ``--fsdp`` with ``fsdp_axis="data"`` (the parameters and momenta
+held as shards, gathered for each step; without ``--mesh`` the mesh is
+every rank). Without ``torchrun``'s variables they run a world of 1 and
+no mesh is built.
+
+Refused, each naming ROADMAP.md: ``--mesh DxM`` with M > 1 (tensor
+parallelism, slice C2), ``--bucket-mb auto`` (it reads the JAX
 package's measured A/B winner); ``--resilient``, ``--ckpt-dir``,
 ``--save-every``, ``--profile-every``, ``--anomaly-factor`` (the
 fault-tolerant driver, slice E) and ``--telemetry`` (observability, slice
@@ -76,11 +84,9 @@ SYNTHETIC = {"cnn": (1, 28), "mlp": (1, 28), "alexnet": (3, 224),
              "resnet": (3, 224), "xceptionnet": (3, 299)}
 # flags refused with the part of ROADMAP.md that would port them
 REFUSED = {
-    "mesh": "--mesh", "fsdp": "--fsdp",
     "resilient": "--resilient", "ckpt_dir": "--ckpt-dir",
     "save_every": "--save-every", "profile_every": "--profile-every",
     "anomaly_factor": "--anomaly-factor", "telemetry": "--telemetry"}
-SLICE_B = ("mesh", "fsdp")
 OBSERVABILITY = ("telemetry",)
 
 
@@ -120,8 +126,12 @@ def build_parser():
     ap.add_argument("--dist-option", default="plain")
     ap.add_argument("--spars", type=float, default=0.05)
     ap.add_argument("--dist", action="store_true")
-    ap.add_argument("--mesh", default=None, metavar="DxM")
-    ap.add_argument("--fsdp", action="store_true")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="train mesh of D data ranks (M must be 1): "
+                         "Model.compile(mesh=gspmd.train_mesh(data=D))")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="ZeRO/FSDP over the data ranks: "
+                         "Model.compile(fsdp_axis='data')")
     ap.add_argument("--bucket-mb", default="0",
                     help="with --dist: gradient bucket size target in MiB "
                          "(DistOpt bucket_mb; 0: one collective per "
@@ -136,9 +146,21 @@ def build_parser():
     return ap
 
 
+def mesh_degrees(spec):
+    """``(D, M)`` of ``--mesh DxM``."""
+    try:
+        d, m = (int(v) for v in spec.lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"--mesh {spec}: expected DxM, e.g. 4x1") from None
+    return d, m
+
+
 def _refuse(args):
     """The flags this example does not take yet, each naming ROADMAP.md;
     None when every flag given is ported."""
+    if args.mesh and mesh_degrees(args.mesh)[1] > 1:
+        return f"--mesh {args.mesh}: tensor-parallel training (a model " \
+            "degree above 1) is not ported yet (ROADMAP.md: slice C2)"
     if args.bucket_mb == "auto":
         return "--bucket-mb auto: it reads the JAX package's measured " \
             "bucket A/B (bench.py), which the port has not measured " \
@@ -148,10 +170,7 @@ def _refuse(args):
     if not given:
         return None
     k = given[0]
-    if k in SLICE_B:
-        why = "the GSPMD train mesh and FSDP are not ported yet " \
-            "(ROADMAP.md: slice B)"
-    elif k in OBSERVABILITY:
+    if k in OBSERVABILITY:
         why = "run telemetry is not ported yet (ROADMAP.md: slice E, " \
             "observability)"
     else:
@@ -194,13 +213,17 @@ def main(argv=None):
         raise SystemExit(refused)
 
     from singa_tpu_torch import device
-    from singa_tpu_torch.parallel import communicator
+    from singa_tpu_torch.parallel import communicator, gspmd
 
     bucket_mb = float(args.bucket_mb)
-    # torchrun's variables; without them --dist is a world of 1
-    launched = args.dist and "WORLD_SIZE" in os.environ
+    # torchrun's variables; without them --dist, --mesh and --fsdp run a
+    # world of 1
+    launched = (args.dist or args.mesh or args.fsdp) and \
+        "WORLD_SIZE" in os.environ
     rank = int(os.environ["RANK"]) if launched else 0
     world = int(os.environ["WORLD_SIZE"]) if launched else 1
+    if args.mesh:       # degrees that cannot tile the world decline here
+        gspmd.train_degrees(world, *mesh_degrees(args.mesh))
     dev = device.create_cpu_device() if args.cpu \
         else device.create_cuda_gpu(int(os.environ.get("LOCAL_RANK", 0))
                                     if launched else 0)
@@ -219,6 +242,7 @@ def train(args, dev, rank, world, bucket_mb):
     """The epoch loop of ``main`` as rank ``rank`` of ``world``."""
     import torch
     from singa_tpu_torch import datasets, metric, models, opt, tensor
+    from singa_tpu_torch.parallel import communicator, gspmd
 
     def say(*a):
         if rank == 0:
@@ -226,7 +250,8 @@ def train(args, dev, rank, world, bucket_mb):
 
     dev.SetRandSeed(0)
     say(f"device: {dev.torch_device}" + (
-        f", data-parallel world {world}" if args.dist else ""))
+        f", data-parallel world {world}"
+        if args.dist or args.mesh or args.fsdp else ""))
 
     train_x, train_y, val_x, val_y, num_classes, augment = load_data(args)
     factory = getattr(models, args.model)
@@ -275,10 +300,18 @@ def train(args, dev, rank, world, bucket_mb):
         return t.as_type("bfloat16") if args.precision == "bfloat16" \
             else t
 
+    mesh = None
+    if args.mesh or args.fsdp:
+        data, width = mesh_degrees(args.mesh) if args.mesh else (-1, 1)
+        if communicator.initialized():    # else a world of 1, no mesh
+            mesh = gspmd.train_mesh(data=data, model=width)
+        say(f"GSPMD train mesh=data{world}xmodel{width}"
+            + (" fsdp=data" if args.fsdp else ""))
     model.compile([stage(shard(train_x[:args.bs])[0])], is_train=True,
                   use_graph=True,
                   policy="bf16_mixed" if args.precision == "bf16_mixed"
-                  else None)
+                  else None, mesh=mesh,
+                  fsdp_axis="data" if args.fsdp else None)
 
     eye = np.eye(num_classes, dtype=np.float32)
     acc = metric.Accuracy()
@@ -293,13 +326,14 @@ def train(args, dev, rank, world, bucket_mb):
     dist_args = (args.dist_option, args.spars) \
         if args.dist and args.dist_option != "plain" else ()
 
+    comm = communicator.Communicator()     # the identity at world 1
+
     def over_ranks(values):
         """The mean of ``values`` over every rank's values (each rank
         holds the same count)."""
         total = np.array([np.sum(values), len(values)], np.float64)
-        if args.dist:
-            total = model.optimizer.communicator.all_reduce(
-                torch.tensor(total, device=dev.torch_device)).cpu().numpy()
+        total = comm.all_reduce(torch.tensor(
+            total, device=dev.torch_device)).cpu().numpy()
         return total[0] / total[1]
 
     rng = np.random.RandomState(1)

@@ -39,6 +39,24 @@ loss) comes back as the mean over the ranks, as the JAX step averages
 its replicated outputs (``model.py:698-708``), while the logits stay the
 rank's own. In graph mode the collectives are captured with the step,
 which needs NCCL: a CUDA step over a gloo process group raises.
+
+The train mesh and ZeRO/FSDP (``compile(mesh=..., fsdp_axis=...)``,
+``singa_tpu/model.py:300-355, 712-780``; ``parallel/gspmd.py``): the step
+runs through a ``gspmd.MeshStep``, so a plain optimizer's gradients are
+averaged over the data ranks too (through a ``DistOpt`` the step makes
+around it) and a dropout mask is the global batch's. With ``fsdp_axis``
+(``True`` is ``"data"``; a ``DistOpt(zero=True)`` implies its axis) the
+trainable parameters and their optimizer states are shards between
+steps (``gspmd.ShardedLayout``): the step gathers the parameters, and
+reduce-scatters and updates the shards; an eval-mode call gathers and
+releases them. Then :meth:`get_states` gives full tensors and is
+collective (every rank calls it, as reading a sharded ``jax.Array``
+gathers); :meth:`save_states` writes the full arrays (rank 0 writes, the
+others wait), so the archive of a ZeRO run has a replicated run's names,
+shapes and dtypes; :meth:`load_states` cuts them onto the current mesh,
+of any data degree; :meth:`compile_serving` gathers the parameters once
+(serving stays replicated; a later train call shards them again). Over
+NCCL the gathers and scatters are captured with the step.
 """
 
 from __future__ import annotations
@@ -63,7 +81,8 @@ STATES_ATTR_FILENAME = "states_attr.json"
 
 def load_numpy_states(model, states, strict=True):
     """Copy ``{state name: numpy array}`` into ``model``'s live state
-    tensors, each cast to the live tensor's dtype. ``optimizer/<name>``
+    tensors, each cast to the live tensor's dtype (a ZeRO/FSDP shard takes
+    this rank's slice). ``optimizer/<name>``
     entries go to the model's optimizer (``set_states``; a guard takes its
     ``guard/`` and ``guard-shadow/`` ones) when it has one; ``aux/`` and
     ``quant-scale/`` entries are not model states and are skipped. With
@@ -71,7 +90,7 @@ def load_numpy_states(model, states, strict=True):
     whose layers have not run yet has no states: run it once
     (``compile_serving`` does) before loading. Returns the model state
     names loaded."""
-    mine = model.get_states()
+    mine = model._live_states()
     if not mine:
         raise RuntimeError(
             f"{type(model).__name__} has no states yet: its layers "
@@ -85,11 +104,14 @@ def load_numpy_states(model, states, strict=True):
         if k.startswith(("aux/", "quant-scale/")):
             continue
         if k in mine:
-            arr = np.asarray(v)
-            if tuple(arr.shape) != tuple(mine[k].shape):
+            t, arr = mine[k], np.asarray(v)
+            want = t.sharding[1] if t.sharding else t.shape
+            if tuple(arr.shape) != tuple(want):
                 raise ValueError(f"state {k!r}: shape {arr.shape} does not "
-                                 f"match the model's {mine[k].shape}")
-            mine[k].copy_from_numpy(arr)
+                                 f"match the model's {tuple(want)}")
+            if t.sharding:
+                arr = model._layout.local(arr, t.sharding[0])
+            t.copy_from_numpy(arr)
             loaded.append(k)
     if strict:
         missing = sorted(set(mine) - set(loaded))
@@ -123,6 +145,10 @@ class Model(Layer):
         self.optimizer = None
         self._graphs = {}             # input signature -> StepGraph
         self._graph_resources = None  # what the graphs share (graph.py)
+        self._gspmd_mesh = None       # compile(mesh=)
+        self._fsdp_axis = None        # compile(fsdp_axis=)
+        self._layout = None           # gspmd.ShardedLayout under FSDP
+        self._mesh_step = None        # gspmd.MeshStep of the train step
 
     def forward(self, *args, **kwargs):
         raise NotImplementedError
@@ -175,7 +201,7 @@ class Model(Layer):
                 if param:
                     register_param(t)
 
-        for t in self.get_states().values():
+        for t in self._live_states().values():
             if t.requires_grad:
                 adapt(t)
         if self.optimizer is not None and self.optimizer.device is not None:
@@ -214,9 +240,13 @@ class Model(Layer):
             optimizer.bind(self.dev)
         if hasattr(optimizer, "bind_model"):
             optimizer.bind_model(self)
+        self._mesh_step = None
+        if self._meshed() and optimizer is not None and \
+                self.dev is not None:
+            self._mesh_step = self._build_mesh_step()
 
     def compile(self, inputs, is_train=True, use_graph=False,
-                sequential=False, policy=None):
+                sequential=False, policy=None, mesh=None, fsdp_axis=None):
         """Initialise every layer with one forward of ``inputs`` (a list
         of Tensors, no gradients, BN in inference), name the states (so
         the optimizer's aux states are ``<state name>:<kind>``), bind the
@@ -230,10 +260,20 @@ class Model(Layer):
         training the optimizer wrapped in ``resilience.GuardedOptimizer``
         (dynamic loss scaling from the policy's ``default_loss_scale``)
         unless the policy opts out (``loss_scaling=False``). A re-compile
-        under another policy casts the masters to its param dtype."""
+        under another policy casts the masters to its param dtype.
+
+        ``mesh`` (a ``DeviceMesh`` from ``parallel.gspmd.train_mesh``) and
+        ``fsdp_axis`` (``True`` is ``"data"``; a ``DistOpt(zero=True)``
+        implies its axis) train through the mesh and ZeRO/FSDP (module
+        docstring); with ``fsdp_axis`` and no ``mesh`` the mesh is the
+        ``DistOpt``'s, else one over every rank. An axis the mesh lacks
+        raises ``gspmd.ShardingDecline``. A re-compile gathers a sharded
+        model first (collective)."""
         from . import mixed_precision as mp
         assert len(inputs) > 0
         pol = mp.resolve(policy)
+        self._unshard()
+        self._gspmd_mesh = self._fsdp_axis = None
         self.drop_graphs()
         if pol != self._policy:
             self._migrate_masters(pol)
@@ -250,10 +290,19 @@ class Model(Layer):
                 self.forward(*inputs)
         finally:
             CTX.training = prev
-        for name, t in self.get_states().items():
+        for name, t in self._live_states().items():
             t.name = t.name or name
         if self.optimizer is not None:
             self.optimizer.bind(self.dev)
+        dist = self._dist_opt()
+        if fsdp_axis is True:
+            fsdp_axis = "data"
+        if fsdp_axis is None and dist is not None and dist.zero:
+            fsdp_axis = dist.axis_name
+        self._gspmd_mesh, self._fsdp_axis = mesh, fsdp_axis
+        self._mesh_step = None
+        if self._meshed() and self.optimizer is not None:
+            self._mesh_step = self._build_mesh_step()
         self.train(is_train)
 
     def __call__(self, *args, **kwargs):
@@ -278,7 +327,8 @@ class Model(Layer):
         prev = CTX.training
         CTX.training = False
         try:
-            with torch.no_grad(), mp.policy_scope(self._policy):
+            with torch.no_grad(), mp.policy_scope(self._policy), \
+                    self._gathered():
                 out = self.forward(*args, **kwargs)
         finally:
             CTX.training = prev
@@ -292,12 +342,98 @@ class Model(Layer):
             opt = getattr(opt, "inner", None)
         return opt if isinstance(opt, DistOpt) else None
 
+    # -- the train mesh and ZeRO/FSDP (parallel/gspmd.py) --------------------
+    def _meshed(self):
+        return self._gspmd_mesh is not None or self._fsdp_axis is not None
+
+    def _build_mesh_step(self):
+        """The :class:`~.parallel.gspmd.MeshStep` of the compiled mesh and
+        optimizer: the ``DistOpt`` (the model's, or one around its plain
+        optimizer) over the mesh's data group and, under FSDP, the model's
+        parameters sharded and the optimizer's mirroring states with them
+        (the layout made at the first call, kept after)."""
+        from .opt import DistOpt
+        from .parallel import gspmd
+        from .parallel.communicator import initialized
+        from .parallel.mesh import axis_sizes, make_mesh
+        dist = self._dist_opt()
+        mesh = self._gspmd_mesh
+        if mesh is None:
+            mesh = dist.communicator.mesh if dist is not None and \
+                dist.communicator.mesh is not None else \
+                make_mesh() if initialized() else None
+        sizes = axis_sizes(mesh if mesh is not None else {})
+        axis = dist.axis_name if dist is not None else gspmd.DATA_AXIS
+        if axis not in sizes:
+            raise gspmd.ShardingDecline(
+                f"train mesh {sizes} has no batch axis {axis!r}: build it "
+                "with parallel.gspmd.train_mesh")
+        own = dist is None
+        reducer = DistOpt(gspmd.base_optimizer(self.optimizer),
+                          axis_name=axis) if own else dist
+        reducer.communicator.mesh = mesh
+        if self._fsdp_axis is not None:
+            if self._layout is None:
+                self._layout = gspmd.ShardedLayout(
+                    reducer.communicator, sizes,
+                    self._fsdp_axis).shard(self.get_params())
+            self._layout.adopt(self.optimizer, reducer.communicator)
+        return gspmd.MeshStep(reducer, self._layout, own_reducer=own)
+
+    def _unshard(self):
+        """A sharded model's parameters and optimizer states back to full
+        tensors (collective); the next train call shards them again."""
+        if self._layout is not None:
+            self._layout.unshard()
+            self._layout = None
+            self._mesh_step = None
+            self.drop_graphs()
+
+    def _gathered(self):
+        import contextlib
+        return self._layout.gathered() if self._layout is not None \
+            else contextlib.nullcontext()
+
+    def _live_states(self):
+        """The live state Tensors by name (a shard under FSDP)."""
+        return super().get_states()
+
+    def get_states(self):
+        """Every state Tensor by name. Under ZeRO/FSDP a sharded one comes
+        back as a new Tensor holding its full value (collective)."""
+        states = self._live_states()
+        if self._layout is None:
+            return states
+        return {k: self._layout.full_tensor(t) if t.sharding else t
+                for k, t in states.items()}
+
+    def _state_tensors(self):
+        """The live model and optimizer state Tensors, each once (what a
+        rank holds between steps)."""
+        seen = {}
+        for t in self._live_states().values():
+            seen.setdefault(id(t), t)
+        if self.optimizer is not None and self.optimizer.device is not None:
+            for t in self.optimizer.state_tensors():
+                seen.setdefault(id(t), t)
+        return list(seen.values())
+
+    def _step_communicator(self):
+        if self._mesh_step is not None:
+            return self._mesh_step.comm
+        dist = self._dist_opt()
+        return dist.communicator if dist is not None else None
+
     def _train_step(self, *args):
         from . import mixed_precision as mp
         from .parallel.communicator import collective_context
-        dist = self._dist_opt()
-        comm = dist.communicator if dist is not None else None
-        with mp.policy_scope(self._policy), collective_context(comm):
+        from .parallel.gspmd import step_scope
+        if self._meshed() and self._mesh_step is None:
+            # sharded again after compile_serving gathered the model
+            self._mesh_step = self._build_mesh_step()
+        comm = self._step_communicator()
+        with mp.policy_scope(self._policy), collective_context(comm), \
+                step_scope(self._mesh_step), self._gathered():
             out = self.train_one_batch(*args)
         with torch.no_grad():
             if self._policy is not None:
@@ -329,9 +465,8 @@ class Model(Layer):
         if g is None:
             dev = self.dev or next(
                 (a.device for a in args if isinstance(a, Tensor)), None)
-            dist = self._dist_opt()
-            backend = dist.communicator.backend if dist is not None \
-                else None
+            comm = self._step_communicator()
+            backend = comm.backend if comm is not None else None
             if dev.is_cuda and backend not in (None, "nccl"):
                 raise RuntimeError(
                     f"graph mode over a {backend} process group: its "
@@ -370,13 +505,15 @@ class Model(Layer):
         from . import mixed_precision as mp
         from .serving import build_engine
         pol = mp.resolve(policy) if policy is not None else self._policy
+        self._unshard()        # serving is replicated: gather once
         return build_engine(self, policy=pol, **kw)
 
     def save_states(self, fpath, aux_states={}):  # noqa: B006 (parity)
         """Zip of the states, the optimizer's states (``optimizer/<name>``)
         and ``aux_states`` (``aux/<name>``) as ``.npz`` plus an attribute
         JSON. bf16 is stored as f32 (numpy has no bf16); the JSON records
-        the true dtype."""
+        the true dtype. Under ZeRO/FSDP it is collective: every rank
+        gathers the full arrays, rank 0 writes, the others wait for it."""
         attr, arrays = {}, {}
         for k, v in self.get_states().items():
             arrays[k] = v.to_numpy()
@@ -397,17 +534,22 @@ class Model(Layer):
             attr[f"aux/{k}"] = {"shape": list(arr.shape),
                                 "dtype": dtype_name(t.dtype) if t is not None
                                 else str(arr.dtype), "aux": True}
-        buf = io.BytesIO()
-        np.savez(buf, **arrays)
-        with zipfile.ZipFile(fpath, "w") as zf:
-            zf.writestr(TENSOR_DICT_FILENAME, buf.getvalue())
-            zf.writestr(STATES_ATTR_FILENAME, json.dumps(attr))
+        if self._layout is None or self._layout.rank == 0:
+            buf = io.BytesIO()
+            np.savez(buf, **arrays)
+            with zipfile.ZipFile(fpath, "w") as zf:
+                zf.writestr(TENSOR_DICT_FILENAME, buf.getvalue())
+                zf.writestr(STATES_ATTR_FILENAME, json.dumps(attr))
+        if self._layout is not None:
+            self._layout.comm.barrier()
 
     def load_states(self, fpath):
         """Restore states, and the optimizer's states when the model has
         an optimizer, from a ``save_states`` zip written by either
         package; returns the aux states as numpy arrays. Int8-quantized
-        archives are refused (quantization is not ported yet)."""
+        archives are refused (quantization is not ported yet). A sharded
+        model takes this rank's slice of each sharded state, whatever the
+        data degree of the run that saved it."""
         with zipfile.ZipFile(fpath, "r") as zf:
             attr = json.loads(zf.read(STATES_ATTR_FILENAME))
             data = np.load(io.BytesIO(zf.read(TENSOR_DICT_FILENAME)))

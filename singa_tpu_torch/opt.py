@@ -44,6 +44,15 @@ no host sync: the multi-tensor kernels skip on the flag, a parameter that
 gradients are summed over the ranks, averaged, and handed to the wrapped
 optimizer's :meth:`Optimizer.update_params`, so the fused step stays one
 multi-tensor call.
+
+Under ZeRO/FSDP (``DistOpt(zero=True)`` or ``Model.compile(fsdp_axis=)``,
+``parallel.gspmd``) an optimizer's ``layout`` is the model's
+``ShardedLayout``: the states that mirror a sharded parameter
+(``<param>:<kind>``) are this rank's shards of it, made from the shard
+that the update hands them, and :meth:`Optimizer.get_states` /
+:meth:`Optimizer.set_states` gather and cut them (collectively), so their
+names, shapes and host arrays are those of a replicated run;
+:meth:`Optimizer.state_tensor_dict` gives the live shards.
 """
 
 from __future__ import annotations
@@ -166,6 +175,7 @@ class Optimizer:
         self._lr_multipliers = {}
         self._step_cache = {}         # per-step device scalars
         self._touched = None          # in _apply_masked: aux -> its before
+        self.layout = None            # parallel.gspmd.ShardedLayout
 
     # -- device binding ---------------------------------------------------
     def bind(self, device):
@@ -254,7 +264,15 @@ class Optimizer:
         self.backward_and_update(loss)
 
     def backward_and_update(self, loss):
-        self.update_params(autograd_base.backward(loss))
+        """Backward, update, step. In the train step of a model compiled
+        with a mesh the gradients are averaged over the data ranks first
+        (``parallel.gspmd.active_reducer``)."""
+        from .parallel.gspmd import active_reducer
+        pairs = autograd_base.backward(loss)
+        reducer = active_reducer()
+        if reducer is not None:
+            pairs = reducer.reduced_mean(pairs)
+        self.update_params(pairs)
         self.step()
 
     def update_params(self, pairs, ok=None):
@@ -329,6 +347,7 @@ class Optimizer:
         if t is None:
             t = Tensor(shape=like.shape, device=like.device,
                        dtype=like.dtype, name=key)
+            t.sharding = like.sharding    # a shard's state is a shard
             self._aux[key] = t
         if self._touched is not None and key not in self._touched:
             self._touched[key] = (t, t.data.clone())
@@ -352,29 +371,48 @@ class Optimizer:
 
     def get_states(self):
         """name -> host array: ``step_counter``, ``loss_scale`` and every
-        aux state (what ``save_states`` writes as ``optimizer/<name>``)."""
+        aux state (what ``save_states`` writes as ``optimizer/<name>``), a
+        shard gathered into its full array (collective)."""
         if self.device is None:           # nothing has run yet
             return {"step_counter": np.zeros((), np.float32),
                     "loss_scale": np.ones((), np.float32)}
-        return {k: v.to_numpy() for k, v in self.state_tensor_dict().items()}
+        return {k: self._host(v)
+                for k, v in self.state_tensor_dict().items()}
+
+    def _host(self, t):
+        if t.sharding is not None and self.layout is not None:
+            t = self.layout.full_tensor(t)
+        return t.to_numpy()
 
     def set_states(self, states):
         """Restore from ``get_states`` output (host arrays) into a bound
         optimizer. A live aux state keeps its dtype; a new one takes the
-        array's."""
+        array's. Under a ``layout`` the state of a sharded parameter takes
+        this rank's slice of the array."""
         if self.device is None:
             raise RuntimeError(
                 "set_states needs the optimizer's device: bind it first "
                 "(Model.compile / set_optimizer, or bind(device))")
         for k, v in states.items():
+            arr = np.asarray(v)
             if k in ("step_counter", "loss_scale"):
                 getattr(self, k).copy_from_numpy(
-                    np.asarray(v, np.float32).reshape(()))
-            elif k in self._aux:
-                self._aux[k].copy_from_numpy(np.asarray(v))
+                    arr.astype(np.float32).reshape(()))
+                continue
+            t = self._aux.get(k)
+            if t is not None:
+                dim = t.sharding[0] if t.sharding is not None else None
+            elif self.layout is not None:       # a sharded param's state
+                dim = self.layout.dims.get(k.rpartition(":")[0])
             else:
-                self._aux[k] = Tensor(data=np.asarray(v), device=self.device,
-                                      name=k)
+                dim = None
+            part = arr if dim is None else self.layout.local(arr, dim)
+            if t is not None:
+                t.copy_from_numpy(part)
+                continue
+            t = self._aux[k] = Tensor(data=part, device=self.device, name=k)
+            if dim is not None:
+                t.sharding = (dim, arr.shape)
 
 
 class SGD(Optimizer):
@@ -624,10 +662,17 @@ class DistOpt:
     neither mode does a collective overlap the backward (ROADMAP.md, Queue
     1b).
 
-    ``zero=True`` (ZeRO/FSDP) and ``reduce_axes`` beyond the data axis
-    raise (ROADMAP.md). ``nccl_id``, ``buffSize`` and a driver's
-    ``threshold`` are accepted for parity and ignored; ``world_size`` is
-    the process group's (an explicit value that disagrees raises).
+    ``zero=True`` is ZeRO/FSDP: the optimizer-side spelling of
+    ``Model.compile(fsdp_axis=axis_name)`` (``parallel.gspmd``), which the
+    model takes from it. Its plain driver then reduce-scatters each
+    sharded parameter's gradient into this rank's shard
+    (:meth:`reduced_mean`), the update runs on the shards, and its half,
+    partial and sparse drivers raise ``gspmd.ShardingDecline`` (they keep
+    replicated states); outside such a model's train step the plain
+    driver raises too. ``reduce_axes`` beyond the data axis raise
+    (ROADMAP.md). ``nccl_id``, ``buffSize`` and a driver's ``threshold``
+    are accepted for parity and ignored; ``world_size`` is the process
+    group's (an explicit value that disagrees raises).
     """
 
     def __init__(self, opt=None, nccl_id=None, local_rank=None,
@@ -635,11 +680,6 @@ class DistOpt:
                  reduce_axes=None, bucket_mb=None, overlap=True,
                  zero=False):
         from .parallel.communicator import Communicator
-        if zero:
-            raise NotImplementedError(
-                "DistOpt(zero=True): ZeRO/FSDP sharding of the optimizer "
-                "state is not ported yet (ROADMAP.md: slice B, GSPMD/FSDP); "
-                "construct the DistOpt without zero=True")
         self.opt = opt if opt is not None else SGD()
         self.communicator = Communicator(axis_name=axis_name,
                                          world_size=world_size,
@@ -651,6 +691,7 @@ class DistOpt:
         if self.bucket_mb < 0:
             raise ValueError(f"bucket_mb must be >= 0, got {bucket_mb!r}")
         self.overlap = bool(overlap)
+        self.zero = bool(zero)
         # sparsification error-feedback residuals, per parameter name
         self._residuals = {}
         self._bucket_warned = set()
@@ -754,8 +795,35 @@ class DistOpt:
         """Backward's ``(param, grad)`` pairs averaged over the ranks:
         :meth:`grad_reduce_stream` (bucketing, overlap, ``wire``), then
         :meth:`_mean`. The plain and the guarded drivers both reduce
-        through here."""
+        through here. In the train step of a model sharded by ZeRO/FSDP
+        the sharded parameters' gradients are reduce-scattered into their
+        shards instead (``gspmd.ShardedLayout.reduce_mean``)."""
+        from .parallel.gspmd import ShardingDecline, active_layout
+        layout = active_layout()
+        if layout is not None:
+            return layout.reduce_mean(pairs, self, wire)
+        if self.zero:
+            raise ShardingDecline(
+                "DistOpt(zero=True) reduces inside the train step of the "
+                "model it was compiled with (Model.compile, which shards "
+                "the model's states); outside one the states would stay "
+                "replicated")
         return self._mean(list(self.grad_reduce_stream(pairs, wire=wire)))
+
+    def _decline_zero(self, driver):
+        """ZeRO/FSDP under a specialised driver is refused, not warned:
+        these drivers keep their own per-gradient reduction and replicated
+        optimizer states, so a sharded step would silently not be one. The
+        plain driver (``model(x, y)``) runs it."""
+        from .parallel.gspmd import ShardingDecline, active_layout
+        if not self.zero and active_layout() is None:
+            return
+        raise ShardingDecline(
+            f"DistOpt(zero=True) (or compile(fsdp_axis=)) cannot run the "
+            f"{driver} driver: it keeps replicated optimizer states and "
+            "per-gradient collectives, so the requested ZeRO sharding "
+            "would silently not happen. Use the plain driver or construct "
+            "the DistOpt without zero=True")
 
     def _update(self, pairs):
         """Update through the wrapped optimizer with the averaged
@@ -876,6 +944,7 @@ class DistOpt:
         ``"bfloat16"`` or ``"float16"`` -- summed on that wire and cast
         back to f32 (reference ``synchHalf``,
         ``src/io/communicator.cc:262-299``)."""
+        self._decline_zero("backward_and_update_half")
         self._warn_driver_skips_bucketing("backward_and_update_half")
         dtype, clipping = self._half_wire_defaults(dtype, clipping)
         wire = {"bfloat16": torch.bfloat16, "float16": torch.float16,
@@ -904,6 +973,7 @@ class DistOpt:
         graph mode. ``rotation=None`` selects on the device step counter
         (``(step + i) % world == 0``): one graph that keeps rotating, but
         every gradient is reduced and only the update is masked."""
+        self._decline_zero("backward_and_partial_update")
         self._warn_driver_skips_bucketing("backward_and_partial_update")
         n = max(1, self.communicator.effective_world_size())
         pairs = list(autograd_base.backward(loss))
@@ -932,6 +1002,7 @@ class DistOpt:
         (``torch.topk``; the entries tied with the k-th are kept too), the
         rest becomes the next residual (``corr``), and the kept entries
         are summed over the ranks as a dense tensor and averaged."""
+        self._decline_zero("backward_and_sparse_update")
         self._warn_driver_skips_bucketing("backward_and_sparse_update")
         pairs = []
         for p, g in autograd_base.backward(loss):

@@ -9,7 +9,8 @@ the caller asks for the CPU (or names it).
 - :func:`init_process` joins the process group. :class:`NcclIdHolder`
   holds where the ranks meet: ``MASTER_ADDR``/``MASTER_PORT`` or a file.
 - :class:`Communicator` sums, gathers, scatters and broadcasts over the
-  group. Outside an initialised process group every collective is the
+  group, one ``torch.distributed`` call per collective, each counted by
+  kind. Outside an initialised process group every collective is the
   identity and the world is 1, the JAX package's rule outside a mesh
   context: single-device scripts run unchanged.
 - A collective reduces the tensor it is given in place and returns it.
@@ -35,6 +36,14 @@ import torch.distributed as dist
 __all__ = ["NcclIdHolder", "init_process", "Communicator",
            "collective_context", "active_communicator", "rescale_batch",
            "replica_fingerprint"]
+
+
+# the tensor forms of all-gather and reduce-scatter (torch 2.13 renamed
+# them and warns on the old names; the card's torch 2.11 has the old ones)
+_ALL_GATHER = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
 
 
 def initialized() -> bool:
@@ -116,9 +125,23 @@ class Communicator:
     :meth:`all_reduce`; ``fusedSynch`` -> ``DistOpt``'s buckets;
     ``synchHalf`` -> a 16-bit all-reduce (``DistOpt`` casts);
     ``sparsification`` -> a masked dense all-reduce (``DistOpt``);
-    ``wait`` -> :meth:`wait`. ``n_collectives`` counts the collectives
-    started (host calls; a CUDA-graph replay runs what its capture
-    counted)."""
+    ``wait`` -> :meth:`wait`. ZeRO/FSDP (``parallel.gspmd``) gathers
+    parameters with :meth:`all_gather` and scatters gradients with
+    :meth:`reduce_scatter`.
+
+    Each collective is one ``torch.distributed`` call into a preallocated
+    output: ``all_gather_into_tensor`` and ``reduce_scatter_tensor`` (named
+    ``all_gather_single`` and ``reduce_scatter_single`` from torch 2.13 on;
+    the names are picked once, from the torch release). Both backends the
+    port runs take every one of them for the tensors it hands them: NCCL
+    for CUDA tensors, gloo for CPU tensors and, on torch 2.11, for CUDA
+    tensors too (``chip_smoke.py`` phase 18 (b) runs them so on the card). So no backend needs another
+    form of a collective. ``counts`` holds the collectives started, by kind
+    (``all_reduce``, ``all_gather``, ``reduce_scatter``, ``broadcast``),
+    and ``n_collectives`` their sum: host calls (a CUDA-graph replay runs
+    what its capture counted)."""
+
+    KINDS = ("all_reduce", "all_gather", "reduce_scatter", "broadcast")
 
     def __init__(self, axis_name: str = "data", world_size=None,
                  mesh=None, reduce_axes=None):
@@ -138,8 +161,13 @@ class Communicator:
                 f"world_size={world_size} disagrees with the process "
                 f"group's {self.effective_world_size()} ranks (1 outside "
                 "one): the world is the group's, pass None")
-        self.n_collectives = 0
+        self.counts = dict.fromkeys(self.KINDS, 0)
         self._pending = []
+
+    @property
+    def n_collectives(self) -> int:
+        """Every collective started, all kinds together."""
+        return sum(self.counts.values())
 
     @property
     def world_size(self) -> int:
@@ -170,8 +198,8 @@ class Communicator:
         return dist.get_world_size(self.group) if self.active(exclude) \
             else 1
 
-    def _count(self, work, async_op):
-        self.n_collectives += 1
+    def _count(self, kind, work=None, async_op=False):
+        self.counts[kind] += 1
         if async_op:
             self._pending.append(work)
 
@@ -179,8 +207,8 @@ class Communicator:
     def all_reduce(self, arr, exclude=(), async_op=False):
         """Sum ``arr`` over the ranks, in place; returns ``arr``."""
         if self.active(exclude):
-            self._count(dist.all_reduce(arr, group=self.group,
-                                        async_op=async_op), async_op)
+            self._count("all_reduce", dist.all_reduce(
+                arr, group=self.group, async_op=async_op), async_op)
         return arr
 
     def all_reduce_grad(self, arr):
@@ -191,32 +219,50 @@ class Communicator:
         return _AllReduceSum.apply(arr, self)
 
     def all_gather(self, arr, axis=0):
-        """The ranks' ``arr`` concatenated along ``axis``, rank order."""
+        """The ranks' ``arr`` concatenated along ``axis``, in rank order: a
+        new tensor (``arr`` itself outside a process group). Along an
+        ``axis`` other than 0 the ranks' pieces are gathered with that
+        axis moved to the front, and the result is moved back (a copy)."""
         if not self.active():
             return arr
-        arr = arr.contiguous()
-        parts = [torch.empty_like(arr)
-                 for _ in range(self.effective_world_size())]
-        dist.all_gather(parts, arr, group=self.group)
-        self.n_collectives += 1
-        return torch.cat(parts, dim=axis)
+        src = (arr if axis == 0 else arr.movedim(axis, 0)).contiguous()
+        out = src.new_empty((self.effective_world_size() * src.shape[0],)
+                            + tuple(src.shape[1:]))
+        _ALL_GATHER(out, src, group=self.group)
+        self._count("all_gather")
+        return out if axis == 0 else out.movedim(0, axis).contiguous()
 
     def reduce_scatter(self, arr, axis=0):
-        """This rank's slice (along ``axis``) of the sum over the ranks.
-        One all-reduce of a copy, then the slice: gloo has no
-        reduce-scatter, and no caller of the port's is on a hot path."""
+        """This rank's slice along ``axis`` of the sum of the ranks' ``arr``
+        (the slices in rank order): a new tensor (``arr`` itself outside a
+        process group). ``arr``'s size along ``axis`` must divide by the
+        world; ``arr`` may be overwritten. Along an ``axis`` other than 0
+        the sum is taken with that axis moved to the front (a copy)."""
         if not self.active():
             return arr
-        full = self.all_reduce(arr.contiguous().clone())
-        return full.chunk(self.effective_world_size(), dim=axis)[
-            self.rank()].contiguous()
+        world = self.effective_world_size()
+        src = (arr if axis == 0 else arr.movedim(axis, 0)).contiguous()
+        if src.shape[0] % world:
+            raise ValueError(
+                f"reduce_scatter: dimension {axis} of {tuple(arr.shape)} "
+                f"does not divide over {world} ranks")
+        out = src.new_empty((src.shape[0] // world,)
+                            + tuple(src.shape[1:]))
+        _REDUCE_SCATTER(out, src, group=self.group)
+        self._count("reduce_scatter")
+        return out if axis == 0 else out.movedim(0, axis).contiguous()
 
     def broadcast(self, arr, root=0):
         """``arr`` of rank ``root`` on every rank, in place."""
         if self.active():
-            self.n_collectives += 1
             dist.broadcast(arr, src=root, group=self.group)
+            self._count("broadcast")
         return arr
+
+    def barrier(self):
+        """Wait for every rank of the group (no collective is counted)."""
+        if self.active():
+            dist.barrier(group=self.group)
 
     def rank(self) -> int:
         return dist.get_rank(self.group) if self.active() else 0

@@ -7,7 +7,10 @@ the ``data`` axis only: :func:`make_mesh` builds a
 ``torch.distributed.device_mesh.DeviceMesh`` over the ranks of the
 initialised process group (``parallel.communicator.init_process``), and a
 ``model``, ``pipe``, ``seq`` or ``expert`` degree above 1 raises
-(ROADMAP.md, slice C2).
+(ROADMAP.md, slice C2). :func:`axis_sizes` reads a mesh as the JAX
+package's axis table, the unported axes at degree 1, as the JAX package
+keeps them; ``parallel.gspmd.train_mesh`` builds its mesh through
+:func:`make_mesh`.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from dataclasses import dataclass
 
 import torch.distributed as dist
 
-__all__ = ["MeshConfig", "make_mesh", "elastic_mesh"]
+__all__ = ["MeshConfig", "make_mesh", "elastic_mesh", "axis_sizes"]
 
 
 @dataclass
@@ -89,3 +92,17 @@ def elastic_mesh(device_type=None, config: MeshConfig | None = None,
             f"(checkpoint was saved at {saved_world}); state will be "
             "re-sharded onto the new mesh on restore", stacklevel=2)
     return make_mesh(device_type, config)
+
+
+def axis_sizes(mesh) -> dict:
+    """``{axis name: degree}`` of ``mesh`` over every axis of
+    :class:`MeshConfig` (the JAX package's ``mesh.shape``): a
+    ``DeviceMesh``'s named dimensions, the others at 1. A mapping is
+    taken as such a table already."""
+    if hasattr(mesh, "mesh_dim_names"):
+        named = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    else:
+        named = dict(mesh)
+    table = dict.fromkeys(MeshConfig.axis_order, 1)
+    table.update({k: int(v) for k, v in named.items()})
+    return table

@@ -34,7 +34,12 @@ scaled gradients are averaged over the ranks by ``DistOpt.reduced_mean``
 (on the policy's wire) and then unscaled in f32; the
 loss verdict is summed over the ranks, so a NaN on one rank skips the step
 on every rank. Its half, partial and sparse drivers pass through
-unguarded, as in the JAX package.
+unguarded, as in the JAX package. In the train step of a model compiled
+with a mesh (``parallel.gspmd``) a plain inner optimizer's gradients are
+averaged the same way, through the step's ``DistOpt``. Under ZeRO/FSDP a
+sharded parameter's gradient is this rank's shard: the global squared
+norm is the sum of the replicated gradients' and the all-reduced sum of
+the shards', so every rank reaches the same verdict.
 
 The host reads them only in :meth:`GuardedOptimizer.stats`,
 :meth:`~GuardedOptimizer.bad_streak_value` and the checkpoint routes.
@@ -115,7 +120,7 @@ class GuardedOptimizer:
         if self._model is None:
             return
         opt_ids = {id(t) for t in self.inner.state_tensors()}
-        for name, t in self._model.get_states().items():
+        for name, t in self._model._live_states().items():
             # trainable params are masked through their update; the rest
             # is state the forward mutates
             if not t.requires_grad and id(t) not in opt_ids:
@@ -165,12 +170,15 @@ class GuardedOptimizer:
         """The wrapped optimizer's states, the guard's scalars
         (``guard/...``) and the shadows (``guard-shadow/<state>``), as
         host arrays."""
+        states = self.inner.get_states()     # shards gathered
         if self._own is None:             # nothing has run yet
-            states = self.inner.get_states()
             states["loss_scale"] = np.float32(self.init_scale)
             states.update({k: np.zeros((), np.float32) for k in _OWN})
             return states
-        return {k: v.to_numpy() for k, v in self.state_tensor_dict().items()}
+        states.update({k: v.to_numpy() for k, v in self._own.items()})
+        states.update({_SHADOW + k: v.to_numpy()
+                       for k, v in self._shadows.items()})
+        return states
 
     def set_states(self, states):
         own = self._own_state()
@@ -227,6 +235,7 @@ class GuardedOptimizer:
         self.backward_and_update(loss)
 
     def backward_and_update(self, loss):
+        from ..parallel.gspmd import active_reducer
         if self._own is None:
             self.bind(loss.device)
         dist = self.inner if isinstance(self.inner, DistOpt) else None
@@ -235,6 +244,8 @@ class GuardedOptimizer:
         loss_arr = loss.data
         pairs = autograd_base.backward(
             loss, dy=scale.expand(loss_arr.shape).to(loss_arr.dtype))
+        if dist is None:
+            dist = active_reducer()      # a plain optimizer under a mesh
         if dist is not None:
             pairs = dist.reduced_mean(pairs)
         pairs = list(pairs)
@@ -267,14 +278,30 @@ class GuardedOptimizer:
         norm_sq = torch.zeros((), dtype=torch.float32, device=scale.device)
         if g32:
             torch._foreach_mul_(g32, torch.reciprocal(scale))
-            norm_sq = torch.sum(torch.stack(
-                torch._foreach_norm(g32)).square())
+            norm_sq = self._norm_sq(pairs, g32, norm_sq)
         for (p, g), a in zip(pairs, g32):
             g.data = a if a.dtype == p.dtype else a.to(p.dtype)
         ok = ok & torch.isfinite(norm_sq)
         if self.max_grad_norm is not None:
             ok = ok & (norm_sq <= float(self.max_grad_norm) ** 2)
         return ok, norm_sq
+
+    @staticmethod
+    def _norm_sq(pairs, g32, zero):
+        """The global squared norm of the unscaled gradients ``g32``: under
+        ZeRO/FSDP the replicated ones' plus the all-reduced sum of this
+        rank's shards' (``Tensor.sharding`` of the parameter)."""
+        from ..parallel.gspmd import active_layout
+
+        def sq(ts):
+            return torch.sum(torch.stack(torch._foreach_norm(ts)).square()) \
+                if ts else zero
+        layout = active_layout()
+        if layout is None:
+            return sq(g32)
+        shards = [a for (p, _), a in zip(pairs, g32) if p.sharding]
+        whole = [a for (p, _), a in zip(pairs, g32) if not p.sharding]
+        return sq(whole) + layout.comm.all_reduce(sq(shards).clone())
 
     def _restore_shadows(self, ok):
         """Forward-mutated state: its last good value on a bad step; the

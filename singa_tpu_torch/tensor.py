@@ -73,6 +73,8 @@ class Tensor:
         self.stores_grad = stores_grad
         self.name = name
         self.grad = None
+        # (dim, full shape) of a ZeRO/FSDP shard (parallel.gspmd)
+        self.sharding = None
 
     @classmethod
     def lazy(cls, thunk, shape, dtype, device):
@@ -92,6 +94,7 @@ class Tensor:
         t.stores_grad = False
         t.name = None
         t.grad = None
+        t.sharding = None
         return t
 
     @property

@@ -139,15 +139,18 @@ REFUSED = [["--dist"], ["--mesh", "2x1"], ["--fsdp"], ["--bucket-mb", "4"],
 @pytest.mark.parametrize("flag", REFUSED, ids=lambda f: f[0])
 def test_refused_flags_name_the_roadmap(example, flag):
     """Each flag is refused naming ROADMAP.md, except the data-parallel
-    ones ported since (``--dist``, ``--bucket-mb``, ``--no-overlap``),
-    which ``_refuse`` lets through (their runs are
-    ``tests/test_torch_dist_example.py``); ``--mesh`` and ``--fsdp``
-    still name slice B."""
-    if flag[0] in ("--dist", "--bucket-mb", "--no-overlap"):
+    ones ported since (``--dist``, ``--bucket-mb``, ``--no-overlap``,
+    ``--mesh Dx1``, ``--fsdp``), which ``_refuse`` lets through (their
+    runs are ``tests/test_torch_dist_example.py``); ``--mesh DxM`` with
+    M > 1 (tensor parallelism) names slice C2."""
+    if flag[0] in ("--dist", "--bucket-mb", "--no-overlap", "--mesh",
+                   "--fsdp"):
         assert example._refuse(example.build_parser().parse_args(
             ["cnn"] + flag + ["--cpu"])) is None
-        return
+        if flag[0] != "--mesh":
+            return
+        flag = ["--mesh", "2x2"]
     with pytest.raises(SystemExit, match="ROADMAP.md") as e:
         example.main(["cnn"] + flag + ["--cpu"])
-    part = "slice B" if flag[0] in ("--mesh", "--fsdp") else "slice E"
+    part = "slice C2" if flag[0] == "--mesh" else "slice E"
     assert part in str(e.value) and flag[0] in str(e.value)

@@ -8,7 +8,10 @@ module, gloo) and at world 1 without them. Each rank trains on its half of
 every global batch of 16; both see the same (mean) losses and keep
 bitwise-equal replicas, only rank 0 prints, and the run matches the
 world-1 run within rtol 1e-5 (the mean of two half-batch means against
-the full batch's mean differs by rounding only).
+the full batch's mean differs by rounding only). ``--mesh 2x1 --fsdp``
+(a plain SGD, no ``--dist``) runs the same two ranks through the train
+mesh and ZeRO/FSDP: bitwise the ``--dist`` run (two ranks sum a + b
+exactly, and the update is elementwise).
 """
 
 import numpy as np
@@ -21,11 +24,16 @@ ARGV = ["mlp", "--dist", "--cpu", "--max-batches", "2", "--epochs", "1",
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def npz(tmp_path_factory):
     rng = np.random.RandomState(0)
-    npz = tmp_path_factory.mktemp("data") / "tiny.npz"
-    np.savez(npz, x=rng.randn(80, 1, 8, 8).astype(np.float32),
+    path = tmp_path_factory.mktemp("data") / "tiny.npz"
+    np.savez(path, x=rng.randn(80, 1, 8, 8).astype(np.float32),
              y=rng.randint(0, 10, 80).astype(np.int32))
+    return path
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory, npz):
     inputs = {"argv": np.asarray(ARGV + ["--npz", str(npz)])}
     two = ranks.launch("example", 2, inputs,
                        tmp_path_factory.mktemp("example2"),
@@ -59,3 +67,20 @@ def test_one_rank_without_torchrun(runs):
     assert "data-parallel world 1" in log and "Evaluation accuracy" in log
     assert float(one["example/opt/step_counter"]) == 2
     assert np.all(np.isfinite(one["losses"]))
+
+
+def test_two_ranks_under_the_mesh_and_fsdp(runs, tmp_path_factory, npz):
+    argv = [a for a in ARGV if a != "--dist"] + [
+        "--mesh", "2x1", "--fsdp", "--npz", str(npz)]
+    outs, logs = ranks.launch("example", 2, {"argv": np.asarray(argv)},
+                              tmp_path_factory.mktemp("example_fsdp"),
+                              torchrun_env=True)
+    (dist, _), _ = runs
+    for o in outs:
+        np.testing.assert_array_equal(o["losses"], dist[0]["losses"])
+        want = _states(dist[0])
+        assert sorted(_states(o)) == sorted(want)
+        for k, v in want.items():
+            np.testing.assert_array_equal(_states(o)[k], v, err_msg=k)
+    assert "GSPMD train mesh=data2xmodel1 fsdp=data" in logs[0]
+    assert "Evaluation accuracy" in logs[0] and "Training loss" not in logs[1]

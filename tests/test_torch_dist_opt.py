@@ -179,6 +179,23 @@ def test_communicator_primitives_and_mesh(ranked):
         full = sum(np.arange(2.0 * WORLD) + s for s in range(WORLD))
         np.testing.assert_array_equal(o["comm/reduce_scatter"],
                                       full[2 * r:2 * r + 2])
+        # one reduce_scatter_tensor / all_gather_into_tensor a call, along
+        # dimension 0 and 1 (counted by kind: all_reduce, all_gather,
+        # reduce_scatter, broadcast)
+        a = sum(np.arange(6.0 * WORLD).reshape(2 * WORLD, 3) + s
+                for s in range(WORLD))
+        b = sum(np.arange(6.0 * WORLD).reshape(3, 2 * WORLD) + 10.0 * s
+                for s in range(WORLD))
+        c = [np.arange(6.0).reshape(2, 3) + 100.0 * s for s in range(WORLD)]
+        np.testing.assert_array_equal(o["comm/reduce_scatter0"],
+                                      a[2 * r:2 * r + 2])
+        np.testing.assert_array_equal(o["comm/reduce_scatter1"],
+                                      b[:, 2 * r:2 * r + 2])
+        np.testing.assert_array_equal(o["comm/all_gather0"],
+                                      np.concatenate(c, 0))
+        np.testing.assert_array_equal(o["comm/all_gather1"],
+                                      np.concatenate(c, 1))
+        np.testing.assert_array_equal(o["comm/counts"], [0, 2, 2, 0])
         np.testing.assert_array_equal(o["comm/broadcast"], np.ones(3))
         total = sum(s + 1 for s in range(WORLD))
         np.testing.assert_array_equal(o["comm/all_reduce_grad"],
@@ -213,8 +230,8 @@ def test_outside_a_process_group_the_communicator_is_the_identity():
 
 
 def test_what_is_not_ported_names_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        topt.DistOpt(topt.SGD(), zero=True)
+    # ZeRO/FSDP is ported (tests/test_torch_gspmd_train.py)
+    assert topt.DistOpt(topt.SGD(), zero=True).zero
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         topt.DistOpt(topt.SGD(), reduce_axes=("data", "seq"))
     with pytest.raises(ValueError):

@@ -30,7 +30,7 @@ def _sources():
             "examples/train_transformer.py", "models/mlp.py",
             "models/cnn.py", "models/alexnet.py",
             "models/xceptionnet.py", "parallel/communicator.py",
-            "parallel/mesh.py"} <= names
+            "parallel/mesh.py", "parallel/gspmd.py"} <= names
     return files
 
 
@@ -58,7 +58,7 @@ def test_importing_the_port_loads_no_jax():
         "from singa_tpu_torch import opt, data, datasets, metric\n"
         "from singa_tpu_torch.ops import fused_optim, attention, losses\n"
         "from singa_tpu_torch.parallel import tensor_parallel\n"
-        "from singa_tpu_torch.parallel import communicator, mesh\n"
+        "from singa_tpu_torch.parallel import communicator, gspmd, mesh\n"
         "from singa_tpu_torch.models import transformer\n"
         "from singa_tpu_torch.models import mlp, cnn, alexnet, "
         "xceptionnet\n"

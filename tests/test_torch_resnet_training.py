@@ -313,8 +313,9 @@ def test_bf16_training_and_dist_options_name_the_roadmap():
     optimizer in the port's ``GuardedOptimizer`` (dynamic loss scaling
     from 1.0), and an f32 re-compile takes the wrap off. The DistOpt
     options are ported too: under an optimizer that is not a ``DistOpt``
-    ``"half"`` runs as ``"plain"``, as in the JAX package; what is still
-    missing, ``DistOpt(zero=True)``, names ROADMAP slice B."""
+    ``"half"`` runs as ``"plain"``, as in the JAX package; under
+    ``DistOpt(zero=True)`` (ZeRO/FSDP, ported since) the half driver
+    raises the typed ``ShardingDecline``."""
     from singa_tpu_torch.resilience import GuardedOptimizer
     x, y = _batch()
     dev = tdevice.create_cpu_device()
@@ -332,8 +333,10 @@ def test_bf16_training_and_dist_options_name_the_roadmap():
                 ttensor.Tensor(data=y, device=dev), "half")
     assert np.isfinite(float(loss.data.detach()))
     assert float(sgd.get_states()["step_counter"]) == 1
-    with pytest.raises(NotImplementedError, match="slice B"):
-        topt.DistOpt(topt.SGD(), zero=True)
+    # ZeRO/FSDP keeps no replicated state: its half driver declines
+    from singa_tpu_torch.parallel.gspmd import ShardingDecline
+    with pytest.raises(ShardingDecline, match="zero=True"):
+        topt.DistOpt(topt.SGD(), zero=True).backward_and_update_half(loss)
 
 
 @pytest.mark.parametrize("targets", ["one_hot", "ids"])

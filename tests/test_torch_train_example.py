@@ -64,15 +64,22 @@ def test_cifar10_training_runs(example, capsys, tmp_path):
                                   ["resnet", "--resilient"]], ids=str)
 def test_what_is_not_ported_names_the_roadmap(example, argv):
     """Each case is refused naming ROADMAP.md, except those ported since:
-    ``-p bf16_mixed``, the ``cnn`` model, the ``mnist`` dataset and
-    ``--dist``, which ``_refuse`` lets through (their runs are
-    ``test_bf16_mixed_cifar10_training_runs``,
+    ``-p bf16_mixed``, the ``cnn`` model, the ``mnist`` dataset,
+    ``--dist`` and ``--mesh``, which ``_refuse`` lets through (their runs
+    are ``test_bf16_mixed_cifar10_training_runs``,
     ``tests/test_torch_cnn_example.py`` and
-    ``tests/test_torch_dist_example.py``)."""
+    ``tests/test_torch_dist_example.py``); a ``--mesh 2x1`` that one rank
+    cannot tile declines (``gspmd.ShardingDecline``) before any data is
+    read."""
     if argv in (["cnn"], ["resnet", "mnist"],
-                ["resnet", "-p", "bf16_mixed"], ["resnet", "--dist"]):
+                ["resnet", "-p", "bf16_mixed"], ["resnet", "--dist"],
+                ["resnet", "--mesh", "2x1"]):
         assert example._refuse(example.build_parser().parse_args(
             argv + ["--cpu"])) is None
+        if "--mesh" in argv:
+            from singa_tpu_torch.parallel.gspmd import ShardingDecline
+            with pytest.raises(ShardingDecline, match="1 available"):
+                example.main(argv + ["--cpu"])
         return
     with pytest.raises(SystemExit, match="ROADMAP"):
         example.main(argv + ["--cpu"])

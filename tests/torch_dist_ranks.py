@@ -36,6 +36,13 @@ BUCKETINGS = {"bucket4": {"bucket_mb": 4}, "bucket_tiny": {"bucket_mb": 0.001},
               "bucket4_no_overlap": {"bucket_mb": 4, "overlap": False}}
 GUARD_STEPS = 5
 POISONED = 2          # the step whose batch holds a NaN on rank 1
+# the MLP of tests/test_gspmd_train.py under each spelling: a DistOpt
+# without a mesh, compile(mesh=) with a DistOpt and with a plain SGD,
+# DistOpt(zero=True), compile(fsdp_axis="data") with a plain SGD
+GSPMD_RUNS = ("dist", "mesh_dist", "mesh_plain", "zero", "fsdp_plain")
+GSPMD_STEPS = 3
+DROP_STEPS = 3
+DROP_SEED = 5         # every rank's device generator (the dropout masks)
 
 
 def free_port():
@@ -151,6 +158,59 @@ def mlp3():
     return MLP()
 
 
+def gspmd_mlp():
+    """The port's counterpart of ``tests/test_gspmd_train.py::MLP``."""
+    from singa_tpu_torch import layer, model
+
+    class MLP(model.Model):
+        def __init__(self):
+            super().__init__()
+            self.fc1 = layer.Linear(16)
+            self.relu = layer.ReLU()
+            self.fc2 = layer.Linear(4)
+            self.loss_fn = layer.SoftMaxCrossEntropy()
+
+        def forward(self, x):
+            return self.fc2(self.relu(self.fc1(x)))
+
+        def train_one_batch(self, x, y):
+            out = self.forward(x)
+            loss = self.loss_fn(out, y)
+            self.optimizer(loss)
+            return out, loss
+
+    return MLP()
+
+
+def drop_bn_model():
+    """A small net with a ``BatchNorm2d`` and a ``layer.Dropout`` (the CNN
+    and the MLP have neither)."""
+    from singa_tpu_torch import layer, model
+
+    class DropBN(model.Model):
+        def __init__(self):
+            super().__init__()
+            self.conv = layer.Conv2d(4, 3, padding=1)
+            self.bn = layer.BatchNorm2d()
+            self.relu = layer.ReLU()
+            self.flat = layer.Flatten()
+            self.drop = layer.Dropout(0.5)
+            self.fc = layer.Linear(4)
+            self.loss_fn = layer.SoftMaxCrossEntropy()
+
+        def forward(self, x):
+            return self.fc(self.drop(self.flat(self.relu(self.bn(
+                self.conv(x))))))
+
+        def train_one_batch(self, x, y):
+            out = self.forward(x)
+            loss = self.loss_fn(out, y)
+            self.optimizer(loss)
+            return out, loss
+
+    return DropBN()
+
+
 # -- helpers ------------------------------------------------------------------
 
 def _init(inputs, prefix):
@@ -158,12 +218,12 @@ def _init(inputs, prefix):
             if k.startswith(prefix)}
 
 
-def _compiled(model, dev, x, optimizer, init=None, policy=None):
+def _compiled(model, dev, x, optimizer, init=None, policy=None, **kw):
     from singa_tpu_torch import tensor
     from singa_tpu_torch.model import load_numpy_states
     model.set_optimizer(optimizer)
     model.compile([tensor.Tensor(data=x, device=dev)], is_train=True,
-                  use_graph=True, policy=policy)
+                  use_graph=True, policy=policy, **kw)
     if init is not None:
         load_numpy_states(model, init)
     return model
@@ -189,6 +249,22 @@ def as_float64(model):
         if param:
             register_param(t)
     return model
+
+
+def comm_primitives(rank, world, comm, out):
+    """Reduce-scatter and all-gather along dimensions 0 and 1 (one
+    collective a call, counted by kind) and the broadcast."""
+    import torch
+    before = dict(comm.counts)
+    a = torch.arange(6.0 * world).reshape(2 * world, 3) + rank
+    out["comm/reduce_scatter0"] = comm.reduce_scatter(a, 0).numpy()
+    b = torch.arange(6.0 * world).reshape(3, 2 * world) + 10.0 * rank
+    out["comm/reduce_scatter1"] = comm.reduce_scatter(b, 1).numpy()
+    c = torch.arange(6.0).reshape(2, 3) + 100.0 * rank
+    out["comm/all_gather0"] = comm.all_gather(c, 0).numpy()
+    out["comm/all_gather1"] = comm.all_gather(c, 1).numpy()
+    out["comm/counts"] = np.asarray([comm.counts[k] - before[k]
+                                     for k in comm.KINDS])
 
 
 def _agree(model, comm):
@@ -267,6 +343,7 @@ def case_dist_opt(rank, world, dev, inputs):
         out["comm/wrong_world"] = np.asarray("")
     except ValueError as e:
         out["comm/wrong_world"] = np.asarray(str(e))
+    comm_primitives(rank, world, comm, out)
     out["comm/all_gather"] = comm.all_gather(
         torch.full((1, 2), float(rank)), axis=0).numpy()
     out["comm/reduce_scatter"] = comm.reduce_scatter(
@@ -387,32 +464,170 @@ def case_guard(rank, world, dev, inputs):
     return out
 
 
+def _gspmd_mlp_run(kind, dev, xs, ys, init):
+    """``GSPMD_STEPS`` graphed steps of ``gspmd_mlp`` with ``SGD(lr=0.1,
+    momentum=0.9)`` under spelling ``kind`` (``GSPMD_RUNS``). Returns the
+    model, its losses and the collectives of its last step by kind."""
+    from singa_tpu_torch import opt, tensor
+    from singa_tpu_torch.parallel import gspmd
+    sgd = opt.SGD(lr=0.1, momentum=0.9)
+    optimizer = opt.DistOpt(sgd, zero=kind == "zero") \
+        if kind in ("dist", "mesh_dist", "zero") else sgd
+    kw = {}
+    if kind in ("mesh_dist", "mesh_plain", "fsdp_plain"):
+        kw["mesh"] = gspmd.train_mesh()
+    if kind == "fsdp_plain":
+        kw["fsdp_axis"] = "data"
+    m = _compiled(gspmd_mlp(), dev, xs, optimizer, init, **kw)
+    tx = tensor.Tensor(data=xs, device=dev)
+    ty = tensor.Tensor(data=ys, device=dev)
+    losses = []
+    for _ in range(GSPMD_STEPS):
+        comm = m._step_communicator()
+        before = dict(comm.counts)
+        losses.append(float(m(tx, ty)[1].data.detach()))
+    per_step = [comm.counts[k] - before[k] for k in comm.KINDS]
+    return m, losses, per_step
+
+
+def _mesh_states(model, prefix, out):
+    """:func:`_states` and the bytes a rank holds of the model's and its
+    optimizer's states, against their full size."""
+    from singa_tpu_torch.parallel.gspmd import Partitioner
+    _states(model, prefix, out)
+    live = model._state_tensors()
+    out[f"{prefix}/bytes"] = np.asarray([
+        Partitioner.per_device_bytes(live), Partitioner.global_bytes(live)])
+
+
+def case_gspmd(rank, world, dev, inputs):
+    """The train mesh and ZeRO/FSDP: the MLP under each spelling, the
+    communicator's primitives, the train mesh's declines; at two ranks the
+    archives of a replicated and a ZeRO run and the ZeRO one restored,
+    the guard over ``DistOpt(zero=True)`` under ``bf16_mixed`` against the
+    guard over a ``DistOpt`` (rank 1's half of step ``POISONED`` holding a
+    NaN), and ``drop_bn_model`` in f64 under ``compile(mesh=)``; given an
+    ``archive``, that archive restored into a ZeRO model of this world."""
+    import torch
+    from singa_tpu_torch import datasets, opt, tensor
+    from singa_tpu_torch.models import mlp
+    from singa_tpu_torch.parallel import communicator as C
+    from singa_tpu_torch.parallel import gspmd
+    from singa_tpu_torch.resilience import GuardedOptimizer
+    work = str(inputs["workdir"])
+    xs, ys = datasets.partition(rank, world, inputs["x"], inputs["y"])
+    init = _init(inputs, "init/")
+    out = {}
+    models = {}
+    for kind in GSPMD_RUNS:
+        m, losses, per_step = _gspmd_mlp_run(kind, dev, xs, ys, init)
+        out[f"{kind}/losses"] = np.asarray(losses)
+        out[f"{kind}/collectives"] = np.asarray(per_step)
+        _mesh_states(m, kind, out)
+        models[kind] = m
+
+    comm_primitives(rank, world, C.Communicator(), out)
+    for name, kw in (("model", {"model": 2}), ("stage", {"stage": 2}),
+                     ("subset", {"data": 1})):
+        try:
+            gspmd.train_mesh(**kw)
+            out[f"decline/{name}"] = np.asarray("")
+        except (NotImplementedError, gspmd.ShardingDecline) as e:
+            out[f"decline/{name}"] = np.asarray(f"{type(e).__name__}: {e}")
+
+    def zero_model():
+        return _compiled(gspmd_mlp(), dev, xs, opt.DistOpt(
+            opt.SGD(lr=0.1, momentum=0.9), zero=True))
+
+    if "archive" in inputs:
+        m = zero_model()
+        m.load_states(str(inputs["archive"]))
+        _mesh_states(m, f"restored{world}", out)
+    if world != 2:
+        return out
+
+    models["dist"].save_states(os.path.join(work, f"rep{rank}.zip"))
+    models["zero"].save_states(os.path.join(work, "zero.zip"))
+    m = zero_model()
+    m.load_states(os.path.join(work, "zero.zip"))
+    _mesh_states(m, "restored2", out)
+
+    for name, zero in (("guard_rep", False), ("guard_zero", True)):
+        guard = GuardedOptimizer(
+            opt.DistOpt(opt.SGD(lr=0.1, momentum=0.9), zero=zero),
+            init_scale=2.0 ** 4, growth_interval=2)
+        m = _compiled(mlp.create_model(data_size=8, perceptron_size=16,
+                                       num_classes=4),
+                      dev, datasets.partition(rank, world,
+                                              inputs["gx0"])[0],
+                      guard, _init(inputs, "ginit/"), "bf16_mixed")
+        for step in range(GUARD_STEPS):
+            gx, gy = datasets.partition(rank, world, inputs[f"gx{step}"],
+                                        inputs[f"gy{step}"])
+            _, loss = m(tensor.Tensor(data=gx, device=dev),
+                        tensor.Tensor(data=gy, device=dev))
+            out[f"{name}/loss{step}"] = np.asarray(float(loss.data.detach()))
+            stats = guard.stats()
+            for k in ("loss_scale", "bad_streak", "good_streak",
+                      "skipped_total", "grad_norm"):
+                out[f"{name}/{k}{step}"] = np.asarray(stats[k])
+            if step == POISONED - 1:
+                _states(m, f"{name}/before", out)
+            if step == POISONED:
+                _states(m, f"{name}/after", out)
+        _mesh_states(m, f"{name}/final", out)
+
+    dev.SetRandSeed(DROP_SEED)
+    dx, dy = datasets.partition(rank, world, inputs["dx"], inputs["dy"])
+    m = as_float64(_compiled(drop_bn_model(), dev, dx, opt.SGD(
+        lr=0.1, momentum=0.9), _init(inputs, "dinit/"),
+        mesh=gspmd.train_mesh()))
+    tx = tensor.Tensor(data=torch.from_numpy(dx).double(), device=dev)
+    ty = tensor.Tensor(data=torch.from_numpy(dy).double(), device=dev)
+    out["drop64/losses"] = np.asarray([float(m(tx, ty)[1].data.detach())
+                                       for _ in range(DROP_STEPS)])
+    _states(m, "drop64", out)
+    return out
+
+
 def case_example(rank, world, dev, inputs):
     """``train_cnn.main`` with ``inputs["argv"]``, each training loss it
-    returned recorded (``Model.__call__`` wrapped)."""
+    returned recorded (``Model.__call__`` wrapped), and the model's states
+    (gathered, under ``--fsdp``, before ``main`` leaves the process
+    group)."""
     import runpy
+    import torch.distributed
     from singa_tpu_torch import model as model_mod
     example = runpy.run_path(
         os.path.join(ROOT, "singa_tpu_torch", "examples", "train_cnn.py"),
         run_name="train_cnn")
-    losses = []
+    losses, seen, out = [], [], {}
     call = model_mod.Model.__call__
+    destroy = torch.distributed.destroy_process_group
 
     def recorded(self, *a, **kw):
-        out = call(self, *a, **kw)
+        seen[:] = [self]
+        result = call(self, *a, **kw)
         if self._train:
-            losses.append(float(out[1].data.detach()))
-        return out
+            losses.append(float(result[1].data.detach()))
+        return result
+
+    def destroy_after_states(*a, **kw):
+        _states(seen[0], "example", out)
+        destroy(*a, **kw)
 
     model_mod.Model.__call__ = recorded
+    torch.distributed.destroy_process_group = destroy_after_states
     m = example["main"]([str(a) for a in inputs["argv"]])
-    out = {"losses": np.asarray(losses)}
-    _states(m, "example", out)
+    if not out:
+        _states(m, "example", out)
+    out["losses"] = np.asarray(losses)
     return out
 
 
 CASES = {"dist_opt": case_dist_opt, "sync_bn": case_sync_bn,
-         "guard": case_guard, "example": case_example}
+         "guard": case_guard, "example": case_example,
+         "gspmd": case_gspmd}
 
 
 def main(argv):
