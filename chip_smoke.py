@@ -245,6 +245,24 @@ failure exits nonzero:
    ResNet-50's archive (``save_states``: rank 0 writes) equal to a
    replicated rank's, restored into a fresh ZeRO model on both ranks
    bitwise.
+19. imagenet zoo (cuDNN deterministic, TF32 off): every public function
+   of the port's ``autograd`` (the tape helpers and the two that raise
+   aside), forward and backward on CUDA tensors against the same call on
+   CPU tensors, ConvTranspose NCHW and NHWC among them, each output and
+   gradient within 1e-5 of its largest value; then VGG-16-BN, SqueezeNet
+   1.1, MobileNetV2 1.0, DenseNet-121 and ShuffleNetV2 1.0 at full width
+   (224 px, b32, 10 classes, weights and BN statistics from a numpy
+   seed): 6 steps each of ``SGD(lr=0.01, momentum=0.9,
+   weight_decay=1e-5)`` on one fixed batch, f32, held as phase 13 holds
+   its models (fused against unfused and graph against eager, one capture,
+   K1-multi's launches per replay in the trace, losses finite; step
+   p50/p99 and img/s of graph and eager in 2 alternating rounds of 3
+   steps, peak memory above the start); then 32 requests each through
+   ``compile_serving(batch=32)``, f32 and bf16_mixed, under phase 4's
+   gates against the unfused path, K2's launches per replayed tick
+   counted in the trace and held to one per frozen-BN -> ReLU pair (13,
+   0, 0, 121, 37), tick p50/p99, img/s and K2's share of the traced
+   tick's device time.
 
 Rows of kernels that a graph replays (K2, K1-multi with and without the
 flag, K5-multi with the flag, K3/K4) carry ``replays`` and
@@ -253,8 +271,9 @@ replayed run (K1, K5, K3 and K4 with ``replayed_launches``, the count in
 that trace; K2's ``launches`` are its count). K1-multi's row and K2's
 NCHW rows also carry ``other_paths_launches_per_replay``: the launches
 per replayed step of each phase-13/14 model and per replayed Xception
-tick, and the launches per replayed step of phase 17's DistOpt runs
-and of phase 18's FSDP steps.
+tick, the launches per replayed step of phase 17's DistOpt runs
+and of phase 18's FSDP steps, and per replayed step and serving tick of
+each phase-19 model.
 Its last lines are the ``{"kernels": [...]}`` record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``. In
 that record ``ms`` and ``plain_ms`` are CUDA-event times of one call,
@@ -444,6 +463,21 @@ ZOO_SEED = 5                # the device generator's seed (dropout) per run
 # where the convolutions' backward is not bitwise run to run, fused and
 # graph runs are held within this many times the run-to-run difference
 DETERMINISM_FACTOR = 4
+# phase 19: the full-width ImageNet zoo (name: models module, factory
+# keywords, K2 tails per forward: one per frozen-BN -> ReLU pair, as
+# tests/test_torch_imagenet_zoo_full.py pins them)
+IMAGENET_ZOO = {
+    "vgg16bn": ("vgg", {"depth": 16, "batch_norm": True}, 13),
+    "squeezenet11": ("squeezenet", {"version": "1.1"}, 0),
+    "mobilenetv2": ("mobilenet", {"width_mult": 1.0}, 0),
+    "densenet121": ("densenet", {"depth": 121}, 121),
+    "shufflenetv2": ("shufflenet", {"width": "1.0"}, 37),
+}
+IMAGENET_STEPS = 6
+IMAGENET_ROUNDS = 2
+IMAGENET_ROUND_STEPS = 3
+IMAGENET_REQUESTS = 32
+OP_TOL = 1e-5               # the op sweep, card against CPU, x max |y|
 PURE_BF16_STEPS = 12
 # the seeded ResNet-50's loss climbs over its first steps at ZOO_LR, in
 # f32 as in bf16; at 1e-3 it falls
@@ -509,6 +543,9 @@ ZERO_BYTES_SHARE = 0.55
 # a port kernel's name in a profiler trace: ``<name>_kernel<template
 # arguments>``, in an anonymous namespace; the launch-counter keys that
 # the name (the ``_mma`` of the bf16 flash kernels dropped) may be
+# the device ms by port kernel, the busy and the wall ms of the last
+# session that profiled() accepted
+LAST_PROFILE = {}
 PORT_KERNEL = re.compile(r"(\w+)_kernel<([^>]*)>")
 # a counting profiler session starts with this many launches of a kernel
 # that nothing else runs (``torch.cuda._sleep``'s ``spin_kernel``, left
@@ -1904,18 +1941,22 @@ def profiled(fn, attempts, want, what):
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         host = host_launches()
-        counts, busy, ops, nccl = {}, 0.0, 0, 0
+        counts, busy, ops, nccl, kernel_ms = {}, 0.0, 0, 0, {}
         for e in prof.events():
             if e.device_type != torch.autograd.DeviceType.CUDA \
                     or "spin_kernel" in e.name:
                 continue
-            busy += e.time_range.elapsed_us() / 1e3
+            ms = e.time_range.elapsed_us() / 1e3
+            busy += ms
             ops += 1
             nccl += "nccl" in e.name.lower()
             key = port_kernel(e.name)
             if key is not None:
                 counts[key] = counts.get(key, 0) + 1
+                kernel_ms[key] = kernel_ms.get(key, 0.0) + ms
         if counts == want:
+            LAST_PROFILE.update(kernel_ms=kernel_ms, busy_ms=busy,
+                                wall_ms=wall)
             return out, counts, host, (busy, ops), wall, nccl
         print(f"profiler session {attempt + 1} of {what} counted the "
               f"port's kernels {counts}, expected {want}", flush=True)
@@ -3238,10 +3279,11 @@ def per_step_chunks(model):
         str(k).replace("torch.", ""): n for k, n in groups.items()}
 
 
-def zoo_readings(what, g_model, e_model, tx, ty, batch, per_step, g, e):
+def zoo_readings(what, g_model, e_model, tx, ty, batch, per_step, g, e,
+                 rounds=ZOO_ROUNDS, steps=ZOO_ROUND_STEPS):
     """The readings every zoo-like phase reports: no synchronizing call in
     a replayed step; step p50/p99 and img/s of graph and eager in
-    ``ZOO_ROUNDS`` alternating rounds of ``ZOO_ROUND_STEPS``; the trace of
+    ``rounds`` alternating rounds of ``steps``; the trace of
     ``GRAPH_TRACED`` replays (K1-multi ``per_step`` a step, none on the
     host) and of as many eager steps, with their idle shares."""
     syncs = sync_warnings(lambda: g_model(tx, ty))
@@ -3250,7 +3292,7 @@ def zoo_readings(what, g_model, e_model, tx, ty, batch, per_step, g, e):
     times = alternating_rounds(
         {"graph": lambda n: timed_steps(g_model, tx, ty, n),
          "eager": lambda n: timed_steps(e_model, tx, ty, n)},
-        ZOO_ROUNDS, ZOO_ROUND_STEPS)
+        rounds, steps)
     want = {"sgd_multi": per_step}
     trace = {name: traced(lambda m=m: m(tx, ty), GRAPH_TRACED, want,
                           f"{what} {name} steps")
@@ -4630,6 +4672,432 @@ def zero_rank_main(rank, world, work):
     return 0
 
 
+# -- phase 19: the ImageNet zoo and the breadth of the API --------------------
+
+def op_cases():
+    """``(name, call, inputs, differentiated inputs)`` for every public
+    function of the port's ``autograd`` (``OP_UNSWEPT`` aside):
+    ``call(autograd, *Tensors)`` on numpy ``inputs`` made from a seed; the
+    differentiated inputs are the floating ones unless given. ``name``'s
+    part before "@" is the function held."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 30)
+
+    def r(*shape, lo=-1.5, hi=1.5):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    def f32(*v):
+        return np.array(v, np.float32)
+
+    def b01(*shape):
+        return (rng.random(shape) > 0.5).astype(np.float32)
+
+    def conv(ag, x, W, b=None, **kw):
+        h = ag.ConvHandle(x, kw.pop("k", (3, 3)), kw.pop("stride", 1),
+                          kw.pop("padding", 1), x.shape[kw.get("ch", 1)],
+                          W.shape[0], b is not None,
+                          **{k: v for k, v in kw.items() if k != "ch"})
+        return ag.conv2d(h, x, W, b)
+
+    def tconv(ag, x, W, b, layout, **kw):
+        ch = 3 if layout == "NHWC" else 1
+        h = ag.ConvTransposeHandle(x, (3, 3), kw.pop("stride", 2),
+                                   kw.pop("padding", 1), x.shape[ch],
+                                   W.shape[1] * kw.get("group", 1), True,
+                                   layout=layout, **kw)
+        return ag.conv_transpose2d(h, x, W, b)
+
+    def bn(ag, x, s, b, rm, rv, train):
+        from singa_tpu_torch.autograd_base import CTX
+        h = ag.BatchNormHandle(0.9, x, 1e-5)
+        prev, CTX.training = CTX.training, train
+        try:
+            from singa_tpu_torch.tensor import Tensor
+            return ag.batchnorm_2d(h, x, s, b,
+                                   Tensor(data=rm.data.clone(),
+                                          device=rm.device),
+                                   Tensor(data=rv.data.clone(),
+                                          device=rv.device))
+        finally:
+            CTX.training = prev
+
+    def pool(ag, x, **kw):
+        return ag.pooling_2d(ag.PoolingHandle(x, **kw), x)
+
+    x35, y35, x235 = r(3, 5), r(3, 5), r(2, 3, 5)
+    xp, x_in, x_gt1 = r(3, 5, lo=0.2, hi=1.8), r(3, 5, lo=-0.9, hi=0.9), \
+        r(3, 5, lo=1.1, hi=2.5)
+    img = r(4, 8, 14, 14)
+    ties = np.array([[1.0, 1.0, -0.5], [0.2, 0.7, 0.7]], np.float32)
+    onehot5 = np.eye(5, dtype=np.float32)[[0, 2, 1, 4]]
+    unary = ["abs", "acos", "acosh", "asin", "asinh", "atan", "atanh",
+             "ceil", "cos", "cosh", "erf", "exp", "floor", "identity", "log",
+             "negative", "reciprocal", "round", "rounde", "sign", "sin",
+             "sinh", "sqrt", "tan", "tanh", "relu", "sigmoid", "softplus",
+             "softsign", "gelu", "hardsigmoid", "leakyrelu", "elu", "selu"]
+    domain = {"acos": x_in, "asin": x_in, "atanh": x_in, "acosh": x_gt1,
+              "log": xp, "sqrt": xp, "reciprocal": xp, "tan": x_in}
+    cases = [(n, lambda ag, x, n=n: getattr(ag, n)(x), [domain.get(n, x35)],
+              None) for n in unary]
+    cases += [
+        ("abs@0", lambda ag, x: ag.abs(x), [f32(-1.0, 0.0, 0.5)], None),
+        ("clip@bounds", lambda ag, x: ag.clip(x, 0.0, 6.0),
+         [f32(0.0, 6.0, 3.0, -1.0, 7.0)], None),
+        ("prelu", lambda ag, x, s: ag.prelu(x, s), [x35, r(3, 5)], None),
+        ("softmax", lambda ag, x: ag.softmax(x), [x235], None),
+        ("lrn", lambda ag, x: ag.lrn(x, 5, 1e-2, 0.75, 2.0), [img], None),
+        ("add", lambda ag, a, b: ag.add(a, b), [x235, r(5)], None),
+        ("sub", lambda ag, a, b: ag.sub(a, b), [x35, y35], None),
+        ("mul", lambda ag, a, b: ag.mul(a, b), [x235, r(3, 1)], None),
+        ("div", lambda ag, a, b: ag.div(a, b), [x35, xp], None),
+        ("pow", lambda ag, a, b: ag.pow(a, b), [xp, y35], None),
+        ("add_bias", lambda ag, x, b: ag.add_bias(x, b, 1), [x235, r(3)],
+         None),
+        ("matmul", lambda ag, a, b: ag.matmul(a, b), [r(2, 64, 96),
+                                                      r(2, 96, 48)], None),
+        ("gemm", lambda ag, a, b, c: ag.gemm(a, b, c, 0.5, 2.0, 1, 1),
+         [r(96, 64), r(48, 96), r(64, 48)], None),
+        ("sum", lambda ag, a, b, c: ag.sum(a, b, c), [x35, y35, xp], None),
+        ("add_all", lambda ag, a, b: ag.add_all(a, b), [x35, y35], None),
+        ("mean", lambda ag, a, b: ag.mean(a, b), [x35, y35], None),
+        ("max@ties", lambda ag, a, b: ag.max(a, b), [ties, ties.copy()],
+         None),
+        ("min", lambda ag, a, b: ag.min(a, b), [x35, y35], None),
+        ("where", lambda ag, c, a, b: ag.where(c, a, b),
+         [b01(3, 5), x35, y35], (1, 2)),
+        ("equal", lambda ag, a, b: ag.equal(a, b), [b01(3, 5), b01(3, 5)],
+         ()),
+        ("less", lambda ag, a, b: ag.less(a, b), [x35, y35], ()),
+        ("greater", lambda ag, a, b: ag.greater(a, b), [x35, y35], ()),
+        ("_and", lambda ag, a, b: ag._and(a, b), [b01(3, 5), b01(3, 5)], ()),
+        ("_or", lambda ag, a, b: ag._or(a, b), [b01(3, 5), b01(3, 5)], ()),
+        ("_xor", lambda ag, a, b: ag._xor(a, b), [b01(3, 5), b01(3, 5)], ()),
+        ("_not", lambda ag, a: ag._not(a), [b01(3, 5)], ()),
+        ("reduce_sum", lambda ag, x: ag.reduce_sum(x, [0, 2], 0), [x235],
+         None),
+        ("reduce_mean", lambda ag, x: ag.reduce_mean(x, [2, 3], 0), [img],
+         None),
+        ("reduce_max@ties", lambda ag, x: ag.reduce_max(x, [1], 0), [ties],
+         None),
+        ("reduce_prod", lambda ag, x: ag.reduce_prod(x, [1], 0),
+         [r(2, 3, 2, lo=0.4, hi=1.6)], None),
+        ("reshape", lambda ag, x: ag.reshape(x, (5, 6)), [x235], None),
+        ("flatten", lambda ag, x: ag.flatten(x, 1), [img], None),
+        ("transpose", lambda ag, x: ag.transpose(x, (0, 2, 3, 1)), [img],
+         None),
+        ("squeeze", lambda ag, x: ag.squeeze(x, [0, 2]), [r(1, 3, 1, 5)],
+         None),
+        ("unsqueeze", lambda ag, x: ag.unsqueeze(x, [0, 3]), [x35], None),
+        ("cat", lambda ag, a, b: ag.cat([a, b], 1), [img, img[:, :3]],
+         None),
+        ("split", lambda ag, x: ag.split(x, 1, num_output=2), [img], None),
+        ("slice", lambda ag, x: ag.slice(x, [-1, 0], [0, 4], [0, 1],
+                                         [-2, 2]), [x35], None),
+        ("make_slice", lambda ag, x: ag.make_slice(x, 1, 2), [x35], None),
+        ("gather", lambda ag, x: ag.gather(x, -1, [-1, 0, 2]), [x235],
+         None),
+        ("scatter_elements", lambda ag, x, i, u: ag.scatter_elements(
+            x, i, u, 1), [r(3, 4), f32(-1, 0, 2, 1, -4, 3).reshape(3, 2),
+                          r(3, 2)], (0, 2)),
+        ("tile", lambda ag, x: ag.tile(x, [2, 1, 2]), [x35], None),
+        ("expand", lambda ag, x: ag.expand(x, (4, 3, 5)), [x35], None),
+        ("pad@constant", lambda ag, x: ag.pad(x, "constant",
+                                              [1, 0, 0, 2], 0.5), [x35],
+         None),
+        ("pad@reflect", lambda ag, x: ag.pad(x, "reflect", [2, 1, 0, 3]),
+         [r(4, 5)], None),
+        ("pad@edge", lambda ag, x: ag.pad(x, "edge", [0, 2, 1, 3, 0, 1]),
+         [x235], None),
+        ("upsample", lambda ag, x: ag.upsample(x, "nearest", [1, 2, 2, 3]),
+         [r(2, 3, 4, 5)], None),
+        ("depth_to_space@DCR", lambda ag, x: ag.depth_to_space(x, 2),
+         [r(2, 8, 3, 4)], None),
+        ("depth_to_space@CRD", lambda ag, x: ag.depth_to_space(x, 2, "CRD"),
+         [r(2, 8, 3, 4)], None),
+        ("space_to_depth", lambda ag, x: ag.space_to_depth(x, 2),
+         [r(2, 3, 4, 6)], None),
+        ("onehot", lambda ag, i: ag.onehot(-1, i, 6), [f32(0, 3, 7, -1)],
+         ()),
+        ("embedding", lambda ag, i, W: ag.embedding(i, W),
+         [f32(0, 3, 5, 2), r(6, 4)], (1,)),
+        ("cossim", lambda ag, a, b: ag.cossim(a, b), [x35, y35], None),
+        ("shape", lambda ag, x: ag.shape(x), [x235], ()),
+        ("constant_of_shape", lambda ag, s: ag.constant_of_shape(s, 2.5),
+         [np.array([2, 3], np.int64)], ()),
+        ("nonzero", lambda ag, x: ag.nonzero(x),
+         [f32(1, 0, 0, 2, 0, -1).reshape(2, 3)], ()),
+        ("cast", lambda ag, x: ag.cast(x, np.int64), [f32(1.7, -2.3)], ()),
+        ("astype", lambda ag, x: ag.astype(x, "bfloat16"), [x235], None),
+        ("dropout", lambda ag, x: ag.dropout(x, 0.5), [x35], None),
+        ("cross_entropy", lambda ag, p, y: ag.cross_entropy(p, y),
+         [np.abs(r(4, 5)) + 0.1, onehot5], (0,)),
+        ("softmax_cross_entropy", lambda ag, x, y:
+         ag.softmax_cross_entropy(x, y), [r(4, 5), onehot5], (0,)),
+        ("mse_loss", lambda ag, a, b: ag.mse_loss(a, b), [x35, y35], (0,)),
+        ("binary_cross_entropy", lambda ag, p, y:
+         ag.binary_cross_entropy(p, y), [r(4, 3, lo=0.05, hi=0.95),
+                                         b01(4, 3)], (0,)),
+        ("ranking_loss", lambda ag, p, n: ag.ranking_loss(p, n, 0.25),
+         [f32(0.75, 0.9, -0.2, 1.2), f32(0.5, 0.1, 0.4, 1.0)], None),
+        ("layernorm", lambda ag, x, s, b: ag.layernorm(x, s, b),
+         [r(8, 64), r(64, lo=0.5, hi=1.5), r(64)], None),
+        ("conv2d@NCHW", lambda ag, x, W, b: conv(ag, x, W, b),
+         [img, r(16, 8, 3, 3), r(16)], None),
+        ("conv2d@NHWC_group_stride", lambda ag, x, W: conv(
+            ag, x, W, stride=2, group=2, layout="NHWC", ch=3),
+         [r(4, 14, 14, 8), r(16, 4, 3, 3)], None),
+        ("conv_transpose2d@NCHW", lambda ag, x, W, b: tconv(
+            ag, x, W, b, "NCHW", output_padding=1),
+         [img, r(8, 6, 3, 3), r(6)], None),
+        ("conv_transpose2d@NHWC_group_dilation", lambda ag, x, W, b: tconv(
+            ag, x, W, b, "NHWC", group=2, dilation=2, stride=1),
+         [r(4, 14, 14, 8), r(8, 3, 3, 3), r(6)], None),
+        ("batchnorm_2d@eval", lambda ag, x, s, b, m, v: bn(
+            ag, x, s, b, m, v, False),
+         [img, r(8, lo=0.5, hi=1.5), r(8), r(8), r(8, lo=0.5, hi=2.0)],
+         (0, 1, 2)),
+        ("batchnorm_2d@train", lambda ag, x, s, b, m, v: bn(
+            ag, x, s, b, m, v, True),
+         [img, r(8, lo=0.5, hi=1.5), r(8), r(8), r(8, lo=0.5, hi=2.0)],
+         (0, 1, 2)),
+        ("pooling_2d@max", lambda ag, x: pool(ag, x, kernel_size=3,
+                                              stride=2, padding=1), [img],
+         None),
+        ("pooling_2d@avg", lambda ag, x: pool(ag, x, kernel_size=2,
+                                              is_max=False), [img], None),
+        ("globalaveragepool", lambda ag, x: ag.globalaveragepool(x), [img],
+         None),
+    ]
+    return cases
+
+
+# public functions of the port's autograd that the op sweep does not
+# drive: the tape helpers (the training phases drive them) and the two
+# that raise until their slices come
+OP_UNSWEPT = {"backward", "gradients", "infer_dependency", "is_training",
+              "set_training", "axis_helper", "back_broadcast",
+              "ctensor2numpy", "checkpoint", "rnn_op"}
+
+
+def op_run(fn, arrays, diff, dev):
+    """``fn`` on Tensors of ``arrays`` on ``dev``: the outputs and the
+    gradients of the differentiated inputs for a seeded cotangent (f32
+    host copies)."""
+    import numpy as np
+    import torch
+    from singa_tpu_torch import autograd
+    from singa_tpu_torch.tensor import Tensor
+    ts = [torch.from_numpy(np.array(a)).to(dev.torch_device)
+          for a in arrays]
+    for i in diff:
+        ts[i].requires_grad_(True)
+    out = fn(autograd, *[Tensor(data=t, device=dev) for t in ts])
+    outs = out if isinstance(out, tuple) else (out,)
+    host = [o.data.detach().float().cpu().numpy() for o in outs]
+    grads = []
+    if diff:
+        cots = [torch.from_numpy(np.random.default_rng(7 + k).standard_normal(
+            o.shape).astype(np.float32)).to(dev.torch_device, o.dtype)
+            for k, o in enumerate(outs)]
+        got = torch.autograd.grad([o.data for o in outs],
+                                  [ts[i] for i in diff], cots,
+                                  allow_unused=True)
+        grads = [np.zeros(ts[i].shape, np.float32) if g is None else
+                 g.float().cpu().numpy() for i, g in zip(diff, got)]
+    return host, grads
+
+
+def op_sweep(dev, tol=OP_TOL):
+    """Every case of :func:`op_cases` on the card against the same call on
+    the CPU, forward and backward, each output and gradient within ``tol``
+    of its largest entry (TF32 off); and every public function of the
+    port's ``autograd`` driven by a case or in ``OP_UNSWEPT``. Returns the
+    cases' largest relative errors."""
+    import inspect
+    import numpy as np
+    from singa_tpu_torch import autograd
+    from singa_tpu_torch import device as device_mod
+    from singa_tpu_torch.autograd_base import CTX
+    cpu = device_mod.create_cpu_device()
+    cases = op_cases()
+    public = {n for n, o in vars(autograd).items() if inspect.isfunction(o)
+              and (not n.startswith("_") or n in ("_and", "_or", "_xor",
+                                                  "_not"))}
+    missing = public - {c[0].split("@")[0] for c in cases} - OP_UNSWEPT
+    check(not missing, f"ops: public autograd functions with no case on "
+          f"the card: {sorted(missing)}")
+    worst = {}
+    prev, CTX.training = CTX.training, False    # dropout: the identity
+    try:
+        for name, fn, arrays, diff in cases:
+            if diff is None:
+                diff = tuple(i for i, a in enumerate(arrays)
+                             if np.asarray(a).dtype.kind == "f")
+            want = op_run(fn, arrays, diff, cpu)
+            got = op_run(fn, arrays, diff, dev)
+            err = 0.0
+            for g, w in zip(got[0] + got[1], want[0] + want[1]):
+                check(g.shape == w.shape, f"ops {name}: shape {g.shape} on "
+                      f"the card, {w.shape} on the CPU")
+                scale = max(float(np.abs(w).max()) if w.size else 0.0,
+                            1e-30)
+                e = float(np.abs(g - w).max()) / scale if w.size else 0.0
+                check(e <= tol, f"ops {name}: the card differs from the CPU "
+                      f"by {e:.3g} of the largest value (tolerance {tol})")
+                err = max(err, e)
+            worst[name] = err
+    finally:
+        CTX.training = prev
+    print(f"ops: {len(cases)} cases over {len(public - OP_UNSWEPT)} autograd "
+          f"functions, forward and backward on the card against the CPU, "
+          f"largest relative error {max(worst.values()):.3g} "
+          f"(tolerance {tol})", flush=True)
+    return worst
+
+
+def imagenet_model(name, tx, use_graph):
+    """A full-width model of the ImageNet zoo (10 classes), compiled for
+    training on ``tx``."""
+    from singa_tpu_torch import models
+    pkg, kw, _ = IMAGENET_ZOO[name]
+    m = getattr(models, pkg).create_model(num_classes=10, **kw)
+    m.compile([tx], is_train=True, use_graph=use_graph)
+    return m
+
+
+def imagenet_train(dev, name, tx, ty):
+    """The zoo phases' runs (:func:`zoo_train_phase`) of one ImageNet
+    model: eager unfused, eager fused twice (run to run), graphed; the
+    gates of phase 13; the readings of :func:`zoo_readings`."""
+    g_model = imagenet_model(name, tx, True)
+    e_model = imagenet_model(name, tx, False)
+    start = seeded_states(g_model, SEED + 31)
+    per_step, groups = per_step_chunks(g_model)
+    what = f"imagenet {name} float32 b{BATCH}"
+    u = zoo_run(e_model, dev, start, tx, ty, IMAGENET_STEPS, fused=False)
+    e2 = zoo_run(e_model, dev, start, tx, ty, IMAGENET_STEPS)
+    e = zoo_run(e_model, dev, start, tx, ty, IMAGENET_STEPS)
+    g = zoo_run(g_model, dev, start, tx, ty, IMAGENET_STEPS)
+    run_to_run = states_diff(e["states"], e2["states"], f"{what} run to run")
+    allowed = DETERMINISM_FACTOR * run_to_run
+    fu = states_diff(e["states"], u["states"], what)
+    check(not u["launches"] and fu <= allowed and
+          (allowed > 0 or u["losses"] == e["losses"]),
+          f"{what}: fused against unfused differs by {fu} (allowed "
+          f"{allowed}); unfused launched {u['launches']}")
+    ge = zoo_gates(what, g_model, g, e, per_step, IMAGENET_STEPS, allowed)
+    check(all(v == v and abs(v) < float("inf") for v in g["losses"]),
+          f"{what}: losses {g['losses']}")
+    rec = {"batch": BATCH, "shape": list(SHAPE), "steps": IMAGENET_STEPS,
+           "params": groups, "k1_multi_per_step": per_step,
+           "losses": g["losses"], "run_to_run_max_abs": run_to_run,
+           "fused_vs_unfused_max_abs": fu, "graph_vs_eager_max_abs": ge,
+           "allowed": allowed, "states_held": len(g["states"]),
+           "host_launches": g["launches"]}
+    rec.update(zoo_readings(what, g_model, e_model, tx, ty, BATCH, per_step,
+                            g, e, rounds=IMAGENET_ROUNDS,
+                            steps=IMAGENET_ROUND_STEPS))
+    held = "bitwise" if allowed == 0 else f"within {allowed:.3g}"
+    print(zoo_line(f"imagenet train {name} f32 b{BATCH}", rec)
+          + f"; fused == unfused and graph == eager {held} over "
+          f"{rec['states_held']} states (run to run {run_to_run:.3g}); "
+          "losses " + " ".join(f"{v:.5f}" for v in g["losses"]),
+          flush=True)
+    return rec, g_model
+
+
+def imagenet_serve(dev, name, model):
+    """``IMAGENET_REQUESTS`` requests through ``compile_serving(batch=32)``
+    (graphed ticks) in f32 and bf16_mixed, fused against unfused under
+    phase 4's gates, K2's launches per replayed tick counted in the trace
+    and held to the model's tails; tick p50/p99, img/s and K2's share of
+    the traced tick's device time."""
+    import numpy as np
+    from singa_tpu_torch.model import load_numpy_states
+    tails = IMAGENET_ZOO[name][2]
+    want = {"affine_relu": tails} if tails else {}
+    model.eval()
+    load_numpy_states(model, seeded_states(model, SEED + 32))
+    rng = np.random.default_rng(SEED + 33)
+    inputs = [rng.standard_normal(SHAPE, dtype=np.float32)
+              for _ in range(IMAGENET_REQUESTS)]
+    ticks = -(-IMAGENET_REQUESTS // BATCH)
+    out = {}
+    for policy in (None, "bf16_mixed"):
+        pname = policy or "float32"
+        r = serve(model, dev, inputs, policy, False, tails=want)
+        check(sum(r["launches"].values()) == 0,
+              f"imagenet serve {name} {pname}: the unfused run launched "
+              f"K2: {r['launches']}")
+        f = serve(model, dev, inputs, policy, True, tails=want)
+        trace = LAST_PROFILE.copy()
+        got, ref = f["logits"], r["logits"]
+        check(got.shape == (IMAGENET_REQUESTS, 10) and
+              np.isfinite(got).all(), f"imagenet serve {name} {pname}: "
+              f"logits {got.shape}, or not finite")
+        n = f["launches"]["affine_relu_nchw"]
+        check(n == tails * ticks and sum(f["launches"].values()) == n,
+              f"imagenet serve {name} {pname}: K2 launches {f['launches']} "
+              f"in the trace, expected {tails} affine_relu x {ticks}")
+        scale = float(np.abs(ref).max())
+        err = float(np.abs(got - ref).max())
+        check(scale > 0 and err <= REL_TOL[pname] * scale,
+              f"imagenet serve {name} {pname}: K2 logits differ from the "
+              f"unfused path by {err} (max |logit| {scale}, tolerance "
+              f"{REL_TOL[pname]} x)")
+        k2_ms = sum(v for k, v in trace["kernel_ms"].items()
+                    if k.startswith("affine"))
+        rec = {"policy": pname, "requests": IMAGENET_REQUESTS,
+               "batch": BATCH, "ticks": ticks, "launches": f["launches"],
+               "replays": f["replays"],
+               "launches_per_replay": {k: v / f["replays"] for k, v in
+                                       f["launches"].items() if v},
+               "max_abs_err_vs_unfused": err, "max_abs_logit": scale,
+               "img_per_s": IMAGENET_REQUESTS / f["seconds"],
+               "unfused_img_per_s": IMAGENET_REQUESTS / r["seconds"],
+               "tick_p50_ms": f["tick"]["p50_s"] * 1e3,
+               "tick_p99_ms": f["tick"]["p99_s"] * 1e3,
+               "unfused_tick_p50_ms": r["tick"]["p50_s"] * 1e3,
+               "traced_busy_ms_per_tick": trace["busy_ms"] / f["replays"],
+               "traced_k2_ms_per_tick": k2_ms / f["replays"],
+               "k2_share_of_busy": k2_ms / trace["busy_ms"]
+               if trace["busy_ms"] else 0.0}
+        out[pname] = rec
+        print(f"imagenet serve {name} NCHW {pname} b{BATCH} "
+              f"x{IMAGENET_REQUESTS}: tick p50 {rec['tick_p50_ms']:.2f} ms "
+              f"p99 {rec['tick_p99_ms']:.2f} ms img/s {rec['img_per_s']:.1f}"
+              f" (unfused p50 {rec['unfused_tick_p50_ms']:.2f} ms); traced "
+              f"tick busy {rec['traced_busy_ms_per_tick']:.3f} ms, K2 "
+              f"{rec['traced_k2_ms_per_tick']:.3f} ms "
+              f"({rec['k2_share_of_busy']:.3f}); K2 launches per tick "
+              f"{rec['launches_per_replay']}; max_abs_err {err:.3g} (max "
+              f"|logit| {scale:.3g})", flush=True)
+        del r, f
+    return out
+
+
+def imagenet_zoo_phase(dev):
+    """Phase 19: the op sweep on the card (:func:`op_sweep`), then each
+    full-width model of ``IMAGENET_ZOO`` trained (:func:`imagenet_train`)
+    and served (:func:`imagenet_serve`) at 224 px, b32, cuDNN
+    deterministic."""
+    import torch
+    t0 = time.perf_counter()
+    out = {"ops_max_rel_err": op_sweep(dev)}
+    tx, ty = zoo_data(dev, SHAPE, BATCH, seed=SEED + 34)
+    for name in IMAGENET_ZOO:
+        t1 = time.perf_counter()
+        rec, model = imagenet_train(dev, name, tx, ty)
+        rec["serve"] = imagenet_serve(dev, name, model)
+        rec["seconds"] = time.perf_counter() - t1
+        out[name] = rec
+        del model
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"imagenet zoo phase: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4688,6 +5156,7 @@ def main():
     pure_bf16 = pure_bf16_phase(dev)
     xception_serve = xception_serve_phase(dev)
     s2d = s2d_phase(dev)
+    imagenet = imagenet_zoo_phase(dev)
     torch.backends.cudnn.deterministic = False
     torch.cuda.empty_cache()
 
@@ -4820,6 +5289,15 @@ def main():
     for case in ("plain", "bucketed"):
         per_replay["sgd_multi"][f"resnet50_dist_nccl_{case}"] = \
             dist["nccl"][case]["sgd_multi_per_replay"]
+    # the ImageNet zoo (phase 19): K1-multi per replayed step, K2 per
+    # replayed serving tick
+    for name in IMAGENET_ZOO:
+        rec = imagenet[name]
+        per_replay["sgd_multi"][f"{name}_imagenet"] = \
+            rec["sgd_multi"]["launches_per_replay"]
+        for pname, srec in rec["serve"].items():
+            for key, n in srec["launches_per_replay"].items():
+                per_replay.setdefault(key, {})[f"{name}_{pname}"] = n
     # the FSDP step (phase 18 (a)): K1-multi per replay, f32 and flagged
     for case, key in (("fsdp_axis", "sgd_multi"),
                       ("fsdp_axis_bf16_mixed", "sgd_multi_flag")):
@@ -4843,6 +5321,7 @@ def main():
               "graph_lm": graph_lm, "zoo_train": zoo,
               "pure_bf16_train": pure_bf16,
               "xception_serve": xception_serve, "s2d": s2d,
+              "imagenet_zoo": imagenet,
               "dist": dist, "fsdp": fsdp, "kernels": kernels}
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

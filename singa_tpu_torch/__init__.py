@@ -15,7 +15,12 @@ call through the hand-written flash-attention kernels in
 ``csrc/flash_attention.cu`` (``ops.attention``, K3 forward, K4 backward).
 Under ``Model.compile(policy="bf16_mixed", is_train=True)`` it trains
 with f32 masters, bf16 convolutions and products and dynamic loss scaling
-(``resilience.GuardedOptimizer``), a bad step skipped on the card.
+(``resilience.GuardedOptimizer``), a bad step skipped on the card. The
+SINGA API's ``tensor``, ``device``, ``initializer``, ``autograd`` and
+``layer`` modules cover the JAX package's public functions and layers
+but the recurrent ones, and the ImageNet zoo (VGG, SqueezeNet,
+MobileNetV2, DenseNet, ShuffleNetV2) trains and serves through the same
+kernels.
 
 Entry points run on the card: ``device.get_default_device()`` is
 ``cuda:0`` and raises without CUDA. Pass ``device.create_cpu_device()``

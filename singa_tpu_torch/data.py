@@ -6,8 +6,9 @@ pure function of ``(seed, epoch)`` -- the same numpy generator as the JAX
 package, so both packages draw the same order for a seed -- and an
 iterator's state is just ``{epoch, position}``: ``state_dict()`` /
 ``load_state_dict()`` resume the exact sample stream. The image-list
-reader, the device prefetcher and the fault-isolating wrappers of the
-JAX package's pipeline are not ported yet (ROADMAP).
+reader (:class:`ImageBatchIter` raises), the device prefetcher and the
+fault-isolating wrappers of the JAX package's pipeline are not ported yet
+(ROADMAP).
 """
 
 from __future__ import annotations
@@ -146,3 +147,12 @@ class NumpyBatchIter:
                 yield bx, by, mask
             else:
                 yield bx, by
+
+
+class ImageBatchIter:
+    """The image-list reader (``singa_tpu/data.py:107``): not ported."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "data.ImageBatchIter is not ported yet (ROADMAP.md: Queue 1 "
+            "item 2)")

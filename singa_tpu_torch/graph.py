@@ -51,9 +51,10 @@ import torch
 
 from .tensor import Tensor
 
-__all__ = ["StepGraph", "epoch", "resources", "signature"]
+__all__ = ["StepGraph", "epoch", "resources", "signature", "in_step"]
 
 _epoch = 0
+_in_step = 0
 
 
 def epoch() -> int:
@@ -63,6 +64,14 @@ def epoch() -> int:
     records the computation and not a tensor cached before it, and no host
     read after a replay finds a tensor computed before it."""
     return _epoch
+
+
+def in_step() -> bool:
+    """Whether a :class:`StepGraph` is running its step (any call: the
+    eager first one, the capture, a replay's run on the CPU). An op whose
+    output shape depends on values (``autograd.nonzero``) refuses to run
+    then: it would read the device back to the host."""
+    return _in_step > 0
 
 
 def _tick():
@@ -144,12 +153,17 @@ class StepGraph:
         self._graph = None
 
     def __call__(self, *args):
-        if self.n_calls == 0:
-            out = self._on_side_stream(lambda: self.fn(*args))
-        elif self._static is None:
-            out = self._capture(args)
-        else:
-            out = self._replay(args)
+        global _in_step
+        _in_step += 1
+        try:
+            if self.n_calls == 0:
+                out = self._on_side_stream(lambda: self.fn(*args))
+            elif self._static is None:
+                out = self._capture(args)
+            else:
+                out = self._replay(args)
+        finally:
+            _in_step -= 1
         self.n_calls += 1
         return out
 

@@ -1,18 +1,26 @@
 """Layer API: deferred shape-inferring initialization + hierarchical
 state names.
 
-Counterpart of the CNN and LM subset of ``singa_tpu/layer.py``: ``Layer``,
-``Conv2d``, ``SeparableConv2d`` (``:404``), ``BatchNorm2d`` (training
-and inference), ``ReLU``, ``MaxPool2d``, ``AvgPool2d``, ``Add``,
-``Flatten``, ``Dropout`` (``:790``), ``Linear``,
-``Embedding`` (``:257``), ``LayerNorm`` (``:501``) and the losses
-``SoftMaxCrossEntropy`` and ``CrossEntropy``, with the same constructor
-arguments
-and the same state names (``"conv1.W"``, ``"bn1.running_var"``, registered
-blocks as ``block.<i>``, ``sep = "."``), so a ``save_states`` archive of
-the JAX package loads here unchanged. Layers hold
+Counterpart of ``singa_tpu/layer.py``: ``Layer``, ``Linear``, ``Gemm``
+(``:220``), ``Embedding`` (``:257``), ``Conv2d``, ``ConvTranspose2d``
+(``:353``), ``SeparableConv2d`` (``:404``), ``BatchNorm2d`` (training and
+inference), ``LayerNorm`` (``:501``), ``MaxPool2d``, ``AvgPool2d``,
+``MaxPool1d``/``AvgPool1d`` (``:551-563``), ``ReLU``, ``Sigmoid``,
+``Tanh``, ``SoftMax``, ``Add``, ``Flatten``, ``Dropout`` (``:790``),
+``LRN`` (``:778``), ``Cat`` (``:859``), ``Reshape`` (``:868``), the
+losses ``SoftMaxCrossEntropy``, ``CrossEntropy``, ``MeanSquareError``
+(``:763``) and ``BinaryCrossEntropy`` (``:773``), and ``FusedCEHead``
+(``:799``, over ``ops/losses.fused_softmax_cross_entropy``), with the
+same constructor arguments and the same state names (``"conv1.W"``,
+``"bn1.running_var"``, registered blocks as ``block.<i>``, ``sep =
+"."``), so a ``save_states`` archive of the JAX package loads here
+unchanged. Layers hold
 :class:`~.tensor.Tensor`s; ``initialize`` runs on the first call with the
 input's shapes and draws weights from the input device's generator.
+
+Not ported here (ROADMAP.md): the recurrent layers ``RNN``, ``LSTM`` and
+``CudnnRNN`` (slice E, with ``ops/rnn.py`` and ``char_rnn``) and
+``FusedCEHeadStage`` (slice E, with the pipeline) raise when made.
 """
 
 from __future__ import annotations
@@ -21,7 +29,7 @@ import math
 
 import torch
 
-from . import autograd, initializer
+from . import autograd
 from .autograd_base import CTX, register_param
 from .tensor import Tensor
 from .ops.conv import ConvHandle
@@ -130,6 +138,16 @@ class Layer:
                 states[f"{self.name}{self.sep}{k}"] = v
         return states
 
+    def set_params(self, params):
+        for k, v in self._own(self._own_params).items():
+            full = f"{self.name}{self.sep}{k}"
+            if full in params:
+                v.copy_from(params[full])
+        for _, sub in self._sublayers():
+            sub.set_params({k[len(self.name) + 1:]: v
+                            for k, v in params.items()
+                            if k.startswith(self.name + self.sep)})
+
     def set_states(self, states):
         for k, v in self._own(self._own_states).items():
             full = f"{self.name}{self.sep}{k}"
@@ -139,6 +157,10 @@ class Layer:
             sub.set_states({k[len(self.name) + 1:]: v
                             for k, v in states.items()
                             if k.startswith(self.name + self.sep)})
+
+    def device_check(self, *tensors):
+        devs = [t.device for t in tensors if isinstance(t, Tensor)]
+        return devs[0] if devs else None
 
     def register_layers(self, *layers):
         if len(layers) == 1 and isinstance(layers[0], (list, tuple)):
@@ -180,7 +202,7 @@ class Linear(Layer):
         self.W = _param((self.in_features, self.out_features), dev,
                         dtype=x.dtype)
         std = math.sqrt(2.0 / (self.in_features + self.out_features))
-        initializer.gaussian(self.W, 0.0, std)
+        self.W.gaussian(0.0, std)
         if self.bias:
             self.b = _param((self.out_features,), dev, dtype=x.dtype)
 
@@ -189,6 +211,43 @@ class Linear(Layer):
         if self.bias:
             y = autograd.add_bias(y, self.b, axis=0)
         return y
+
+    def _own_params(self):
+        p = {"W": self.W}
+        if self.bias:
+            p["b"] = self.b
+        return p
+
+
+class Gemm(Layer):
+    """ONNX Gemm: ``alpha * x' @ W' + beta * b`` (``'`` a transpose when
+    asked), W ``(nb_kernels, features)`` with ``transB`` (the default),
+    else ``(features, nb_kernels)``; b ``(1, nb_kernels)`` unless
+    ``bias_shape`` says otherwise."""
+
+    def __init__(self, nb_kernels, alpha=1.0, beta=1.0, transA=False,
+                 transB=True, bias=True, bias_shape=None):
+        super().__init__()
+        self.nb_kernels = nb_kernels
+        self.alpha, self.beta = alpha, beta
+        self.transA, self.transB = int(transA), int(transB)
+        self.bias = bias
+        self.bias_shape = bias_shape
+
+    def initialize(self, x):
+        dev = x.device
+        feat = x.shape[0] if self.transA else x.shape[-1]
+        w_shape = (self.nb_kernels, feat) if self.transB \
+            else (feat, self.nb_kernels)
+        self.W = _param(w_shape, dev)
+        self.W.gaussian(0.0, math.sqrt(2.0 / (feat + self.nb_kernels)))
+        if self.bias:
+            self.b = _param(self.bias_shape or (1, self.nb_kernels), dev)
+
+    def forward(self, x):
+        return autograd.gemm(x, self.W, self.b if self.bias else None,
+                             self.alpha, self.beta, self.transA,
+                             self.transB)
 
     def _own_params(self):
         p = {"W": self.W}
@@ -284,7 +343,7 @@ class Conv2d(Layer):
         std = math.sqrt(
             2.0 / (w_shape[1] * ks[0] * ks[1]
                    + self.nb_kernels / self.group))
-        initializer.gaussian(self.W, 0.0, std)
+        self.W.gaussian(0.0, std)
         if self.bias:
             self.b = _param((self.nb_kernels,), dev, dtype=x.dtype)
 
@@ -294,6 +353,54 @@ class Conv2d(Layer):
         if self.activation == "RELU":
             y = autograd.relu(y)
         return y
+
+    def _own_params(self):
+        p = {"W": self.W}
+        if self.bias:
+            p["b"] = self.b
+        return p
+
+
+class ConvTranspose2d(Layer):
+    """2-D transposed convolution, weights ``(C_in, C_out / group, kH,
+    kW)``."""
+
+    def __init__(self, nb_kernels, kernel_size, stride=1, padding=0,
+                 output_padding=0, dilation=1, group=1, bias=True):
+        super().__init__()
+        self.nb_kernels = nb_kernels
+        self.kernel_size = kernel_size
+        self.stride = stride
+        self.padding = padding
+        self.output_padding = output_padding
+        self.dilation = dilation
+        self.group = group
+        self.bias = bias
+
+    def initialize(self, x):
+        from .ops.conv import ConvTransposeHandle
+        from .ops.layout import channel_axis
+        self.in_channels = x.shape[channel_axis(len(x.shape))]
+        dev = x.device
+        ks = self.kernel_size if isinstance(self.kernel_size, (tuple, list)) \
+            else (self.kernel_size, self.kernel_size)
+        w_shape = (self.in_channels, self.nb_kernels // self.group, *ks)
+        self.W = _param(w_shape, dev, dtype=x.dtype)
+        std = math.sqrt(
+            2.0 / ((self.in_channels // self.group) * ks[0] * ks[1]
+                   + self.nb_kernels / self.group))
+        self.W.gaussian(0.0, std)
+        if self.bias:
+            self.b = _param((self.nb_kernels,), dev, dtype=x.dtype)
+        self.handle = ConvTransposeHandle(
+            x, ks, self.stride, self.padding, self.in_channels,
+            self.nb_kernels, self.bias, self.group,
+            dilation=self.dilation, output_padding=self.output_padding)
+
+    def forward(self, x):
+        from .ops.conv import conv_transpose2d
+        return conv_transpose2d(self.handle, x, self.W,
+                                self.b if self.bias else None)
 
     def _own_params(self):
         p = {"W": self.W}
@@ -351,6 +458,10 @@ class SeparableConv2d(Layer):
 
     def get_states(self):
         return self.get_params()
+
+    def set_params(self, params):
+        for sub in self._convs():
+            sub.set_params(params)
 
     def set_states(self, states):
         for sub in self._convs():
@@ -425,9 +536,80 @@ class AvgPool2d(Pooling2d):
         super().__init__(kernel_size, stride, padding, False)
 
 
+class MaxPool1d(Pooling2d):
+    """Max over windows of the last axis of an ``(N, C, 1, L)`` input."""
+
+    def __init__(self, kernel_size, stride=None, padding=0):
+        if stride is None:
+            stride = kernel_size
+        super().__init__((1, kernel_size), (1, stride), (0, padding), True)
+
+
+class AvgPool1d(Pooling2d):
+    """Mean over windows of the last axis of an ``(N, C, 1, L)``
+    input."""
+
+    def __init__(self, kernel_size, stride=None, padding=0):
+        if stride is None:
+            stride = kernel_size
+        super().__init__((1, kernel_size), (1, stride), (0, padding), False)
+
+
 class ReLU(Layer):
     def forward(self, x):
         return autograd.relu(x)
+
+
+class Sigmoid(Layer):
+    def forward(self, x):
+        return autograd.sigmoid(x)
+
+
+class Tanh(Layer):
+    def forward(self, x):
+        return autograd.tanh(x)
+
+
+class SoftMax(Layer):
+    def __init__(self, axis=1):
+        super().__init__()
+        self.axis = axis
+
+    def forward(self, x):
+        return autograd.softmax(x, self.axis)
+
+
+class LRN(Layer):
+    """Across-channel local response normalisation
+    (:func:`~.autograd.lrn`)."""
+
+    def __init__(self, size=5, alpha=1e-4, beta=0.75, k=1.0):
+        super().__init__()
+        self.size, self.alpha, self.beta, self.k = size, alpha, beta, k
+
+    def forward(self, x):
+        return autograd.lrn(x, self.size, self.alpha, self.beta, self.k)
+
+
+class Cat(Layer):
+    """Concatenate a list of Tensors along ``axis``."""
+
+    def __init__(self, axis=0):
+        super().__init__()
+        self.axis = axis
+
+    def forward(self, xs):
+        return autograd.cat(xs, self.axis)
+
+
+class Reshape(Layer):
+    def __init__(self, shape=None):
+        super().__init__()
+        self.shape = shape
+
+    def forward(self, x, shape=None):
+        return autograd.reshape(x, shape if shape is not None
+                                else self.shape)
 
 
 class Add(Layer):
@@ -464,3 +646,55 @@ class SoftMaxCrossEntropy(Layer):
 class CrossEntropy(Layer):
     def forward(self, x, t):
         return autograd.cross_entropy(x, t)
+
+
+class MeanSquareError(Layer):
+    def forward(self, x, t):
+        return autograd.mse_loss(x, t)
+
+
+class BinaryCrossEntropy(Layer):
+    def forward(self, x, t):
+        return autograd.binary_cross_entropy(x, t)
+
+
+class FusedCEHead(Layer):
+    """The LM classifier head fused with softmax cross entropy: ``loss =
+    head(hidden, target_ids)``; the (tokens, vocab) logits are never made
+    whole, the loss and gradients are computed in vocab chunks
+    (``ops/losses.fused_softmax_cross_entropy``). ``W`` ``(D, vocab)``
+    N(0, 0.02), ``b`` zeros."""
+
+    def __init__(self, vocab_size, chunk=8192):
+        super().__init__()
+        self.vocab_size = vocab_size
+        self.chunk = chunk
+
+    def initialize(self, h, ids):
+        self.W = _param((h.shape[-1], self.vocab_size), h.device)
+        self.W.gaussian(0.0, 0.02)
+        self.b = _param((self.vocab_size,), h.device)
+
+    def forward(self, h, ids):
+        from .ops.losses import fused_softmax_cross_entropy
+        return fused_softmax_cross_entropy(h, self.W, self.b, ids,
+                                           self.chunk)
+
+    def _own_params(self):
+        return {"W": self.W, "b": self.b}
+
+
+def _not_ported(what, where):
+    class NotPorted(Layer):
+        def __init__(self, *args, **kwargs):
+            raise NotImplementedError(
+                f"layer.{what} is not ported yet (ROADMAP.md: {where})")
+    NotPorted.__name__ = NotPorted.__qualname__ = what
+    return NotPorted
+
+
+RNN = _not_ported("RNN", "slice E, with ops/rnn.py and char_rnn")
+LSTM = _not_ported("LSTM", "slice E, with ops/rnn.py and char_rnn")
+CudnnRNN = _not_ported("CudnnRNN", "slice E, with ops/rnn.py and char_rnn")
+FusedCEHeadStage = _not_ported("FusedCEHeadStage",
+                               "slice E, with parallel/pipeline.py")

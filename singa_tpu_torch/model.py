@@ -63,6 +63,7 @@ from __future__ import annotations
 
 import io
 import json
+import time
 import warnings
 import zipfile
 
@@ -149,6 +150,7 @@ class Model(Layer):
         self._fsdp_axis = None        # compile(fsdp_axis=)
         self._layout = None           # gspmd.ShardedLayout under FSDP
         self._mesh_step = None        # gspmd.MeshStep of the train step
+        self._step_count = 0          # train calls (time profiling)
 
     def forward(self, *args, **kwargs):
         raise NotImplementedError
@@ -322,8 +324,8 @@ class Model(Layer):
                 # forward moves them
                 self.optimizer.materialize_shadows()
             if self.graph_mode:
-                return self._step_graph(args)(*args)
-            return self._train_step(*args)
+                return self._timed(lambda: self._step_graph(args)(*args))
+            return self._timed(lambda: self._train_step(*args))
         prev = CTX.training
         CTX.training = False
         try:
@@ -333,6 +335,32 @@ class Model(Layer):
         finally:
             CTX.training = prev
         return out if self._policy is None else self._cast_outputs(out)
+
+    def _timed(self, run):
+        """``run()``; at device verbosity 1 and past the device's
+        ``skip_iteration`` train calls, its time goes to the device's
+        profile as ``train_one_batch`` (``singa_tpu/model.py:1068-1075``):
+        CUDA events around the call on the card (then a wait for its end),
+        the host clock on the CPU."""
+        dev = self.dev
+        self._step_count += 1
+        if dev is None or dev.verbosity <= 0 or \
+                self._step_count <= dev.skip_iteration:
+            return run()
+        if dev.is_cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = run()
+            end.record()
+            end.synchronize()
+            seconds = start.elapsed_time(end) / 1e3
+        else:
+            t0 = time.perf_counter()
+            out = run()
+            seconds = time.perf_counter() - t0
+        dev._record_time("train_one_batch", seconds)
+        return out
 
     def _dist_opt(self):
         """The model's ``DistOpt``, bare or inside a guard, or None."""

@@ -1,6 +1,8 @@
 """Model zoo of the port (counterpart of ``singa_tpu/models``): the MLP,
-the LeNet-style CNN, AlexNet, the ResNet family, Xception and the
-Transformer LM.
+the LeNet-style CNN, AlexNet, the ResNet family, Xception, the ImageNet
+CNNs VGG, SqueezeNet, MobileNetV2, DenseNet and ShuffleNetV2, and the
+Transformer LM. GAN, RBM, char-RNN and the QA bot are not ported yet
+(ROADMAP.md, slice E).
 
 :class:`TrainStepMixin` is the shared ``dist_option`` dispatch of
 ``train_one_batch`` (``singa_tpu/models/__init__.py:12-44``): ``"plain"``
@@ -40,4 +42,5 @@ class TrainStepMixin:
 
 
 from . import (mlp, cnn, alexnet, resnet, xceptionnet,  # noqa: F401,E402
-               transformer)
+               transformer, vgg, squeezenet, mobilenet, densenet,
+               shufflenet)

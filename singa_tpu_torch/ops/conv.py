@@ -19,6 +19,16 @@ gather from the OIHW weights, so gradients land on ``W`` and checkpoints
 do not change; its index table is built once per handle and device, on
 the device, at the first (eager) call, so a CUDA-graph capture copies
 nothing from the host.
+
+:class:`ConvTransposeHandle` and :func:`conv_transpose2d`
+(``singa_tpu/ops/conv.py:208-298``): the transposed conv with groups,
+dilation, asymmetric padding and output padding, NCHW and NHWC, on the
+JAX package's weight layout ``(C_in, C_out / group, kH, kW)``, which is
+``F.conv_transpose2d``'s. Symmetric padding with an output padding below
+the stride or the dilation runs as one ``F.conv_transpose2d``; any other
+geometry runs the unpadded transposed conv and crops (or, for an output
+padding past the input's reach, extends with zeros) each spatial edge,
+which is what the JAX package's input-dilated conv computes.
 """
 
 from __future__ import annotations
@@ -166,10 +176,19 @@ def _space_to_depth_conv(h, xa, wa, ba):
     return F.conv2d(xb, w4, ba)
 
 
-def conv2d(handle: ConvHandle, x, W, b=None):
+def conv2d(handle: ConvHandle, x, W, b=None, odd_padding=None):
     """Conv of Tensor ``x`` with OIHW ``W`` (+ bias) under the active
-    precision policy; returns a Tensor in the (cast) input's dtype."""
+    precision policy; returns a Tensor in the (cast) input's dtype.
+    ``odd_padding`` ``(top, bottom, left, right)`` adds to the handle's
+    explicit padding."""
     h = handle
+    if odd_padding is not None:
+        import copy
+        t, bo, le, r = odd_padding
+        (p0, p1), (q0, q1) = h.padding
+        h = copy.copy(h)
+        h.pad_mode = None
+        h.padding = ((p0 + t, p1 + bo), (q0 + le, q1 + r))
     xa, wa, ba = cast_compute(x.data, W.data,
                               b.data if b is not None else None)
     if h.space_to_depth:
@@ -187,6 +206,75 @@ def conv2d(handle: ConvHandle, x, W, b=None):
         pad = (0, 0)
     y = F.conv2d(xa, wa, ba, stride=h.stride, padding=pad,
                  dilation=h.dilation, groups=h.group)
+    if h.layout == "NHWC":
+        y = y.permute(0, 2, 3, 1)
+    return Tensor(data=y.contiguous(), device=x.device)
+
+
+class ConvTransposeHandle:
+    """Static transposed-conv config (ONNX ConvTranspose); weights
+    ``(C_in, C_out / group, kH, kW)``."""
+
+    def __init__(self, x, kernel_size, stride, padding, in_channels,
+                 out_channels, bias=True, group=1, dilation=1,
+                 output_padding=0, layout=None):
+        from .layout import resolve as _resolve_layout
+        self.kernel_size = _pair(kernel_size)
+        self.stride = _pair(stride)
+        self.dilation = _pair(dilation)
+        self.output_padding = _pair(output_padding)
+        if (isinstance(padding, (tuple, list)) and len(padding) == 2
+                and isinstance(padding[0], (tuple, list))):
+            self.padding = tuple(tuple(int(v) for v in p) for p in padding)
+        else:
+            ph, pw = _pair(padding)
+            self.padding = ((ph, ph), (pw, pw))
+        self.in_channels = int(in_channels)
+        self.out_channels = int(out_channels)
+        self.bias = bool(bias)
+        self.group = int(group)
+        self.layout = _resolve_layout(layout)
+
+    def output_shape(self, x_shape):
+        if self.layout == "NHWC":
+            n, h, w, _ = x_shape
+        else:
+            n, _, h, w = x_shape
+        (p0, p1), (q0, q1) = self.padding
+        kh, kw = self.kernel_size
+        sh, sw = self.stride
+        dh, dw = self.dilation
+        oph, opw = self.output_padding
+        oh = (h - 1) * sh - p0 - p1 + dh * (kh - 1) + 1 + oph
+        ow = (w - 1) * sw - q0 - q1 + dw * (kw - 1) + 1 + opw
+        if self.layout == "NHWC":
+            return (n, oh, ow, self.out_channels)
+        return (n, self.out_channels, oh, ow)
+
+
+def conv_transpose2d(handle: ConvTransposeHandle, x, W, b=None):
+    """Transposed conv of Tensor ``x`` with ``W`` (+ bias) under the
+    active precision policy; a Tensor in the (cast) input's dtype."""
+    h = handle
+    xa, wa, ba = cast_compute(x.data, W.data,
+                              b.data if b is not None else None)
+    if h.layout == "NHWC":
+        xa = xa.permute(0, 3, 1, 2)
+    (p0, p1), (q0, q1) = h.padding
+    oph, opw = h.output_padding
+    native = (p0 == p1 and q0 == q1 and
+              oph < max(h.stride[0], h.dilation[0]) and
+              opw < max(h.stride[1], h.dilation[1]))
+    if native:
+        y = F.conv_transpose2d(xa, wa, ba, stride=h.stride,
+                               padding=(p0, q0), output_padding=(oph, opw),
+                               groups=h.group, dilation=h.dilation)
+    else:
+        y = F.conv_transpose2d(xa, wa, None, stride=h.stride,
+                               groups=h.group, dilation=h.dilation)
+        y = F.pad(y, (-q0, opw - q1, -p0, oph - p1))
+        if ba is not None:
+            y = y + ba.reshape(1, -1, 1, 1)
     if h.layout == "NHWC":
         y = y.permute(0, 2, 3, 1)
     return Tensor(data=y.contiguous(), device=x.device)

@@ -6,6 +6,10 @@ explicitly (``-inf`` for max, zeros for average) before a zero-padding
 windows match ``lax.reduce_window``. Average pooling divides by the full
 window (``count_include_pad=True``, the default) or by the valid element
 count. NHWC tensors are pooled through a channels-last NCHW view.
+:class:`GlobalAveragePool` / :func:`globalaveragepool` (``:102-121``)
+average over every spatial axis, keeping them as size 1. The 1-D pools
+(``layer.MaxPool1d``/``AvgPool1d``) are this 2-D pooling over an
+``(N, C, 1, L)`` input with ``(1, k)`` windows, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -65,3 +69,25 @@ def pooling_2d(handle: PoolingHandle, x):
     if h.layout == "NHWC":
         y = y.permute(0, 2, 3, 1)
     return Tensor(data=y.contiguous(), device=x.device)
+
+
+class GlobalAveragePool:
+    """``(N, C, H, W) -> (N, C, 1, 1)`` mean (``"channels_first"``), or
+    ``(N, H, W, C) -> (N, 1, 1, C)`` (``"channels_last"``); any number of
+    spatial axes."""
+
+    def __init__(self, data_format="channels_first"):
+        self.data_format = data_format
+
+    def __call__(self, x):
+        xa = x.data
+        if self.data_format == "channels_first":
+            axes = tuple(range(2, xa.dim()))
+        else:
+            axes = tuple(range(1, xa.dim() - 1))
+        return Tensor(data=torch.mean(xa, dim=axes, keepdim=True),
+                      device=x.device)
+
+
+def globalaveragepool(x, data_format="channels_first"):
+    return GlobalAveragePool(data_format)(x)

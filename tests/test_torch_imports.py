@@ -30,7 +30,10 @@ def _sources():
             "examples/train_transformer.py", "models/mlp.py",
             "models/cnn.py", "models/alexnet.py",
             "models/xceptionnet.py", "parallel/communicator.py",
-            "parallel/mesh.py", "parallel/gspmd.py"} <= names
+            "parallel/mesh.py", "parallel/gspmd.py", "models/vgg.py",
+            "models/squeezenet.py", "models/mobilenet.py",
+            "models/densenet.py", "models/shufflenet.py",
+            "initializer.py", "autograd_base.py"} <= names
     return files
 
 
@@ -62,6 +65,9 @@ def test_importing_the_port_loads_no_jax():
         "from singa_tpu_torch.models import transformer\n"
         "from singa_tpu_torch.models import mlp, cnn, alexnet, "
         "xceptionnet\n"
+        "from singa_tpu_torch.models import vgg, squeezenet, mobilenet, "
+        "densenet, shufflenet\n"
+        "from singa_tpu_torch import initializer, autograd_base, tensor\n"
         "import runpy\n"
         "for ex in ('train_cnn', 'train_transformer'):\n"
         "    runpy.run_path(f'singa_tpu_torch/examples/{ex}.py',"
