@@ -263,6 +263,28 @@ failure exits nonzero:
    counted in the trace and held to one per frozen-BN -> ReLU pair (13,
    0, 0, 121, 37), tick p50/p99, img/s and K2's share of the traced
    tick's device time.
+20. image files (cuDNN deterministic, TF32 off): 256 seeded RGB JPEGs
+   of 256 px, 10 classes and a list file in a temporary directory;
+   ``data.ImageBatchIter`` (a thread worker, shuffled, seed 0, a random
+   224 crop and flip by ``image_tool.ImageTool`` from the stdlib
+   ``random`` seeded per file) through ``data.DevicePrefetcher(depth=2)``
+   (pinned buffers, copies on a side stream, an event per batch) feeds 6
+   graphed ``SGD(lr=0.1, momentum=0.9, weight_decay=1e-5)`` steps of
+   ResNet-50 (224 px, b32, f32, weights from a numpy seed). Gates: the
+   losses and every state bitwise with the same model fed the very numpy
+   batches the iterator yielded, as Tensors made directly (K1-multi: 2
+   host launches at the eager call and 2 at the capture); a resume from
+   the state after step 3 yields batches 4-6 bitwise; a forked worker
+   (``use_process=True``) yields the thread worker's batches; in a
+   ``torch.profiler`` trace of 4 pipeline-fed replays every batch copy
+   runs on a stream other than the step's and reads pinned memory, and
+   K1-multi launches 2 per replay (none on the host). Readings: the
+   iterator's images/s on the host alone (thread and forked worker), step
+   p50 fed by the pipeline against fed directly (device ms from one
+   step's end to the next, 2 alternating rounds of 8 steps), the idle
+   share of the traced replays, and ``singa_tpu_torch/examples/
+   benchmark.py``'s throughput at b32 (ResNet-50, 1000 classes, 10
+   timed steps).
 
 Rows of kernels that a graph replays (K2, K1-multi with and without the
 flag, K5-multi with the flag, K3/K4) carry ``replays`` and
@@ -272,8 +294,9 @@ that trace; K2's ``launches`` are its count). K1-multi's row and K2's
 NCHW rows also carry ``other_paths_launches_per_replay``: the launches
 per replayed step of each phase-13/14 model and per replayed Xception
 tick, the launches per replayed step of phase 17's DistOpt runs
-and of phase 18's FSDP steps, and per replayed step and serving tick of
-each phase-19 model.
+and of phase 18's FSDP steps, per replayed step and serving tick of
+each phase-19 model, and per replayed step fed from image files (phase
+20).
 Its last lines are the ``{"kernels": [...]}`` record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``. In
 that record ``ms`` and ``plain_ms`` are CUDA-event times of one call,
@@ -545,6 +568,20 @@ ZERO_BYTES_SHARE = 0.55
 # the name (the ``_mma`` of the bf16 flash kernels dropped) may be
 # the device ms by port kernel, the busy and the wall ms of the last
 # session that profiled() accepted
+# phase 20: image files -> card
+IMAGE_FILES = 256
+IMAGE_SIDE = 256
+IMAGE_CROP = 224
+IMAGE_CLASSES = 10
+IMAGE_SEED = 0
+IMAGE_STEPS = 6
+IMAGE_RESUME_AT = 3
+IMAGE_PREFETCH_DEPTH = 2
+IMAGE_QUEUE = 4             # the iterator's queue of decoded batches
+IMAGE_ROUNDS = 2
+IMAGE_ROUND_STEPS = 8
+IMAGE_TRACED = 4
+IMAGE_BENCH_ITERS = 10
 LAST_PROFILE = {}
 PORT_KERNEL = re.compile(r"(\w+)_kernel<([^>]*)>")
 # a counting profiler session starts with this many launches of a kernel
@@ -5098,6 +5135,430 @@ def imagenet_zoo_phase(dev):
     return out
 
 
+# -- phase 20: image files -> card --------------------------------------------
+
+def write_image_dataset(root):
+    """``IMAGE_FILES`` RGB JPEG files of ``IMAGE_SIDE`` px square (seeded
+    numpy pixels, PIL's encoder) and a list file ``<name> <label>`` of
+    ``IMAGE_CLASSES`` labels in ``root``; returns the list file's
+    path."""
+    import numpy as np
+    from PIL import Image
+    n, side, classes = IMAGE_FILES, IMAGE_SIDE, IMAGE_CLASSES
+    rng = np.random.default_rng(SEED)
+    lines = []
+    for i in range(n):
+        # smooth colour fields plus noise: JPEG-like content, not white
+        # noise, so decode costs what a photo's would
+        base = rng.integers(0, 256, (side // 16, side // 16, 3), np.uint8)
+        img = Image.fromarray(base).resize((side, side), Image.BILINEAR)
+        arr = np.asarray(img, np.int16) + rng.integers(
+            -12, 13, (side, side, 3), np.int16)
+        Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8)).save(
+            os.path.join(root, f"img{i:04d}.jpg"), quality=90)
+        lines.append(f"img{i:04d}.jpg {int(rng.integers(0, classes))}\n")
+    path = os.path.join(root, "list.txt")
+    with open(path, "w") as f:
+        f.writelines(lines)
+    return path
+
+
+def image_transform(path):
+    """Decode, a random ``IMAGE_CROP`` crop and a random horizontal flip
+    (``image_tool.ImageTool``), scaled to [-1, 1], CHW float32. The
+    stdlib ``random`` that ImageTool draws from is seeded from the file's
+    name, so an image's augmentation is the same in a thread worker, a
+    forked worker and a resumed iterator."""
+    import random
+    import numpy as np
+    from singa_tpu_torch import image_tool
+    random.seed(f"{IMAGE_SEED}/{os.path.basename(path)}")
+    tool = image_tool.ImageTool().load(path)
+    tool.random_crop((IMAGE_CROP, IMAGE_CROP)).flip()
+    return [np.asarray(im, np.float32).transpose(2, 0, 1) / 127.5 - 1.0
+            for im in tool.get()]
+
+
+class Recorder:
+    """An iterator over ``inner``'s batches that keeps a copy of each
+    (images, labels, ids) and passes the state protocol through."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.batches = []
+
+    def __iter__(self):
+        iter(self.inner)
+        return self
+
+    def __next__(self):
+        x, y = next(self.inner)
+        self.batches.append((x.copy(), y.copy(),
+                             self.inner.last_batch_ids.copy()))
+        return x, y
+
+    def state_dict(self):
+        return self.inner.state_dict()
+
+    def load_state_dict(self, state):
+        self.inner.load_state_dict(state)
+
+
+def tracking(batches, pf, states):
+    """``batches`` (a DevicePrefetcher's iterator), appending
+    ``pf.state_dict()`` as each batch is handed out."""
+    for b in batches:
+        states.append(pf.state_dict())
+        yield b
+
+
+def piped_steps(model, dev, list_path, n):
+    """The device ms of ``n`` steps of ``model`` fed by a fresh
+    iterator through ``DevicePrefetcher`` (:func:`fed_steps`); the
+    worker is ended after."""
+    from singa_tpu_torch.data import DevicePrefetcher
+    it = image_iter(list_path)
+    g = iter(DevicePrefetcher(it, dev, depth=IMAGE_PREFETCH_DEPTH))
+    try:
+        return fed_steps(model, g, n)[1]
+    finally:
+        g.close()
+        it.end()
+
+
+def image_files_line(out, card):
+    p, d, t = out["pipeline"], out["direct"], out["traced"]
+    return (f"image files ({card}): {out['files']} JPEGs "
+            f"{out['side']}px -> ResNet-50 b{out['batch']} f32 graphed; "
+            f"host alone {out['host_img_per_s_thread']:.1f} img/s "
+            f"(thread), {out['host_img_per_s_process']:.1f} (process); "
+            f"step p50 {p['step_p50_ms']:.3f} ms fed by the pipeline "
+            f"({p['img_per_s']:.1f} img/s) against "
+            f"{d['step_p50_ms']:.3f} ms fed directly "
+            f"({d['img_per_s']:.1f} img/s); traced replays: idle "
+            f"{t['idle_share']:.3f}, busy {t['busy_ms']:.3f} ms, wall "
+            f"{t['wall_ms']:.3f} ms, K1-multi {t['sgd_multi_per_replay']:g}"
+            f" per replay, batch copies on streams {t['copy_streams']} "
+            f"(step stream {t['step_stream']}), {t['copy_names']}; "
+            f"benchmark.py b{out['batch']}: "
+            f"{out['benchmark_example']['throughput']:.2f} img/s; "
+            f"gates: {out['states_held']} states and {IMAGE_STEPS} losses "
+            f"bitwise, {out['resumed_batches_held']} resumed batches, "
+            f"{out['process_batches_held']} process-mode batches; "
+            f"{out['seconds']:.1f} s")
+
+
+def image_iter(list_path, use_process=False):
+    """The phase's iterator over the list file (batches of ``BATCH``)."""
+    from singa_tpu_torch.data import ImageBatchIter
+    return ImageBatchIter(list_path, BATCH, image_transform, shuffle=True,
+                          image_folder=os.path.dirname(list_path),
+                          seed=IMAGE_SEED, use_process=use_process,
+                          capacity=IMAGE_QUEUE)
+
+
+def host_batches(list_path, n, use_process=False):
+    """``n`` batches of a fresh iterator, and images/s of the host alone
+    (decode and augment; the first batch, which starts the worker, is
+    left out of the rate)."""
+    it = image_iter(list_path, use_process)
+    it.start()
+    try:
+        out = [next(it)]
+        ids = [it.last_batch_ids.copy()]
+        t0 = time.perf_counter()
+        for _ in range(n - 1):
+            out.append(next(it))
+            ids.append(it.last_batch_ids.copy())
+        rate = (n - 1) * BATCH / (time.perf_counter() - t0)
+    finally:
+        it.end()
+    return [(x, y, i) for (x, y), i in zip(out, ids)], rate
+
+
+def image_model(dev, start=None):
+    """ResNet-50 (10 classes) compiled for graphed training on a zero
+    batch, with the fused SGD of the training phases, from ``start``
+    (numpy states) when given."""
+    import torch
+    from singa_tpu_torch import opt
+    from singa_tpu_torch.model import load_numpy_states
+    from singa_tpu_torch.models import resnet
+    from singa_tpu_torch.tensor import Tensor
+    m = resnet.resnet50(num_classes=IMAGE_CLASSES)
+    m.compile([Tensor(data=torch.zeros((BATCH,) + SHAPE,
+                                       device=dev.torch_device),
+                      device=dev)], is_train=True, use_graph=True)
+    if start is not None:
+        load_numpy_states(m, start)
+    m.set_optimizer(graph_sgd(opt))
+    m.train()
+    return m
+
+
+def fed_steps(model, batches, steps):
+    """``steps`` train calls on ``batches`` (tuples of Tensors, or an
+    iterator of them); returns the losses (device tensors), the batches
+    as fed, and the device ms of each step from the end of the one
+    before (CUDA events: the step and any wait for its data)."""
+    import torch
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    losses = []
+    ends[0].record()
+    for i, (tx, ty) in zip(range(steps), batches):
+        _, loss = model(tx, ty)
+        ends[i + 1].record()
+        losses.append(loss.data.detach())
+    torch.cuda.synchronize()
+    check(len(losses) == steps, f"fed {len(losses)} of {steps} batches")
+    return losses, [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
+
+
+def direct(dev, recorded):
+    """The recorded numpy batches as Tensors made one at a time, as a
+    training loop without the pipeline makes them."""
+    from singa_tpu_torch.tensor import Tensor
+    for x, y, _ in recorded:
+        yield Tensor(data=x, device=dev), Tensor(data=y, device=dev)
+
+
+def copy_streams(trace_path, what):
+    """From a ``torch.profiler`` chrome trace whose window opens at the
+    first ``spin_kernel`` (one marker launched on the current stream
+    before each step; the padding before it is fills): the step's stream
+    (the markers'), each batch copy to the card in the window (host to
+    device, the image and label batch sizes) with its stream and whether
+    it read pinned memory, the device's busy ms (kernels and copies) and
+    wall ms over the window, and the port's kernels by counter key."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [e for e in events if e.get("ph") == "X"
+             and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    marks = [e for e in spans if "spin_kernel" in e["name"]]
+    streams = {e["args"]["stream"] for e in marks}
+    check(len(streams) == 1, f"{what}: the step markers ran on streams "
+          f"{sorted(streams)}, expected one")
+    start = min(e["ts"] for e in marks)
+    work = [e for e in spans if e["ts"] >= start
+            and "spin_kernel" not in e["name"]]
+    image_bytes = BATCH * 3 * IMAGE_CROP * IMAGE_CROP * 4
+    copies = [{"bytes": e["args"].get("bytes"), "stream":
+               e["args"]["stream"], "name": e["name"]}
+              for e in work if e["cat"] == "gpu_memcpy"
+              and "HtoD" in e["name"]
+              and e["args"].get("bytes") in (image_bytes, BATCH * 4)]
+    busy = sum(e["dur"] for e in work) / 1e3
+    wall = (max(e["ts"] + e["dur"] for e in work) - start) / 1e3
+    kernels = {}
+    for e in work:
+        key = port_kernel(e["name"]) if e["cat"] == "kernel" else None
+        if key is not None:
+            kernels[key] = kernels.get(key, 0) + 1
+    return streams.pop(), copies, busy, wall, kernels
+
+
+def traced_pipeline(dev, model, list_path, steps, what, attempts=5):
+    """``steps`` pipeline-fed replays under ``torch.profiler``, the host
+    counts zeroed just before: gate 4 on its chrome trace (every batch
+    copy on a stream other than the step's, from pinned memory),
+    K1-multi's launches counted in the trace (2 per replayed step, none
+    on the host), and the device's idle share over the replays. The
+    session opens with ``PROFILE_PAD`` fills on the current stream and on
+    the copies' side stream (a session late in a run has been seen to
+    lose its first device records of a stream), then each step is a
+    marker spin on the current stream, the pull of its batch (which
+    starts the copies of a later one) and the step."""
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from singa_tpu_torch.data import DevicePrefetcher
+    pad = torch.zeros(1, device=dev.torch_device)
+    for attempt in range(attempts):
+        it = image_iter(list_path)
+        pf = DevicePrefetcher(it, dev, depth=IMAGE_PREFETCH_DEPTH)
+        g = iter(pf)
+        try:
+            model(*next(g))             # the worker and the ring warm
+            torch.cuda.synchronize()
+            zero_counts()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for stream in (torch.cuda.current_stream(),
+                               pf.copy_stream):
+                    with torch.cuda.stream(stream):
+                        for _ in range(PROFILE_PAD):
+                            pad.fill_(0)
+                torch.cuda.synchronize()
+                for _ in range(steps):
+                    torch.cuda._sleep(10)
+                    model(*next(g))
+                torch.cuda.synchronize()
+            host = host_launches()
+        finally:
+            g.close()
+            it.end()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            stream, copies, busy, wall, kernels = copy_streams(path, what)
+        want = {"sgd_multi": 2 * steps}
+        if kernels == want and len(copies) == 2 * steps:
+            break
+        print(f"profiler session {attempt + 1} of {what}: kernels "
+              f"{kernels}, {len(copies)} batch copies, expected {want} "
+              f"and {2 * steps}", flush=True)
+    else:
+        raise SmokeFailure(f"{what}: no complete profiler session in "
+                           f"{attempts}")
+    bad = [c for c in copies if c["stream"] == stream
+           or "Pinned" not in c["name"]]
+    check(not bad, f"{what}: batch copies on the step's stream {stream} "
+          f"or from pageable memory: {bad[:3]}")
+    check(not host, f"{what}: replays counted {host} on the host")
+    return {"step_stream": stream, "copy_streams":
+            sorted({c["stream"] for c in copies}),
+            "copies": len(copies), "copy_names":
+            sorted({c["name"] for c in copies}),
+            "busy_ms": busy / steps, "wall_ms": wall / steps,
+            "idle_share": 1.0 - busy / wall,
+            "sgd_multi_per_replay": kernels["sgd_multi"] / steps,
+            "replays": steps}
+
+
+def bench_example(args):
+    """``singa_tpu_torch/examples/benchmark.py``'s ``main(args)``, run in
+    this process; returns its result."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "port_benchmark_example",
+        os.path.join(HERE, "singa_tpu_torch", "examples", "benchmark.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.main(args)
+
+
+def image_files_phase(dev):
+    """Phase 20: training ResNet-50 from image files on disk. A seeded
+    dataset (``IMAGE_FILES`` JPEGs of ``IMAGE_SIDE`` px, ``IMAGE_CLASSES``
+    classes, a list file) in a temporary directory; ``ImageBatchIter``
+    (thread worker, shuffled, seed ``IMAGE_SEED``, ``image_transform``)
+    through ``DevicePrefetcher(depth=IMAGE_PREFETCH_DEPTH)`` feeds
+    ``IMAGE_STEPS`` graphed fused-SGD steps of ResNet-50 (224 px, b32,
+    f32; the caller sets TF32 off and cuDNN deterministic). Gates: (1)
+    the losses and every final state bitwise equal to the same model fed
+    the very numpy batches the iterator yielded, as Tensors made
+    directly; K1-multi's host launches those of the eager call and the
+    capture; (2) an iterator and prefetcher resumed from the state after
+    step ``IMAGE_RESUME_AT`` yield the later batches bitwise; (3) a
+    forked worker (``use_process=True``) yields the thread worker's
+    batches; (4) in a trace of pipeline-fed replays each batch copy runs
+    on a stream other than the step's and reads pinned memory.
+    Readings: the iterator's images/s on the host alone (thread and
+    process workers), step p50 fed by the pipeline and directly, the idle
+    share of the traced replays, K1-multi per replay, and
+    ``examples/benchmark.py``'s throughput at b32."""
+    import tempfile
+    import numpy as np
+    import torch
+    from singa_tpu_torch.data import DevicePrefetcher
+    from singa_tpu_torch.model import load_numpy_states
+    t0 = time.perf_counter()
+    out = {"files": IMAGE_FILES, "side": IMAGE_SIDE, "crop": IMAGE_CROP,
+           "batch": BATCH, "steps": IMAGE_STEPS}
+    with tempfile.TemporaryDirectory() as root:
+        t1 = time.perf_counter()
+        list_path = write_image_dataset(root)
+        out["write_s"] = time.perf_counter() - t1
+        n_host = IMAGE_FILES // BATCH
+        thread_batches, out["host_img_per_s_thread"] = host_batches(
+            list_path, n_host)
+        proc_batches, out["host_img_per_s_process"] = host_batches(
+            list_path, n_host, use_process=True)
+        # gate 3: the forked worker's batches are the thread worker's
+        for i, (a, b) in enumerate(zip(thread_batches, proc_batches)):
+            check(all(np.array_equal(u, v) for u, v in zip(a, b)) and
+                  a[0].dtype == b[0].dtype,
+                  f"image files: process-mode batch {i} differs from the "
+                  "thread worker's")
+        out["process_batches_held"] = len(proc_batches)
+
+        piped = image_model(dev)
+        start = seeded_states(piped, SEED + 40)
+        load_numpy_states(piped, start)
+        fed = image_model(dev, start)
+
+        # gate 1: pipeline-fed against directly fed, bitwise
+        rec = Recorder(image_iter(list_path))
+        pf = DevicePrefetcher(rec, dev, depth=IMAGE_PREFETCH_DEPTH)
+        states = []
+        zero_counts()
+        g = iter(pf)
+        losses, _ = fed_steps(piped, tracking(g, pf, states), IMAGE_STEPS)
+        host = host_launches()
+        g.close()
+        rec.inner.end()
+        recorded = rec.batches[:IMAGE_STEPS]
+        check(host == {"sgd_multi": 4},
+              f"image files: host launches {host}, expected 2 sgd_multi "
+              "at the eager call and 2 at the capture")
+        d_losses, _ = fed_steps(fed, direct(dev, recorded), IMAGE_STEPS)
+        piped_l = [float(v) for v in losses]
+        fed_l = [float(v) for v in d_losses]
+        check(piped_l == fed_l and all(np.isfinite(piped_l)),
+              f"image files: pipeline-fed losses {piped_l} against "
+              f"directly fed {fed_l}")
+        out["states_held"] = held_equal(piped, fed, "image files")
+        out["losses"] = piped_l
+        stats = list(piped.graph_stats().values())
+        check(stats == [{"n_captures": 1, "n_replays": IMAGE_STEPS - 1}],
+              f"image files: graph {stats}")
+        check(states[IMAGE_RESUME_AT - 1]["position"]
+              == IMAGE_RESUME_AT * BATCH,
+              f"image files: state after step {IMAGE_RESUME_AT} is "
+              f"{states[IMAGE_RESUME_AT - 1]}")
+
+        # gate 2: a resume from the state after step IMAGE_RESUME_AT
+        it = image_iter(list_path)
+        res = DevicePrefetcher(it, dev, depth=IMAGE_PREFETCH_DEPTH)
+        res.load_state_dict(states[IMAGE_RESUME_AT - 1])
+        g = iter(res)
+        try:
+            for i in range(IMAGE_RESUME_AT, IMAGE_STEPS):
+                tx, ty = next(g)
+                x, y, _ = recorded[i]
+                check(np.array_equal(tx.data.cpu().numpy(), x) and
+                      np.array_equal(ty.data.cpu().numpy(), y),
+                      f"image files: resumed batch {i + 1} differs")
+        finally:
+            g.close()
+            it.end()
+        out["resumed_batches_held"] = IMAGE_STEPS - IMAGE_RESUME_AT
+
+        # timing: pipeline-fed against directly fed, alternating rounds
+        feeds = {"pipeline": lambda n: piped_steps(piped, dev, list_path,
+                                                   n),
+                 "direct": lambda n: fed_steps(
+                     fed, direct(dev, thread_batches[:n]), n)[1]}
+        times = alternating_rounds(feeds, IMAGE_ROUNDS, IMAGE_ROUND_STEPS)
+        for name, ms in times.items():
+            q = quantiles(ms)
+            out[name] = {"step_p50_ms": q["p50_ms"],
+                         "step_p99_ms": q["p99_ms"], "steps_timed": q["n"],
+                         "step_ms": ms,
+                         "img_per_s": BATCH * len(ms) / (sum(ms) / 1e3)}
+        # gate 4 and the idle share, in a trace of pipeline-fed replays
+        out["traced"] = traced_pipeline(dev, piped, list_path,
+                                        IMAGE_TRACED, "image files traced")
+        del piped, fed
+        torch.cuda.empty_cache()
+    out["benchmark_example"] = bench_example(
+        ["--bs", str(BATCH), "--iters", str(IMAGE_BENCH_ITERS),
+         "--warmup", "3"])
+    out["seconds"] = time.perf_counter() - t0
+    print(image_files_line(out, card_line()), flush=True)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5184,6 +5645,9 @@ def main():
     torch.cuda.empty_cache()
     fsdp = {"nccl": fsdp_nccl, "gloo": zero_gloo_phase(dev, tx, ty, start)}
     del tx, ty, start
+    torch.cuda.empty_cache()
+    # training from image files on disk (phase 20)
+    image_files = image_files_phase(dev)
     torch.backends.cudnn.deterministic = False
 
     # one line per kernel: its f32 case at main-path shapes, launches from
@@ -5303,6 +5767,9 @@ def main():
                       ("fsdp_axis_bf16_mixed", "sgd_multi_flag")):
         per_replay.setdefault(key, {})[f"resnet50_fsdp_nccl_{case}"] = \
             fsdp["nccl"][case]["sgd_multi_per_replay"]
+    # the step fed from image files (phase 20): K1-multi per replay
+    per_replay["sgd_multi"]["resnet50_image_files"] = \
+        image_files["traced"]["sgd_multi_per_replay"]
     for row in kernels:
         if row["name"] in per_replay:
             row["other_paths_launches_per_replay"] = per_replay[row["name"]]
@@ -5322,7 +5789,8 @@ def main():
               "pure_bf16_train": pure_bf16,
               "xception_serve": xception_serve, "s2d": s2d,
               "imagenet_zoo": imagenet,
-              "dist": dist, "fsdp": fsdp, "kernels": kernels}
+              "dist": dist, "fsdp": fsdp, "image_files": image_files,
+              "kernels": kernels}
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

@@ -65,6 +65,7 @@ from .autograd_base import (CTX, Dummy, Operator,  # noqa: F401
 from .mixed_precision import accum_f32 as _f32a
 from .mixed_precision import cast_compute as _cast_compute
 from .tensor import Tensor, _torch_dtype
+from .tensor import host_copy as _host_copy
 
 
 class _AutogradModule(types.ModuleType):
@@ -839,11 +840,7 @@ def back_broadcast(y_shape, x_shape, x):
 
 def ctensor2numpy(x):
     """A host numpy copy of a Tensor or torch tensor."""
-    arr = x.data if isinstance(x, Tensor) else x
-    arr = arr.detach()
-    if arr.dtype == torch.bfloat16:
-        arr = arr.float()
-    return arr.cpu().numpy()
+    return _host_copy(x.data if isinstance(x, Tensor) else x)
 
 
 # the JAX module's CamelCase op classes (``Add``, ``ReLU``, ...): no caller

@@ -39,21 +39,13 @@ import torch.nn.functional as F
 
 from ..mixed_precision import cast_compute
 from ..tensor import Tensor
+from ..utils import same_pads
 
 
 def _pair(v):
     if isinstance(v, (tuple, list)):
         return tuple(int(x) for x in v)
     return (int(v), int(v))
-
-
-def _same_pads(size, k, s, d, lower):
-    """lax's SAME padding for one axis: output ceil(size / s); the odd
-    pixel goes after (SAME) or before (SAME_LOWER)."""
-    out = -(-size // s)
-    total = max((out - 1) * s + d * (k - 1) + 1 - size, 0)
-    small, big = total // 2, total - total // 2
-    return (big, small) if lower else (small, big)
 
 
 class ConvHandle:
@@ -113,8 +105,8 @@ class ConvHandle:
             lower = self.pad_mode == "SAME_LOWER"
             (kh, kw), (sh, sw), (dh, dw) = (self.kernel_size, self.stride,
                                             self.dilation)
-            return (_same_pads(h, kh, sh, dh, lower),
-                    _same_pads(w, kw, sw, dw, lower))
+            return (same_pads(h, kh, sh, dh, lower),
+                    same_pads(w, kw, sw, dw, lower))
         return self.padding
 
 

@@ -54,7 +54,7 @@ __all__ = [
     "ge", "eq", "add", "sub", "eltwise_mult", "mult", "div", "axpy",
     "einsum", "repeat", "tensordot", "bernoulli", "gaussian", "uniform",
     "add_column", "add_row", "sum_columns", "sum_rows", "copy_from_numpy",
-    "concatenate", "to_host_array", "to_host_tree",
+    "concatenate", "to_host_array", "to_host_tree", "host_copy",
 ]
 
 float16 = torch.float16
@@ -224,12 +224,9 @@ class Tensor:
         return self.as_type(dtype)
 
     def to_numpy(self) -> np.ndarray:
-        """Host copy. numpy has no bfloat16, so a bf16 tensor comes back
-        as float32 (lossless)."""
-        arr = self.data.detach()
-        if arr.dtype == torch.bfloat16:
-            arr = arr.float()
-        return arr.cpu().numpy()
+        """Host copy (:func:`host_copy`). numpy has no bfloat16, so a
+        bf16 tensor comes back as float32 (lossless)."""
+        return host_copy(self.data)
 
     def numpy(self) -> np.ndarray:
         return self.to_numpy()
@@ -699,14 +696,28 @@ def sum_rows(M):
     return _wrap(torch.sum(_raw(M), dim=0), M)
 
 
+def host_copy(a: torch.Tensor) -> np.ndarray:
+    """A numpy array of ``a`` in memory of its own (bf16 as f32): the one
+    way every host snapshot is taken. On the card ``.cpu()`` copies; a CPU
+    tensor's ``.numpy()`` is a view of its storage, so it is copied here,
+    and a later in-place write to the tensor (an optimizer step, ``+=``,
+    ``copy_from_numpy``) leaves an array taken earlier as it was, as a
+    JAX array's host copy is."""
+    a = a.detach()
+    if a.dtype == torch.bfloat16:
+        return a.float().cpu().numpy()       # .float() made a new tensor
+    if a.device.type == "cpu":
+        return a.numpy().copy()
+    return a.cpu().numpy()
+
+
 def to_host_array(arr):
     """Host numpy copy of a torch tensor or Tensor (bf16 as f32). A
     ZeRO/FSDP shard is gathered by ``Model.get_states``, not here."""
     if isinstance(arr, Tensor):
         return arr.to_numpy()
     if isinstance(arr, torch.Tensor):
-        a = arr.detach()
-        return (a.float() if a.dtype == torch.bfloat16 else a).cpu().numpy()
+        return host_copy(arr)
     return np.asarray(arr)
 
 

@@ -33,7 +33,9 @@ def _sources():
             "parallel/mesh.py", "parallel/gspmd.py", "models/vgg.py",
             "models/squeezenet.py", "models/mobilenet.py",
             "models/densenet.py", "models/shufflenet.py",
-            "initializer.py", "autograd_base.py"} <= names
+            "initializer.py", "autograd_base.py", "utils.py",
+            "channel.py", "image_tool.py", "examples/train_mlp.py",
+            "examples/benchmark.py"} <= names
     return files
 
 
@@ -68,8 +70,10 @@ def test_importing_the_port_loads_no_jax():
         "from singa_tpu_torch.models import vgg, squeezenet, mobilenet, "
         "densenet, shufflenet\n"
         "from singa_tpu_torch import initializer, autograd_base, tensor\n"
+        "from singa_tpu_torch import utils, channel, image_tool\n"
         "import runpy\n"
-        "for ex in ('train_cnn', 'train_transformer'):\n"
+        "for ex in ('train_cnn', 'train_transformer', 'train_mlp',"
+        " 'benchmark'):\n"
         "    runpy.run_path(f'singa_tpu_torch/examples/{ex}.py',"
         " run_name='not_main')\n"
         "new = set(sys.modules) - before\n"

@@ -664,7 +664,8 @@ def test_data_dependent_ops_refuse_inside_a_step():
 def test_op_classes_and_left_out_pieces_raise_naming_the_roadmap():
     """The JAX module's CamelCase op classes wait for the ``sonnx`` slice:
     each raises ``NotImplementedError`` naming ROADMAP.md (and ``hasattr``
-    is False); so do ``ops.resize`` and ``data.ImageBatchIter``."""
+    is False); so do ``ops.resize`` and ``data.ImageBatchIter``'s
+    ``faults=`` (a fault plan)."""
     from singa_tpu_torch import data as tdata
     from singa_tpu_torch.ops import resize as tresize
     ported = {"Operator", "Dummy", "GlobalAveragePool"}
@@ -680,6 +681,7 @@ def test_op_classes_and_left_out_pieces_raise_naming_the_roadmap():
             getattr(tag, n)
     for make in (lambda: tresize.resize(None, (2, 2)),
                  lambda: tresize.ResizeHandle(None),
-                 lambda: tdata.ImageBatchIter("list.txt", 2)):
+                 lambda: tdata.ImageBatchIter("list.txt", 2, None,
+                                              faults=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make()
