@@ -284,7 +284,41 @@ failure exits nonzero:
    step's end to the next, 2 alternating rounds of 8 steps), the idle
    share of the traced replays, and ``singa_tpu_torch/examples/
    benchmark.py``'s throughput at b32 (ResNet-50, 1000 classes, 10
-   timed steps).
+   timed steps);
+21. lm mesh (the LM at ``LM_SHAPE`` from seeded weights): (a) 6 graphed
+   fused-SGD steps with ``remat=True`` against the same steps without, f32
+   and ``compute_dtype=bfloat16``: losses and states bitwise, else the
+   LM's gates (phase 12's rule, the reason printed); K3 12 and K4 6
+   launches per replay against 6 and 6 (a trace of replays); a net whose
+   rematerialised block drops units (``layer.Dropout``) bitwise with the
+   plain net, eager and graphed; readings: step p50/p99 in alternating
+   rounds, peak memory above the start. (b) ``compile(policy=
+   "bf16_mixed")`` with the guarded fused SGD, graphed, 6 steps, the last
+   poisoned through the guard's loss scale, set to NaN (an LM's token
+   ids carry no NaN), and a bitwise no-op under replay; the first loss within 1e-2 of
+   the f32 run's; readings: step p50 against f32, peak memory. (c)
+   greedy ``generate`` of 64 tokens from 512-token prompts (b8): each
+   step's logits within the LM eval tolerance of the full forward's
+   (through K3) at the last position, the tokens its argmax up to each
+   row's first step whose top-2 margin is under that tolerance;
+   readings: prefill ms, per-token ms p50, tokens/s. The K3 ring reading:
+   one ring hop at (8, 8, 512, 64) f32 with ``pos_delta`` 0 and -512
+   against its plain version, timed beside its bound over the unmasked
+   pairs and SDPA with the equivalent boolean mask. (d) two processes of
+   this script (``--lm-rank``) over gloo on the one card, eager, 3 steps
+   each of ``tp=2``, ``sp=2`` ring, ``sp=2`` Ulysses and ``tp=2`` with
+   the vocab-parallel fused head (``fused_head_chunk=8192``), each held
+   against the rank's own dense run of the same batch from the same
+   weights: losses within rtol 1e-5, the gathered parameters and the
+   momenta within 1e-5 of their norms (a momentum under 1e-2 of the
+   largest one's norm, as the key biases' whose gradient is zero up to
+   rounding, against that share of the largest); at every step and rank
+   K3 2 launches with ``pos_delta`` per attention call (ring) or 1 on the
+   full sequence (Ulysses, tp). Its negative control: the ring run again
+   with every hop's position delta off by S_local (a causal leak), which
+   that gate must refuse. Readings by kind: collectives per step and
+   those staged through host memory (gloo takes CUDA tensors for
+   all-to-all and sends only through the host).
 
 Rows of kernels that a graph replays (K2, K1-multi with and without the
 flag, K5-multi with the flag, K3/K4) carry ``replays`` and
@@ -296,7 +330,10 @@ per replayed step of each phase-13/14 model and per replayed Xception
 tick, the launches per replayed step of phase 17's DistOpt runs
 and of phase 18's FSDP steps, per replayed step and serving tick of
 each phase-19 model, and per replayed step fed from image files (phase
-20).
+20); K3's and K4's rows the launches per replayed LM step with remat
+(phase 21 (a)). K3's f32 row carries its ring launches per step and
+rank (phase 21 (d)), and a ``flash_fwd_ring`` row holds the K3 ring
+reading.
 Its last lines are the ``{"kernels": [...]}`` record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``. In
 that record ``ms`` and ``plain_ms`` are CUDA-event times of one call,
@@ -475,6 +512,36 @@ GRAPH_TRACED = 3
 GRAPH_ADAM_STEPS = 8
 LM_GRAPH_STEPS = 6
 LM_GRAPH_ROUND_STEPS = 3
+# phase 21, the LM on a mesh
+LM_MESH_STEPS = 6           # (a) remat and (b) bf16_mixed, graphed
+LM_MESH_ROUNDS = 2          # alternating timing rounds of (a) and (b)
+LM_MESH_TRACED = 2          # replays traced for the launches per replay
+LM_MIXED_LOSS_RTOL = 1e-2   # tests/test_torch_guarded_training.py's LM
+GEN_PROMPT, GEN_NEW = 512, 64
+LM_RANK_STEPS = 3
+# each mesh run against the rank's dense run of the same global batch:
+# losses within this rtol, every parameter and momentum within
+# LM_RANK_STATE_TOL of its norm (the CPU bounds of
+# tests/test_torch_lm_{tp,sp}.py). A key bias's gradient is zero up to
+# rounding (softmax is invariant to a constant added to one query's
+# scores), so a momentum whose norm is under LM_RANK_FLOOR of the largest
+# momentum's is held against that share of the largest instead (the
+# gate's three worst tensors of each kind are in the record)
+LM_RANK_LOSS_RTOL = 1e-5
+LM_RANK_STATE_TOL = 1e-5
+LM_RANK_FLOOR = 1e-2
+# the gate's negative control: this run again with every ring hop's
+# position delta off by S_local (a causal leak), which the gate must fail
+LM_RANK_PLANTED = "sp_ring"
+# phase 21 (d): name -> the mesh's degrees and the model's settings
+LM_RANK_RUNS = {
+    "tp": dict(model=2),
+    "sp_ring": dict(seq=2, seq_axis="seq", seq_mode="ring"),
+    "sp_ulysses": dict(seq=2, seq_axis="seq", seq_mode="ulysses"),
+    "tp_fused": dict(model=2, fused_head_chunk=8192),
+}
+RING_SHAPE = (8, 8, 512, 64)        # one ring hop of the LM at sp=2
+RING_DELTAS = (0, -512)
 # the rest of train_cnn.py: model -> (one input's shape, batch)
 ZOO = {"xceptionnet": ((3, 299, 299), 32), "alexnet": ((3, 224, 224), 32),
        "cnn": ((1, 28, 28), 64), "mlp": ((784,), 64)}
@@ -2927,15 +2994,20 @@ def lm_states(model, seed):
     return out
 
 
-def lm_model(dev, tx, compute_dtype=None, train=True, use_graph=False):
+def lm_model(dev, tx, compute_dtype=None, train=True, use_graph=False,
+             policy=None, **kw):
     """The LM at ``LM_SHAPE``; eager unless ``use_graph`` (the phases
-    that count launches per step run it eagerly)."""
+    that count launches per step run it eagerly); ``kw`` overrides the
+    model's settings (``remat``, ``fused_head_chunk``, ``tp``,
+    ``seq_axis``, ``seq_mode``)."""
     from singa_tpu_torch.models import transformer
+    settings = dict(max_len=LM["seq"], tp=False, fused_head_chunk=8192,
+                    compute_dtype=compute_dtype)
+    settings.update(kw)
     m = transformer.TransformerLM(
         LM["vocab"], d_model=LM["d_model"], n_heads=LM["heads"],
-        n_layers=LM["layers"], max_len=LM["seq"], tp=False,
-        fused_head_chunk=8192, compute_dtype=compute_dtype)
-    m.compile([tx], is_train=train, use_graph=use_graph)
+        n_layers=LM["layers"], **settings)
+    m.compile([tx], is_train=train, use_graph=use_graph, policy=policy)
     return m
 
 
@@ -5559,6 +5631,684 @@ def image_files_phase(dev):
     return out
 
 
+# -- phase 21: the LM on a mesh ------------------------------------------------
+
+class DropRematNet:
+    """A two-layer net whose hidden layer drops half its units, inside a
+    block that ``autograd.checkpoint`` rematerialises (``remat``) or not:
+    the masks of a rematerialised block must be the forward's."""
+
+    @staticmethod
+    def make(remat):
+        from singa_tpu_torch import autograd, layer, model
+
+        class Block(layer.Layer):
+            def __init__(self):
+                super().__init__()
+                self.fc1 = layer.Linear(512)
+                self.drop = layer.Dropout(0.5)
+                self.fc2 = layer.Linear(10)
+
+            def forward(self, x):
+                return self.fc2(self.drop(autograd.relu(self.fc1(x))))
+
+        class Net(model.Model):
+            def __init__(self):
+                super().__init__()
+                self.block = Block()
+                self.loss_fn = layer.SoftMaxCrossEntropy()
+
+            def forward(self, x):
+                return autograd.checkpoint(self.block, x) if remat \
+                    else self.block(x)
+
+            def train_one_batch(self, x, y):
+                out = self.forward(x)
+                loss = self.loss_fn(out, y)
+                self.optimizer(loss)
+                return out, loss
+
+        return Net()
+
+
+def dropout_remat_check(dev):
+    """The dropout net rematerialised against not, eager and graphed, 4
+    steps each from the same weights and device-generator seed: losses
+    and parameters bitwise."""
+    import numpy as np
+    import torch
+    from singa_tpu_torch import opt
+    from singa_tpu_torch.model import load_numpy_states
+    from singa_tpu_torch.tensor import Tensor
+    rng = np.random.default_rng(SEED + 40)
+    x = Tensor(data=rng.standard_normal((64, 256), dtype=np.float32),
+               device=dev)
+    y = Tensor(data=np.eye(10, dtype=np.float32)[rng.integers(0, 10, 64)],
+               device=dev)
+    start = None
+    out = {}
+    for graph in (False, True):
+        runs = {}
+        for remat in (False, True):
+            m = DropRematNet.make(remat)
+            m.set_optimizer(opt.SGD(lr=0.1))
+            m.compile([x], is_train=True, use_graph=graph)
+            start = start or seeded_states(m, SEED + 41)
+            load_numpy_states(m, start)
+            dev.SetRandSeed(SEED + 42)
+            losses = [m(x, y)[1].data.detach().clone() for _ in range(4)]
+            runs[remat] = (torch.stack(losses), {
+                k: v.data.detach().clone()
+                for k, v in m.get_params().items()})
+        same = torch.equal(runs[False][0], runs[True][0]) and all(
+            torch.equal(runs[False][1][k], runs[True][1][k])
+            for k in runs[False][1])
+        what = "graphed" if graph else "eager"
+        check(same, f"remat dropout {what}: the rematerialised net's "
+              f"losses {runs[True][0].tolist()} or parameters differ from "
+              f"the plain net's {runs[False][0].tolist()}")
+        out[what] = {"bitwise": same,
+                     "losses": runs[True][0].tolist()}
+    return out
+
+
+def lm_remat_phase(dev, tx, ty, start):
+    """Phase 21 (a): ``LM_MESH_STEPS`` graphed fused-SGD steps of the LM
+    with ``remat=True`` against the same steps without, f32 and
+    ``compute_dtype=bfloat16``, from ``start``: losses and states bitwise,
+    else the LM's gates (phase 12's rule, the reason printed); in a trace
+    of replays K3 launches twice per block (12 a step), K4 once. Readings:
+    step p50/p99 in alternating rounds and peak memory above the start.
+    Returns the records and the f32 graphed model without remat (phase
+    21 (b) times against it)."""
+    import numpy as np
+    import torch
+    layers = LM["layers"]
+    sgd = multi_chunks("sgd_multi", LM_PARAMS_PER_STEP)
+    out = {"dropout": dropout_remat_check(dev)}
+    keep = None
+    for dname, cdt in (("float32", None), ("bfloat16", torch.bfloat16)):
+        models = {"plain": lm_model(dev, tx, cdt, use_graph=True),
+                  "remat": lm_model(dev, tx, cdt, use_graph=True,
+                                    remat=True)}
+        runs = {n: lm_graph_run(m, start, tx, ty, LM_MESH_STEPS)
+                for n, m in models.items()}
+        p, r = runs["plain"], runs["remat"]
+        rel = {k: ((r["params"][k].float() - v.float()).norm()
+                   / v.float().norm()).item()
+               for k, v in p["params"].items()}
+        worst = max(rel, key=rel.get)
+        bitwise = r["losses"] == p["losses"] and rel[worst] == 0.0
+        reason = "bitwise" if bitwise else (
+            f"not bitwise: losses {r['losses']} against {p['losses']}, "
+            f"{worst} by {rel[worst]:.3g}; held to the LM's gates")
+        if not bitwise:
+            print(f"remat LM {dname}: {reason}", flush=True)
+            check(all(np.isfinite(r["losses"])) and
+                  r["losses"][-1] < r["losses"][0] and
+                  rel[worst] <= LM_PARAM_TOL,
+                  f"remat LM {dname}: {reason} (tolerance {LM_PARAM_TOL})")
+        for name, m in models.items():
+            stats = list(m.graph_stats().values())
+            check(stats == [{"n_captures": 1,
+                             "n_replays": LM_MESH_STEPS - 1}],
+                  f"remat LM {dname} {name}: {stats}")
+        per_step = {"plain": {"flash_fwd": layers, "flash_bwd_dq": layers,
+                              "flash_bwd_dkv": layers, "sgd_multi": sgd},
+                    "remat": {"flash_fwd": 2 * layers,
+                              "flash_bwd_dq": layers,
+                              "flash_bwd_dkv": layers, "sgd_multi": sgd}}
+        trace = {n: traced(lambda m=m: m(tx, ty), LM_MESH_TRACED,
+                           per_step[n], f"remat LM {dname} {n} replays")
+                 for n, m in models.items()}
+        for n in models:
+            check(not trace[n]["host_launches"],
+                  f"remat LM {dname} {n}: replays counted "
+                  f"{trace[n]['host_launches']} on the host")
+        times = alternating_rounds(
+            {n: (lambda k, m=m: timed_steps(m, tx, ty, k))
+             for n, m in models.items()},
+            LM_MESH_ROUNDS, LM_GRAPH_ROUND_STEPS)
+        rec = {"compute_dtype": dname, "steps": LM_MESH_STEPS,
+               "bitwise": bitwise, "reason": reason,
+               "max_param_rel_diff": rel[worst], "max_param_rel_diff_at":
+               worst, "losses": r["losses"], "plain_losses": p["losses"]}
+        for n in models:
+            q = quantiles(times[n])
+            rec[n] = {"step_p50_ms": q["p50_ms"], "step_p99_ms": q["p99_ms"],
+                      "step_ms": times[n],
+                      "peak_above_start_bytes":
+                      runs[n]["peak_above_start_bytes"],
+                      "launches_per_replay": {
+                          k: v / LM_MESH_TRACED
+                          for k, v in trace[n]["launches"].items()},
+                      "traced": trace[n]}
+        out[dname] = rec
+        pr, rr = rec["plain"], rec["remat"]
+        print(f"remat LM {dname} B{LM['batch']} S{LM['seq']}: {reason}; "
+              f"step p50 {rr['step_p50_ms']:.2f} ms p99 "
+              f"{rr['step_p99_ms']:.2f} against {pr['step_p50_ms']:.2f} / "
+              f"{pr['step_p99_ms']:.2f} without remat ({LM_MESH_ROUNDS} "
+              f"alternating rounds of {LM_GRAPH_ROUND_STEPS}); peak above "
+              f"the start {rr['peak_above_start_bytes'] / 2**30:.2f} GiB "
+              f"against {pr['peak_above_start_bytes'] / 2**30:.2f}; per "
+              f"replay K3 {rr['launches_per_replay']['flash_fwd']:.0f} "
+              f"against {pr['launches_per_replay']['flash_fwd']:.0f}, K4 "
+              f"{rr['launches_per_replay']['flash_bwd_dq']:.0f} against "
+              f"{pr['launches_per_replay']['flash_bwd_dq']:.0f}", flush=True)
+        if dname == "float32":
+            keep = (models["plain"], p["losses"][0])
+        del models, runs
+        torch.cuda.empty_cache()
+    print(f"remat dropout net: eager and graphed bitwise with the plain "
+          f"net ({out['dropout']})", flush=True)
+    return out, keep
+
+
+def lm_mixed_phase(dev, tx, ty, start, f32_model, f32_first_loss):
+    """Phase 21 (b): the LM compiled with ``policy="bf16_mixed"`` (the
+    fused SGD inside the guard), graphed, ``LM_MESH_STEPS`` steps from
+    ``start``, the last one poisoned: an LM's inputs are token ids, which
+    no NaN reaches (an id out of range is a zero row), so the guard's
+    loss scale (the backward's seed) is set to NaN just before it, and
+    every gradient is NaN. Gates: the first loss within
+    ``LM_MIXED_LOSS_RTOL`` of the f32 run's; one capture; the poisoned
+    replay changes no state (bitwise) and counts one skip. Readings: step
+    p50 against the f32 graphed step (alternating rounds) and peak
+    memory."""
+    import torch
+    from singa_tpu_torch import opt
+    from singa_tpu_torch.model import load_numpy_states
+    m = lm_model(dev, tx, use_graph=True, policy="bf16_mixed")
+    load_numpy_states(m, start)
+    m.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, fused=True))
+    guard = m.optimizer
+    check(hasattr(guard, "dynamic_loss_scale"),
+          f"bf16_mixed LM: the optimizer is {type(guard).__name__}, not "
+          "the guard")
+    m.train()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    losses = []
+    for step in range(1, LM_MESH_STEPS + 1):
+        if step == LM_MESH_STEPS:
+            before = live_states(m)
+            skipped = guard.stats()["skipped_total"]
+            scale = guard.inner.loss_scale.data.clone()
+            guard.inner.loss_scale.data.fill_(float("nan"))
+        losses.append(float(m(tx, ty)[1].data.detach()))
+    peak = torch.cuda.max_memory_allocated() - base
+    after = live_states(m)
+    moved = [k for k in before if not k.startswith(
+        ("optimizer/loss_scale", "optimizer/guard/"))
+        and not torch.equal(before[k], after[k])]
+    stats = guard.stats()
+    check(not moved and stats["skipped_total"] == skipped + 1,
+          f"bf16_mixed LM: the poisoned replay moved {moved[:5]} or "
+          f"skipped {stats['skipped_total'] - skipped} steps")
+    guard.inner.loss_scale.data.copy_(scale)
+    graphs = list(m.graph_stats().values())
+    check(graphs == [{"n_captures": 1, "n_replays": LM_MESH_STEPS - 1}],
+          f"bf16_mixed LM: {graphs}")
+    rel = abs(losses[0] - f32_first_loss) / abs(f32_first_loss)
+    check(rel <= LM_MIXED_LOSS_RTOL,
+          f"bf16_mixed LM: first loss {losses[0]} against the f32 run's "
+          f"{f32_first_loss} (rtol {LM_MIXED_LOSS_RTOL})")
+    times = alternating_rounds(
+        {"bf16_mixed": lambda k: timed_steps(m, tx, ty, k),
+         "float32": lambda k: timed_steps(f32_model, tx, ty, k)},
+        LM_MESH_ROUNDS, LM_GRAPH_ROUND_STEPS)
+    q, qf = quantiles(times["bf16_mixed"]), quantiles(times["float32"])
+    rec = {"losses": losses, "first_loss_rel_diff_vs_f32": rel,
+           "poisoned_step": LM_MESH_STEPS, "skipped_total":
+           stats["skipped_total"], "step_p50_ms": q["p50_ms"],
+           "f32_step_p50_ms": qf["p50_ms"], "step_ms": times["bf16_mixed"],
+           "peak_above_start_bytes": peak}
+    print(f"bf16_mixed LM B{LM['batch']} S{LM['seq']}: first loss "
+          f"{losses[0]:.6f} (f32 {f32_first_loss:.6f}, rel {rel:.3g}); "
+          f"step {LM_MESH_STEPS} poisoned: no state moved, 1 skip; step "
+          f"p50 {q['p50_ms']:.2f} ms against f32 {qf['p50_ms']:.2f} ms; "
+          f"peak above the start {peak / 2**30:.2f} GiB", flush=True)
+    del m
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_generate_phase(dev, tx, start):
+    """Phase 21 (c): greedy ``generate`` of ``GEN_NEW`` tokens from the
+    first ``GEN_PROMPT`` tokens of the b8 batch, f32. At each step the
+    decode's logits must be within ``LM_LOGIT_TOL`` of the full forward's
+    (through K3) at the last position, and its token the forward's argmax
+    up to the first step whose top-2 margin is under that tolerance.
+    Readings: prefill ms, per-token ms p50, tokens/s."""
+    import numpy as np
+    import torch
+    from singa_tpu_torch.model import load_numpy_states
+    from singa_tpu_torch.models import transformer
+    from singa_tpu_torch.ops import attention as at
+    from singa_tpu_torch.tensor import Tensor
+    m = lm_model(dev, tx, train=False)
+    load_numpy_states(m, start)
+    m.eval()
+    prompt = tx.data[:, :GEN_PROMPT].cpu().numpy().astype(np.int32)
+    marks = [torch.cuda.Event(enable_timing=True)]
+    logits = []
+
+    def mark(step_logits):
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        logits.append(step_logits)
+    transformer._decode(m, prompt, 4, temperature=0)     # warm-up
+    torch.cuda.synchronize()
+    marks[0].record()
+    tokens = transformer._decode(m, prompt, GEN_NEW, temperature=0,
+                                 on_token=mark)
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    tol = LM_LOGIT_TOL["float32"]
+    worst = 0.0
+    # per row: the first step whose top-2 margin is under the tolerance
+    diverged = [None] * LM["batch"]
+    at.reset_counts()
+    for i in range(GEN_NEW):
+        cur = tokens[:, :GEN_PROMPT + i]
+        full = m(Tensor(data=cur.astype(np.float32), device=dev)).data[:, -1]
+        scale = full.abs().max().item()
+        err = (logits[i] - full).abs().max().item()
+        worst = max(worst, err / scale)
+        check(err <= tol * scale,
+              f"generate: step {i} logits differ from the full forward's by "
+              f"{err} (max |logit| {scale}, tolerance {tol} x)")
+        top2 = torch.topk(full, 2, -1).values
+        margins = (top2[:, 0] - top2[:, 1]).tolist()
+        want = torch.argmax(full, -1).cpu().numpy()
+        for b in range(LM["batch"]):
+            if diverged[b] is None and margins[b] < tol * scale:
+                diverged[b] = i
+            if diverged[b] is None:
+                check(tokens[b, GEN_PROMPT + i] == want[b],
+                      f"generate: row {b} step {i} token "
+                      f"{tokens[b, GEN_PROMPT + i]} against the forward's "
+                      f"argmax {want[b]} (top-2 margin {margins[b]})")
+    k3 = at.launches["flash_fwd"]
+    check(k3 == GEN_NEW * LM["layers"],
+          f"generate: the full forwards launched K3 {k3} times")
+    total = sum(ms)
+    rec = {"prompt": GEN_PROMPT, "new": GEN_NEW, "batch": LM["batch"],
+           "prefill_ms": ms[0], "token_ms": ms[1:],
+           "token_p50_ms": quantiles(ms[1:])["p50_ms"],
+           "tokens_per_s": LM["batch"] * GEN_NEW / (total / 1e3),
+           "max_logit_rel_err": worst, "tolerance": tol,
+           "first_step_under_margin_by_row": diverged}
+    print(f"generate B{LM['batch']} prompt {GEN_PROMPT} + {GEN_NEW} greedy: "
+          f"prefill {rec['prefill_ms']:.2f} ms, per token p50 "
+          f"{rec['token_p50_ms']:.3f} ms, {rec['tokens_per_s']:.0f} "
+          f"tokens/s; logits within {worst:.3g} x max |logit| of the full "
+          f"forward (tolerance {tol}); tokens the forward's argmax up to "
+          f"each row's first step whose top-2 margin is under the "
+          f"tolerance: {diverged} (None: none)", flush=True)
+    del m, logits
+    torch.cuda.empty_cache()
+    return rec
+
+
+def ring_reading(dev):
+    """The K3 ring reading: one ring hop of the LM at sp=2 (``RING_SHAPE``
+    f32) with ``pos_delta`` 0 and -512 against its plain version at the
+    flash gates, timed (CUDA events, device), its bound over the unmasked
+    pairs (4 D flops each; bytes when none is unmasked), and SDPA's
+    device time on the same shapes with the equivalent boolean mask."""
+    import torch
+    import torch.nn.functional as F
+    from singa_tpu_torch.ops import attention as at
+    B, H, S, D = RING_SHAPE
+    recs = []
+    for delta in RING_DELTAS:
+        rec, (q, k, v, _g, _o, _l, scale) = flash_case(
+            dev, B, H, S, S, D, torch.float32, True, pos_delta=delta,
+            seed=SEED + 50)
+        i = torch.arange(S, device=q.device)
+        mask = i[None, :] <= i[:, None] + delta
+        pairs = B * H * int(mask.sum())
+        flops = 4 * D * pairs
+        nbytes = 4 * B * H * S * D * 4 + B * H * S * 4
+        t_ops = flops / F32_FLOPS_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        rec.update({
+            "delta": delta, "unmasked_pairs": pairs,
+            "ms": time_ms(lambda: at.flash_fwd(q, k, v, True, scale,
+                                               pos_delta=delta)),
+            "device_ms": device_ms(
+                lambda: at.flash_fwd(q, k, v, True, scale, pos_delta=delta),
+                FLASH_KERNEL_NAME["float32"]["flash_fwd"]),
+            "plain_ms": time_ms(lambda: at._scan_flash_fwd(
+                q, k, v, True, scale, pos_delta=delta), iters=5, warmup=1),
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, scale=scale), ""),
+            "library": "scaled_dot_product_attention with the boolean mask "
+            "(device time)"})
+        recs.append(rec)
+        print(f"kernel flash_fwd ring hop {RING_SHAPE} f32 pos_delta={delta}:"
+              f" {pairs} unmasked pairs, kernel_ms={rec['ms']:.4f} (device "
+              f"{rec['device_ms']:.4f}) plain_ms={rec['plain_ms']:.4f} "
+              f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}) "
+              f"library_ms={rec['library_ms']:.4f} (SDPA, boolean mask)",
+              flush=True)
+    return recs
+
+
+def lm_rank_phase(dev, tx, ty, start):
+    """Phase 21 (d): ``DIST_RANKS`` processes of this script
+    (:func:`lm_rank_main`) on the one card over gloo, eager, each
+    ``LM_RANK_STEPS`` steps of the LM on the global batch under each mesh
+    of ``LM_RANK_RUNS``, each held by the rank against its own dense run
+    of the same batch from ``start`` (one process, no mesh): losses within
+    ``LM_RANK_LOSS_RTOL``, the gathered parameters and momenta within
+    ``LM_RANK_STATE_TOL`` (:func:`_state_rel`). K3 at every step and rank:
+    2 launches with ``pos_delta`` per attention call (ring), 1 on the full
+    sequence (Ulysses, tp). The ``LM_RANK_PLANTED`` run again with its
+    ring hops' delta off by S_local must fail that gate. Readings by kind:
+    collectives per step and the host-staged ones."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="chip_smoke_lm_")
+    try:
+        np.savez(os.path.join(work, "inputs.npz"),
+                 ids=tx.data.cpu().numpy(), tgt=ty.data.cpu().numpy(),
+                 **{f"start/{k}": v for k, v in start.items()})
+        t0 = time.perf_counter()
+        outs = run_ranks("--lm-rank", work, "lm mesh gloo")
+        seconds = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    layers = LM["layers"]
+    want_k3 = {"tp": (layers, layers, 0), "tp_fused": (layers, layers, 0),
+               "sp_ring": (2 * layers, 0, 2 * layers),
+               "sp_ulysses": (layers, layers, 0)}
+    rec = {"backend": "gloo", "ranks": DIST_RANKS, "seconds": seconds,
+           "steps": LM_RANK_STEPS, "loss_rtol": LM_RANK_LOSS_RTOL,
+           "state_tolerance": LM_RANK_STATE_TOL, "floor": LM_RANK_FLOOR}
+
+    def held(o, name):
+        losses, dense = o[f"{name}/losses"], o[f"{name}/dense_losses"]
+        rel = np.abs(losses - dense) / np.abs(dense)
+        worst = {kind: float(o[f"{name}/max_{kind}_rel"])
+                 for kind in ("param", "momentum")}
+        ok = bool(np.all(rel <= LM_RANK_LOSS_RTOL)) and \
+            max(worst.values()) <= LM_RANK_STATE_TOL
+        return ok, {
+            "losses": losses.tolist(), "dense_losses": dense.tolist(),
+            "max_loss_rel": float(rel.max()),
+            "max_param_rel": worst["param"],
+            "max_param_at": str(o[f"{name}/max_param_at"]),
+            "max_momentum_rel": worst["momentum"],
+            "max_momentum_at": str(o[f"{name}/max_momentum_at"]),
+            "top_params": o[f"{name}/top_param"].tolist(),
+            "top_momenta": o[f"{name}/top_momentum"].tolist()}
+
+    for name in LM_RANK_RUNS:
+        runs = []
+        for r, o in enumerate(outs):
+            ok, run = held(o, name)
+            check(ok, f"lm mesh {name} rank {r}: losses {run['losses']} "
+                  f"against the dense {run['dense_losses']} (rtol "
+                  f"{LM_RANK_LOSS_RTOL}), a parameter "
+                  f"{run['max_param_rel']:.3g} off ({run['max_param_at']})"
+                  f", a momentum {run['max_momentum_rel']:.3g} off ("
+                  f"{run['max_momentum_at']}; tolerance "
+                  f"{LM_RANK_STATE_TOL})")
+            k3 = [tuple(int(v) for v in step)
+                  for step in o[f"{name}/k3_per_step"]]
+            check(all(step == want_k3[name] for step in k3),
+                  f"lm mesh {name} rank {r}: K3, K4-dQ and K3-with-"
+                  f"pos_delta launches at each step {k3}, expected "
+                  f"{want_k3[name]} at every step")
+            run.update({
+                "k3_k4dq_ring_per_step": [list(step) for step in k3],
+                "ring_launches": sum(step[2] for step in k3),
+                "collectives_per_step": dict(zip(
+                    o["kinds"].tolist(),
+                    o[f"{name}/collectives"].tolist())),
+                "host_staged_per_step": dict(zip(
+                    o["kinds"].tolist(), o[f"{name}/staged"].tolist())),
+                "grad_all_reduces_per_step": int(o[f"{name}/grad_reduces"]),
+                "step_ms": o[f"{name}/step_ms"].tolist()})
+            runs.append(run)
+        rec[name] = runs
+        r0 = runs[0]
+        print(f"lm mesh {name} over gloo on the card, 2 ranks, "
+              f"{LM_RANK_STEPS} eager steps: losses "
+              + " ".join(f"{v:.5f}" for v in r0["losses"])
+              + f" (dense {' '.join(f'{v:.5f}' for v in r0['dense_losses'])}"
+              f", rel {max(r['max_loss_rel'] for r in runs):.3g}); "
+              f"parameters within "
+              f"{max(r['max_param_rel'] for r in runs):.3g}, momenta "
+              f"within {max(r['max_momentum_rel'] for r in runs):.3g} "
+              f"(tolerance {LM_RANK_STATE_TOL}); K3/K4-dQ/ring launches at "
+              f"each step {r0['k3_k4dq_ring_per_step']}; collectives per "
+              f"step {r0['collectives_per_step']}, host-staged "
+              f"{r0['host_staged_per_step']}, gradient all-reduces "
+              f"{r0['grad_all_reduces_per_step']}; step ms "
+              + " ".join(f"{v:.1f}" for v in r0["step_ms"]), flush=True)
+    planted = []
+    for r, o in enumerate(outs):
+        ok, run = held(o, "planted")
+        check(not ok, f"lm mesh: the {LM_RANK_PLANTED} run with its ring "
+              f"delta off by S_local passed the gate on rank {r} (losses "
+              f"rel {run['max_loss_rel']:.3g}, parameters "
+              f"{run['max_param_rel']:.3g}, momenta "
+              f"{run['max_momentum_rel']:.3g})")
+        planted.append(run)
+    rec["planted"] = {"run": LM_RANK_PLANTED,
+                      "fault": "ring pos_delta + S_local", "ranks": planted}
+    p0 = planted[0]
+    print(f"lm mesh gate's negative control ({LM_RANK_PLANTED}, ring delta "
+          f"off by S_local): loss rel {p0['max_loss_rel']:.3g}, parameters "
+          f"{p0['max_param_rel']:.3g}, momenta {p0['max_momentum_rel']:.3g}"
+          f" off the dense run: refused", flush=True)
+    print(f"lm mesh ranks: {seconds:.1f} s", flush=True)
+    return rec
+
+
+def _state_rel(got, want, floor=0.0):
+    """Per tensor ``|got - want| / max(|want|, floor * max |want|)``
+    (Frobenius) over ``want``'s names: the three largest, each with its
+    name and whether the floor set its denominator, the largest first."""
+    import numpy as np
+    norms = {k: float(np.linalg.norm(np.asarray(v, np.float64)))
+             for k, v in want.items()}
+    low = floor * max(norms.values())
+    rel = {k: float(np.linalg.norm(np.asarray(got[k], np.float64)
+                                   - np.asarray(want[k], np.float64)))
+           / max(norms[k], low, 1e-30) for k in want}
+    return [(rel[k], k, norms[k] < low)
+            for k in sorted(rel, key=rel.get, reverse=True)[:3]]
+
+
+def _momenta(optimizer):
+    """The optimizer's momentum buffers by name, host arrays (a shard
+    gathered)."""
+    return {k: v for k, v in optimizer.get_states().items()
+            if k.endswith(":momentum")}
+
+
+def _dense_lm(dev, tx, ty, start, chunk):
+    """``LM_RANK_STEPS`` eager fused-SGD steps of the LM on one process
+    (no mesh): its losses, final parameters and momenta (host arrays)."""
+    import torch
+    from singa_tpu_torch import opt
+    from singa_tpu_torch.model import load_numpy_states
+    from singa_tpu_torch.models import transformer
+    m = transformer.TransformerLM(
+        LM["vocab"], d_model=LM["d_model"], n_heads=LM["heads"],
+        n_layers=LM["layers"], max_len=LM["seq"], tp=False,
+        fused_head_chunk=chunk)
+    m.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, fused=True))
+    m.compile([tx], is_train=True, use_graph=False)
+    load_numpy_states(m, start)
+    losses = [float(m(tx, ty)[1].data.detach())
+              for _ in range(LM_RANK_STEPS)]
+    params = {k: v.data.detach().cpu().numpy()
+              for k, v in m.get_params().items()}
+    momenta = _momenta(m.optimizer)
+    del m
+    torch.cuda.empty_cache()
+    return losses, params, momenta
+
+
+def _mesh_lm(name, cfg, dev, tx, ty, start, dense, out):
+    """``LM_RANK_STEPS`` eager steps of the LM on the mesh of ``cfg`` (an
+    ``LM_RANK_RUNS`` entry) from ``start``; what the rank saw goes into
+    ``out`` under ``name/``, against ``dense`` (:func:`_dense_lm`)."""
+    import numpy as np
+    import torch
+    from singa_tpu_torch import opt
+    from singa_tpu_torch.model import load_numpy_states
+    from singa_tpu_torch.models import transformer
+    from singa_tpu_torch.ops import attention as at
+    from singa_tpu_torch.parallel import mesh as M
+    from singa_tpu_torch.parallel import ops as collective
+    from singa_tpu_torch.parallel.gspmd import P
+    cfg = dict(cfg)
+    degrees = {a: cfg.pop(a) for a in ("model", "seq") if a in cfg}
+    cfg.pop("fused_head_chunk", None)
+    m = transformer.TransformerLM(
+        LM["vocab"], d_model=LM["d_model"], n_heads=LM["heads"],
+        n_layers=LM["layers"], max_len=LM["seq"], tp=True,
+        fused_head_chunk=LM_RANK_RUNS[name].get("fused_head_chunk"), **cfg)
+    d = opt.DistOpt(opt.SGD(lr=0.1, momentum=0.9, fused=True),
+                    reduce_axes=("data", "seq"))
+    mesh = M.make_mesh(config=M.MeshConfig(**degrees))
+    d.communicator.mesh = mesh
+    m.set_optimizer(d)
+    if "seq_axis" in cfg:
+        m.input_specs = [P("data", "seq"), P("data", "seq")]
+        m.output_specs = [P("data", "seq"), P()]
+    m.compile([tx], is_train=True, use_graph=False)
+    load_numpy_states(m, start)
+    losses, k3, times = [], [], []
+    for _ in range(LM_RANK_STEPS):
+        collective.reset_counts()
+        at.reset_counts()
+        before = d.communicator.counts["all_reduce"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(m(tx, ty)[1].data.detach()))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        k3.append([at.launches["flash_fwd"], at.launches["flash_bwd_dq"],
+                   at.pos_delta_launches["flash_fwd"]])
+        grad_reduces = d.communicator.counts["all_reduce"] - before
+    d_losses, d_params, d_momenta = dense
+    params = {k: v.data.detach().cpu().numpy()
+              for k, v in m.get_states().items()}
+    momenta = _momenta(m.optimizer)
+    check(sorted(momenta) == sorted(d_momenta),
+          f"lm mesh {name}: momentum names {sorted(momenta)[:4]}... "
+          f"against the dense run's {sorted(d_momenta)[:4]}...")
+    out[f"{name}/losses"] = np.asarray(losses)
+    out[f"{name}/dense_losses"] = np.asarray(d_losses)
+    out[f"{name}/k3_per_step"] = np.asarray(k3)
+    out[f"{name}/collectives"] = np.asarray(
+        [collective.counts[k] for k in collective.KINDS])
+    out[f"{name}/staged"] = np.asarray(
+        [collective.host_staged[k] for k in collective.KINDS])
+    out[f"{name}/grad_reduces"] = np.asarray(grad_reduces)
+    out[f"{name}/step_ms"] = np.asarray(times)
+    for kind, got, want, floor in (("param", params, d_params, 0.0),
+                                   ("momentum", momenta, d_momenta,
+                                    LM_RANK_FLOOR)):
+        top = _state_rel(got, want, floor)
+        out[f"{name}/max_{kind}_rel"] = np.asarray(top[0][0])
+        out[f"{name}/max_{kind}_at"] = np.asarray(top[0][1])
+        out[f"{name}/top_{kind}"] = np.asarray(
+            [f"{k} {r:.3g}" + (" (floor)" if f else "") for r, k, f in top])
+    del m, d
+    torch.cuda.empty_cache()
+
+
+def lm_rank_main(rank, world, work):
+    """One rank of phase 21 (d): joins the gloo group on ``cuda:0``, runs
+    the dense LM, then the LM on each mesh of ``LM_RANK_RUNS`` and the
+    planted fault's run, and writes what it saw to
+    ``work/rank<rank>.npz``."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, HERE)
+    from singa_tpu_torch import device
+    from singa_tpu_torch.ops import attention as at
+    from singa_tpu_torch.parallel import communicator as C
+    from singa_tpu_torch.parallel import ops as collective
+    from singa_tpu_torch.tensor import Tensor
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = device.create_cuda_gpu(0)
+    C.init_process(C.NcclIdHolder(file=os.path.join(work, "store")), rank,
+                   world, device=dev, backend="gloo",
+                   timeout_s=DIST_RANK_TIMEOUT_S)
+    try:
+        with np.load(os.path.join(work, "inputs.npz")) as z:
+            inputs = {k: z[k] for k in z.files}
+        start = {k[len("start/"):]: v for k, v in inputs.items()
+                 if k.startswith("start/")}
+        tx = Tensor(data=inputs["ids"], device=dev)
+        ty = Tensor(data=inputs["tgt"], device=dev)
+        dense = {c: _dense_lm(dev, tx, ty, start, c) for c in
+                 {r.get("fused_head_chunk") for r in LM_RANK_RUNS.values()}}
+        out = {"kinds": np.asarray(collective.KINDS)}
+        for name, cfg in LM_RANK_RUNS.items():
+            _mesh_lm(name, cfg, dev, tx, ty, start,
+                     dense[cfg.get("fused_head_chunk")], out)
+        # the negative control: every ring hop's delta off by S_local
+        hop = at._RingPartials.apply
+
+        def planted(qf, kr, vr, delta, *rest):
+            return hop(qf, kr, vr, delta + qf.shape[2], *rest)
+        cfg = LM_RANK_RUNS[LM_RANK_PLANTED]
+        got = {}
+        at._RingPartials.apply = planted
+        try:
+            _mesh_lm(LM_RANK_PLANTED, cfg, dev, tx, ty, start,
+                     dense[cfg.get("fused_head_chunk")], got)
+        finally:
+            del at._RingPartials.apply
+        out.update({"planted/" + k.split("/", 1)[1]: v
+                    for k, v in got.items()})
+        np.savez(os.path.join(work, f"rank{rank}.npz"), **out)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def lm_mesh_phase(dev):
+    """Phase 21, "lm mesh": (a) remat, (b) the ``bf16_mixed`` LM, (c)
+    generate, the K3 ring reading, (d) two ranks on the card. Returns the
+    phase's record."""
+    import torch
+    t0 = time.perf_counter()
+    tx, ty = lm_data(dev)
+    start = lm_states(lm_model(dev, tx, train=False), SEED + 4)
+    torch.backends.cudnn.deterministic = True
+    remat, (f32_model, f32_first) = lm_remat_phase(dev, tx, ty, start)
+    mixed = lm_mixed_phase(dev, tx, ty, start, f32_model, f32_first)
+    del f32_model
+    torch.cuda.empty_cache()
+    generate = lm_generate_phase(dev, tx, start)
+    ring = ring_reading(dev)
+    ranks = lm_rank_phase(dev, tx, ty, start)
+    torch.backends.cudnn.deterministic = False
+    seconds = time.perf_counter() - t0
+    print(f"lm mesh phase: {seconds:.1f} s", flush=True)
+    return {"remat": remat, "bf16_mixed": mixed, "generate": generate,
+            "ring": ring, "ranks": ranks, "seconds": seconds}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5649,6 +6399,9 @@ def main():
     # training from image files on disk (phase 20)
     image_files = image_files_phase(dev)
     torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+    # the LM on a mesh (phase 21)
+    lm_mesh = lm_mesh_phase(dev)
 
     # one line per kernel: its f32 case at main-path shapes, launches from
     # the f32 run of its layout
@@ -5770,6 +6523,36 @@ def main():
     # the step fed from image files (phase 20): K1-multi per replay
     per_replay["sgd_multi"]["resnet50_image_files"] = \
         image_files["traced"]["sgd_multi_per_replay"]
+    # the LM with remat (phase 21 (a)): K3 twice per block, K4 once
+    for dname, suffix in (("float32", ""), ("bfloat16", "_bf16")):
+        got = lm_mesh["remat"][dname]["remat"]["launches_per_replay"]
+        for kname in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            per_replay.setdefault(kname + suffix, {})["lm_remat"] = \
+                got[kname]
+    # the ring path (phase 21 (d)): K3 with pos_delta on each hop
+    ring_runs = lm_mesh["ranks"]["sp_ring"]
+    ring_per_step = ring_runs[0]["k3_k4dq_ring_per_step"][0][2]
+    for row in kernels:
+        if row["name"] == "flash_fwd":
+            row["ring_launches_per_step_and_rank"] = ring_per_step
+    readings = lm_mesh["ring"]
+    hop = readings[0]
+    kernels.append({
+        "name": "flash_fwd_ring", "route": "cuda",
+        "source": "singa_tpu_torch/csrc/flash_attention.cu",
+        "replaces": REPLACES["flash_fwd"],
+        "launches": ring_runs[0]["ring_launches"],
+        "launches_note": "K3 launches with pos_delta on rank 0, counted "
+        "over every step of the sp=2 ring run of phase 21 (d)",
+        "max_abs_err": max(max(r["max_abs_err"].values())
+                           for r in readings),
+        "ms": hop["ms"], "plain_ms": hop["plain_ms"],
+        "bound_ms": hop["bound_ms"], "bound_by": hop["bound_by"],
+        "library_ms": hop["library_ms"],
+        "readings": [{k: r[k] for k in (
+            "delta", "shape", "unmasked_pairs", "ms", "device_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for r in readings]})
     for row in kernels:
         if row["name"] in per_replay:
             row["other_paths_launches_per_replay"] = per_replay[row["name"]]
@@ -5790,7 +6573,7 @@ def main():
               "xception_serve": xception_serve, "s2d": s2d,
               "imagenet_zoo": imagenet,
               "dist": dist, "fsdp": fsdp, "image_files": image_files,
-              "kernels": kernels}
+              "lm_mesh": lm_mesh, "kernels": kernels}
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
@@ -5810,4 +6593,7 @@ if __name__ == "__main__":
     if len(sys.argv) == 5 and sys.argv[1] == "--zero-rank":
         sys.exit(zero_rank_main(int(sys.argv[2]), int(sys.argv[3]),
                                 sys.argv[4]))
+    if len(sys.argv) == 5 and sys.argv[1] == "--lm-rank":
+        sys.exit(lm_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                              sys.argv[4]))
     sys.exit(main())

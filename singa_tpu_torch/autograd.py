@@ -43,15 +43,22 @@ host (``nonzero`` and ``constant_of_shape`` have shapes that depend on
 values); inside a step of graph mode (``graph.in_step``) or a CUDA-graph
 capture they raise rather than synchronise.
 
-Not ported here (ROADMAP.md): ``checkpoint`` (remat, slice C2) and
-``rnn_op`` (``ops/rnn.py``, slice E) raise; the CamelCase op classes of
-the JAX module wait for the ``sonnx`` slice (E): reading one raises
-:class:`OpClassNotPorted`.
+:func:`checkpoint` (``singa_tpu/autograd.py:1315-1380``) rematerialises a
+block in the backward through non-reentrant ``torch.utils.checkpoint``;
+the random draws of its forward (``dropout``'s keep masks) are recorded
+and handed to the recompute, as the JAX package hands the recompute the
+forward's key, so the recompute drops what the forward dropped, eagerly
+and inside a CUDA-graph capture alike (no generator state is read).
+
+Not ported here (ROADMAP.md): ``rnn_op`` (``ops/rnn.py``, slice E)
+raises; the CamelCase op classes of the JAX module wait for the ``sonnx``
+slice (E): reading one raises :class:`OpClassNotPorted`.
 """
 
 from __future__ import annotations
 
 import builtins
+import contextlib
 import sys
 import types
 
@@ -803,8 +810,16 @@ def dropout(x, ratio=0.5):
         n = shp[0]
         shp = (n * step.world,) + shp[1:]
         rows = builtins.slice(step.rank * n, (step.rank + 1) * n)
-    u = torch.rand(shp, generator=x.device.generator, dtype=torch.float32,
-                   device=x.device.torch_device)[rows]
+    tape = _REMAT[-1] if _REMAT else None
+    if tape is not None and tape.replaying:
+        u = tape.draws[tape.next_draw]
+        tape.next_draw += 1
+    else:
+        u = torch.rand(shp, generator=x.device.generator,
+                       dtype=torch.float32,
+                       device=x.device.torch_device)[rows]
+        if tape is not None:
+            tape.draws.append(u)
     return Tensor(data=torch.where(u < keep, x.data / keep, 0.0),
                   device=x.device)
 
@@ -873,10 +888,70 @@ def __getattr__(name):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
+class _RematDraws:
+    """The random draws of one rematerialised forward, in order: recorded
+    while the forward runs, handed back one by one while the backward
+    recomputes it."""
+
+    def __init__(self):
+        self.draws = []
+        self.replaying = False
+        self.next_draw = 0
+
+    @contextlib.contextmanager
+    def _scope(self, replaying):
+        self.replaying, self.next_draw = replaying, 0
+        _REMAT.append(self)
+        try:
+            yield
+        finally:
+            _REMAT.pop()
+
+    def contexts(self):
+        return self._scope(False), self._scope(True)
+
+
+_REMAT: list = []
+
+
 def checkpoint(block, x):
-    raise NotImplementedError(
-        "autograd.checkpoint (rematerialised blocks) is not ported yet "
-        "(ROADMAP.md: slice C2, remat)")
+    """``block(x)`` (a Layer on a Tensor) with a rematerialised backward:
+    numerically ``block(x)``, but only the block's input is kept for the
+    backward, which reruns the block's forward (kernel K3 included) to
+    rebuild what it needs (``jax.checkpoint``). The first call runs
+    un-checkpointed so that the block's parameters materialise; a block
+    holding non-parameter state (BatchNorm's running statistics, which a
+    recompute would update twice) raises ``ValueError``; the block must
+    return one Tensor. A dropout inside the block keeps its masks: the
+    recompute reads the forward's draws."""
+    from torch.utils.checkpoint import checkpoint as torch_checkpoint
+    from .layer import Layer
+    if not isinstance(block, Layer):
+        raise TypeError("checkpoint() wraps a Layer; for plain functions "
+                        "use torch.utils.checkpoint directly")
+    if not block._initialized:
+        return block(x)
+    params = block.get_params()
+    if len(block.get_states()) != len(params):
+        raise ValueError(
+            "checkpoint() cannot wrap blocks holding non-parameter state "
+            "(e.g. BatchNorm running stats); use normalization without "
+            "running statistics (LayerNorm) inside checkpointed blocks")
+
+    def run(x_arr):
+        out = block(Tensor(data=x_arr, device=x.device))
+        if not isinstance(out, Tensor):
+            raise TypeError(
+                "checkpoint() supports single-Tensor-output blocks; "
+                f"{type(block).__name__}.forward returned "
+                f"{type(out).__name__}")
+        return out.data
+
+    draws = _RematDraws()
+    y = torch_checkpoint(run, x.data, use_reentrant=False,
+                         preserve_rng_state=False,
+                         context_fn=draws.contexts)
+    return Tensor(data=y, device=x.device)
 
 
 def rnn_op(*args, **kwargs):

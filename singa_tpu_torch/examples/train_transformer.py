@@ -4,19 +4,32 @@
     python3 singa_tpu_torch/examples/train_transformer.py --seq 1024 \\
         --d-model 512 --heads 8 --layers 6 --vocab 32000 \\
         --fused-head-chunk 8192 --fused-optim
+    torchrun --nproc_per_node 2 singa_tpu_torch/examples/train_transformer.py \\
+        --tp 2 [--sp 2] [--generate 16]
 
-The single-device subset of ``examples/train_transformer.py``: the same
-model arguments, the same synthetic data (token ids uniform over the
-vocab from numpy seed 0, targets the ids shifted by one), ``SGD(lr=0.1,
+The counterpart of ``examples/train_transformer.py``: the same model
+arguments, the same synthetic data (token ids uniform over the vocab from
+numpy seed 0, targets the ids shifted by one), ``SGD(lr=0.1,
 momentum=0.9)`` (``--fused-optim`` sends every update through kernel K1),
 one warm-up step, then ``--steps`` steps with the loss every 5 and the
-tokens/s at the end. Every attention call runs the flash-attention
-kernels K3 (forward) and K4 (backward). It runs on the card unless
-``--cpu`` is given.
+tokens/s at the end, and with ``--generate N`` N tokens decoded greedily
+from the first row after training. Every attention call runs the
+flash-attention kernels K3 (forward) and K4 (backward); a ring hop runs
+K3 with a position delta. It runs on the card unless ``--cpu`` is given.
 
-Not ported yet, each refused with a pointer to ROADMAP.md: ``--tp``,
-``--sp`` and ``--ep`` above 1 (tensor, sequence and expert parallelism
-need a device mesh), ``--moe`` and ``--generate`` (KV-cache decoding).
+Under ``torchrun`` (world = tp x sp x data) each rank joins the process
+group: over NCCL on the card ``cuda:LOCAL_RANK`` when every rank has a
+card of its own, else over gloo, the ranks taking the cards in turn
+(NCCL refuses two ranks on one device), and over gloo with ``--cpu``.
+Gloo runs eagerly: a CUDA graph cannot capture its collectives. The mesh is
+``MeshConfig(model=tp, seq=sp)``, the optimizer a ``DistOpt`` with
+``reduce_axes=("data", "expert", "seq")``, and every rank is called with
+the global batch: ``input_specs`` shard it over ``data`` (and its tokens
+over ``seq``), as the JAX example's step does. Without ``torchrun`` the
+example runs one process, with no mesh.
+
+Not ported yet, each refused with a pointer to ROADMAP.md: ``--ep`` above
+1 and ``--moe`` (the expert-parallel FFN).
 """
 
 import argparse
@@ -58,15 +71,11 @@ def build_parser():
 
 def _refuse(args):
     """What this example does not do yet, each naming ROADMAP.md."""
-    for flag, n in (("--tp", args.tp), ("--sp", args.sp), ("--ep", args.ep)):
-        if n > 1:
-            return f"{flag} {n}: tensor, sequence and expert parallelism " \
-                "need a device mesh and are not ported yet (ROADMAP.md)"
+    if args.ep > 1:
+        return f"--ep {args.ep}: expert parallelism (parallel/moe.py) is " \
+            "not ported yet (ROADMAP.md)"
     if args.moe:
         return "--moe: the expert-parallel FFN is not ported yet (ROADMAP.md)"
-    if args.generate:
-        return "--generate: KV-cache decoding is not ported yet " \
-            "(ROADMAP.md: LM serving, slice D)"
     return None
 
 
@@ -77,14 +86,50 @@ def main(argv=None):
         raise SystemExit(refused)
 
     import torch
-    from singa_tpu_torch import device, opt, tensor
+    from singa_tpu_torch import device
+    from singa_tpu_torch.parallel import communicator
+
+    # torchrun's variables; without them one process, no mesh
+    launched = "WORLD_SIZE" in os.environ
+    rank = int(os.environ["RANK"]) if launched else 0
+    world = int(os.environ["WORLD_SIZE"]) if launched else 1
+    if args.tp * args.sp > world:
+        raise SystemExit(
+            f"--tp {args.tp} --sp {args.sp} takes {args.tp * args.sp} "
+            f"ranks or more, this run has {world}: launch it with torchrun "
+            f"--nproc_per_node {args.tp * args.sp}")
+    # NCCL takes one rank per card: ranks that share a card join over gloo
+    cards = torch.cuda.device_count()
+    backend = "gloo" if args.cpu or world > cards else "nccl"
+    if args.cpu:
+        dev = device.create_cpu_device()
+    else:
+        local = int(os.environ.get("LOCAL_RANK", 0)) if launched else 0
+        dev = device.create_cuda_gpu(local % max(cards, 1))
+    if launched:
+        communicator.init_process(communicator.NcclIdHolder(), rank, world,
+                                  device=dev, backend=backend)
+    try:
+        return train(args, dev, rank, world if launched else None)
+    finally:
+        if launched:
+            torch.distributed.destroy_process_group()
+
+
+def train(args, dev, rank, world):
+    """The training loop of ``main`` as rank ``rank`` of ``world`` (None:
+    one process, no mesh)."""
+    import torch
+    from singa_tpu_torch import opt, tensor
     from singa_tpu_torch.examples.train_cnn import graph_line
     from singa_tpu_torch.models import transformer
 
-    dev = device.create_cpu_device() if args.cpu \
-        else device.create_cuda_gpu(0)
+    def say(*a):
+        if rank == 0:
+            print(*a, flush=True)
+
     dev.SetRandSeed(0)
-    print(f"device: {dev.torch_device}", flush=True)
+    say(f"device: {dev.torch_device}")
 
     rng = np.random.RandomState(0)
     ids = rng.randint(0, args.vocab, (args.bs, args.seq)).astype(np.float32)
@@ -94,12 +139,36 @@ def main(argv=None):
 
     model = transformer.TransformerLM(
         args.vocab, d_model=args.d_model, n_heads=args.heads,
-        n_layers=args.layers, max_len=args.seq, tp=False,
+        n_layers=args.layers, max_len=args.seq + args.generate,
+        tp=args.tp > 1, seq_axis="seq" if args.sp > 1 else None,
         fused_head_chunk=args.fused_head_chunk or None,
         compute_dtype=torch.bfloat16 if args.bf16 else None)
-    model.set_optimizer(opt.SGD(lr=0.1, momentum=0.9,
-                                fused=args.fused_optim))
-    model.compile([tx], is_train=True, use_graph=True)
+    sgd = opt.SGD(lr=0.1, momentum=0.9, fused=args.fused_optim)
+    use_graph = True
+    if world is None:
+        model.set_optimizer(sgd)
+    else:
+        from singa_tpu_torch.parallel import mesh as mesh_mod
+        from singa_tpu_torch.parallel.communicator import set_mesh
+        from singa_tpu_torch.parallel.gspmd import P
+        dist = opt.DistOpt(sgd, reduce_axes=("data", "expert", "seq"))
+        msh = mesh_mod.make_mesh(config=mesh_mod.MeshConfig(
+            model=args.tp, seq=args.sp))
+        say(f"mesh: {mesh_mod.axis_sizes(msh)} over {world} ranks "
+            f"({torch.distributed.get_backend()})")
+        dist.communicator.mesh = msh
+        set_mesh(msh)
+        model.set_optimizer(dist)
+        # every rank takes the global batch; its tokens shard over data
+        # (and seq)
+        spec = P("data", "seq") if args.sp > 1 else P("data")
+        model.input_specs = [spec, spec]
+        if args.sp > 1:
+            model.output_specs = [spec, P()]
+        # a CUDA graph cannot capture gloo's collectives
+        use_graph = not (dev.is_cuda and
+                         torch.distributed.get_backend() == "gloo")
+    model.compile([tx], is_train=True, use_graph=use_graph)
 
     model(tx, ty)  # warm-up
     if dev.is_cuda:
@@ -108,13 +177,16 @@ def main(argv=None):
     for step in range(args.steps):
         _, loss = model(tx, ty)
         if step % 5 == 0:
-            print(f"step {step}: loss {float(loss.data.detach()):.4f}",
-                  flush=True)
+            say(f"step {step}: loss {float(loss.data.detach()):.4f}")
     if dev.is_cuda:
         torch.cuda.synchronize()
     toks = args.bs * args.seq * args.steps / (time.time() - t0)
-    print(f"throughput {toks:.0f} tokens/s", flush=True)
-    print(graph_line(model, dev), flush=True)
+    say(f"throughput {toks:.0f} tokens/s")
+    say(graph_line(model, dev))
+    if args.generate:
+        out = model.generate(ids[:1], max_new_tokens=args.generate,
+                             temperature=0)    # first row only
+        say("generated:", out[0, -args.generate:].tolist())
     return model
 
 

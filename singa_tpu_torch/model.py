@@ -57,6 +57,32 @@ shapes and dtypes; :meth:`load_states` cuts them onto the current mesh,
 of any data degree; :meth:`compile_serving` gathers the parameters once
 (serving stays replicated; a later train call shards them again). Over
 NCCL the gathers and scatters are captured with the step.
+
+Tensor and sequence parallelism (``singa_tpu/model.py:781-823, 82-123``):
+a ``DistOpt`` whose communicator has a mesh (``parallel.mesh.make_mesh``;
+or the process-wide one of ``communicator.set_mesh``, which the
+``DistOpt`` then takes) runs every train and eval call inside the mesh's
+axis context (``collective_context(*axes)``, ``batch_shard_axes``), so the
+tensor-parallel layers, the vocab-parallel CE head and ring/Ulysses
+attention reach their collectives. With a ``model`` axis above 1,
+:meth:`compile` leaves on each rank its slice of every parameter whose
+announced spec divides the axis (``Tensor.spec``; a
+``gspmd.ShardedLayout`` over the ``model`` group, the one slicing code
+ZeRO uses), and the optimizer states that mirror them follow.
+``get_states``/``save_states`` gather those shards (collective: every
+rank calls), so the archive has the dense model's names and shapes, and
+:func:`load_numpy_states` cuts full arrays to this rank's shard. With
+``input_specs`` (e.g. ``[P("data", "seq"), P("data", "seq")]``) every
+rank is called with the global batch and takes its block along each
+sharded dimension (the rank's coordinates on those axes); of the
+outputs, a floating one that leads with the batch comes back global
+(gathered per ``output_specs``, else along the batch axes) and every
+other (the loss) is averaged over the reduce axes. Without
+``input_specs`` the per-rank batches of a ``DistOpt`` stay as they are.
+The gradients are summed over the ``DistOpt``'s ``reduce_axes``
+(``("data", "seq")`` for sequence parallelism): a tensor-parallel shard's
+on its own, a parameter replicated over ``model`` alike on the model
+ranks through the f/g pairs.
 """
 
 from __future__ import annotations
@@ -82,8 +108,8 @@ STATES_ATTR_FILENAME = "states_attr.json"
 
 def load_numpy_states(model, states, strict=True):
     """Copy ``{state name: numpy array}`` into ``model``'s live state
-    tensors, each cast to the live tensor's dtype (a ZeRO/FSDP shard takes
-    this rank's slice). ``optimizer/<name>``
+    tensors, each cast to the live tensor's dtype (a ZeRO/FSDP or
+    tensor-parallel shard takes this rank's slice). ``optimizer/<name>``
     entries go to the model's optimizer (``set_states``; a guard takes its
     ``guard/`` and ``guard-shadow/`` ones) when it has one; ``aux/`` and
     ``quant-scale/`` entries are not model states and are skipped. With
@@ -111,7 +137,7 @@ def load_numpy_states(model, states, strict=True):
                 raise ValueError(f"state {k!r}: shape {arr.shape} does not "
                                  f"match the model's {tuple(want)}")
             if t.sharding:
-                arr = model._layout.local(arr, t.sharding[0])
+                arr = model._state_layout().local(arr, t.sharding[0])
             t.copy_from_numpy(arr)
             loaded.append(k)
     if strict:
@@ -150,7 +176,12 @@ class Model(Layer):
         self._fsdp_axis = None        # compile(fsdp_axis=)
         self._layout = None           # gspmd.ShardedLayout under FSDP
         self._mesh_step = None        # gspmd.MeshStep of the train step
+        self._tp_layout = None        # gspmd.ShardedLayout over 'model'
         self._step_count = 0          # train calls (time profiling)
+        # per-input layouts over the mesh (e.g. [P("data", "seq")] * 2)
+        self.input_specs = None
+        # per-output layouts; None derives them from the input specs
+        self.output_specs = None
 
     def forward(self, *args, **kwargs):
         raise NotImplementedError
@@ -246,6 +277,8 @@ class Model(Layer):
         if self._meshed() and optimizer is not None and \
                 self.dev is not None:
             self._mesh_step = self._build_mesh_step()
+        if self._tp_layout is not None and optimizer is not None:
+            self._tp_layout.adopt(optimizer, self._tp_layout.comm)
 
     def compile(self, inputs, is_train=True, use_graph=False,
                 sequential=False, policy=None, mesh=None, fsdp_axis=None):
@@ -296,6 +329,7 @@ class Model(Layer):
             t.name = t.name or name
         if self.optimizer is not None:
             self.optimizer.bind(self.dev)
+        self._shard_model_axis(mesh, fsdp_axis)
         dist = self._dist_opt()
         if fsdp_axis is True:
             fsdp_axis = "data"
@@ -330,8 +364,12 @@ class Model(Layer):
         CTX.training = False
         try:
             with torch.no_grad(), mp.policy_scope(self._policy), \
-                    self._gathered():
-                out = self.forward(*args, **kwargs)
+                    self._gathered(), self._mesh_scope():
+                local = self._local_inputs(args)
+                out = self.forward(*local, **kwargs)
+                if self.input_specs and self._axis_mesh() is not None:
+                    out = self._global_outputs(
+                        out, self._dist_opt().communicator, local)
         finally:
             CTX.training = prev
         return out if self._policy is None else self._cast_outputs(out)
@@ -410,12 +448,154 @@ class Model(Layer):
 
     def _unshard(self):
         """A sharded model's parameters and optimizer states back to full
-        tensors (collective); the next train call shards them again."""
+        tensors (collective); the next train call shards them again (a
+        tensor-parallel model: the next compile)."""
         if self._layout is not None:
             self._layout.unshard()
             self._layout = None
             self._mesh_step = None
             self.drop_graphs()
+        if self._tp_layout is not None:
+            self._tp_layout.unshard()
+            self._tp_layout = None
+            self.drop_graphs()
+
+    # -- tensor and sequence parallelism over a mesh ----------------------------
+    def _axis_mesh(self):
+        """The mesh the model's ``DistOpt`` trains over: its communicator's,
+        else the process-wide one (``communicator.set_mesh``), which the
+        communicator then takes, as the JAX package's step does; None
+        without a ``DistOpt`` or a mesh."""
+        from .parallel.communicator import process_mesh
+        dist = self._dist_opt()
+        if dist is None:
+            return None
+        if dist.communicator.mesh is None and process_mesh() is not None:
+            dist.communicator.mesh = process_mesh()
+        return dist.communicator.mesh
+
+    def _shard_model_axis(self, mesh=None, fsdp_axis=None):
+        """Under a mesh whose ``model`` axis is above 1, leave on this
+        rank its slice of every parameter whose announced spec divides the
+        axis, and make the optimizer's mirroring states follow."""
+        from .parallel import gspmd
+        from .parallel.communicator import Communicator
+        from .parallel.mesh import axis_sizes
+        axes = self._axis_mesh()
+        if axes is None or axis_sizes(axes)["model"] <= 1:
+            return
+        if mesh is not None or fsdp_axis is not None or \
+                self._dist_opt().zero:
+            raise NotImplementedError(
+                "a model axis above 1 under compile(mesh=/fsdp_axis=) or "
+                "DistOpt(zero=True): tensor parallelism with ZeRO/FSDP is "
+                "not ported yet (ROADMAP.md: gspmd.train_mesh(model>1))")
+        comm = Communicator(axis_name=gspmd.MODEL_AXIS, mesh=axes)
+        self._tp_layout = gspmd.ShardedLayout(
+            comm, axis_sizes(axes), gspmd.MODEL_AXIS,
+            by_spec=True).shard(self.get_params())
+        if self.optimizer is not None:
+            self._tp_layout.adopt(self.optimizer, comm)
+
+    def _state_layout(self):
+        """The layout whose shards the model's sharded states are."""
+        return self._layout or self._tp_layout
+
+    def _full_data(self, t):
+        """The full torch tensor of state ``t``: its data, or its shard
+        gathered (collective)."""
+        lay = self._state_layout()
+        return lay.full(t) if t.sharding and lay is not None else t.data
+
+    def _mesh_scope(self):
+        """The axis context of the model's mesh (every axis; the batch
+        axes from ``input_specs``), a no-op without one."""
+        import contextlib
+        from .parallel.communicator import (batch_shard_axes,
+                                            collective_context)
+        mesh = self._axis_mesh()
+        stack = contextlib.ExitStack()
+        if mesh is not None:
+            stack.enter_context(collective_context(
+                *mesh.mesh_dim_names, mesh=mesh))
+            stack.enter_context(batch_shard_axes(self._batch_axes()))
+        return stack
+
+    def _batch_axes(self):
+        spec = self.input_specs[0] if self.input_specs else None
+        if spec and spec[0] is not None:
+            return spec[0]
+        dist = self._dist_opt()
+        return dist.axis_name if dist is not None else "data"
+
+    def _axes_block(self, t, dim, axes, mesh):
+        """This rank's block of torch tensor ``t`` along ``dim`` sharded
+        over ``axes`` (a name or a tuple, row-major over the mesh)."""
+        from .parallel.gspmd import _local
+        from .parallel.mesh import axis_rank, axis_sizes
+        sizes = axis_sizes(mesh)
+        index, world = 0, 1
+        for a in (axes if isinstance(axes, tuple) else (axes,)):
+            index = index * sizes[a] + axis_rank(mesh, a)
+            world *= sizes[a]
+        if t.shape[dim] % world:
+            raise ValueError(
+                f"input dimension {dim} of {tuple(t.shape)} does not "
+                f"divide over the {world} ranks of {axes}")
+        return _local(t, dim, index, world)
+
+    def _local_inputs(self, args):
+        """Each Tensor argument cut to this rank's block per
+        ``input_specs`` (the arguments as they are without them)."""
+        mesh = self._axis_mesh()
+        if not self.input_specs or mesh is None:
+            return args
+        out, specs = [], list(self.input_specs)
+        for i, a in enumerate(args):
+            if isinstance(a, Tensor) and i < len(specs) and specs[i]:
+                data = a.data
+                for dim, axes in enumerate(specs[i]):
+                    if axes is not None:
+                        data = self._axes_block(data, dim, axes, mesh)
+                a = Tensor(data=data, device=a.device,
+                           requires_grad=a.requires_grad)
+            out.append(a)
+        return tuple(out)
+
+    def _global_outputs(self, out, comm, args):
+        """The JAX package's output layouts under ``input_specs``
+        (``_resolve_leaf_specs``): each floating Tensor leaf gathered along
+        its spec's sharded dimensions (``output_specs``, else the batch
+        axes for one that leads with the batch of the rank's ``args``),
+        the rest (the loss) averaged over the reduce axes."""
+        from .parallel import ops as collective
+        from .parallel.gspmd import P
+        batch = next((a.shape[0] for a in args
+                      if isinstance(a, Tensor) and a.ndim), None)
+        leaves, rebuild = _flatten_tensors(out)
+        specs = list(self.output_specs) if self.output_specs is not None \
+            else [P(self._batch_axes()) if t.ndim and t.shape[0] == batch
+                  else P() for t in leaves]
+        done = []
+        for t, spec in zip(leaves, specs):
+            if not t.data.is_floating_point():
+                done.append(t)
+                continue
+            data = t.data
+            if tuple(spec) == ():
+                if comm.effective_world_size() > 1:
+                    data = comm.all_reduce(data.clone()) / \
+                        comm.effective_world_size()
+            else:
+                for dim, axes in enumerate(spec):
+                    if axes is None:
+                        continue
+                    for a in reversed(axes if isinstance(axes, tuple)
+                                      else (axes,)):
+                        data = collective.gather(data, a, dim)
+            done.append(t if data is t.data else
+                        Tensor(data=data, device=t.device))
+        return rebuild(done)
 
     def _gathered(self):
         import contextlib
@@ -427,12 +607,14 @@ class Model(Layer):
         return super().get_states()
 
     def get_states(self):
-        """Every state Tensor by name. Under ZeRO/FSDP a sharded one comes
-        back as a new Tensor holding its full value (collective)."""
+        """Every state Tensor by name. Under ZeRO/FSDP or tensor
+        parallelism a sharded one comes back as a new Tensor holding its
+        full value (collective)."""
         states = self._live_states()
-        if self._layout is None:
+        lay = self._state_layout()
+        if lay is None:
             return states
-        return {k: self._layout.full_tensor(t) if t.sharding else t
+        return {k: lay.full_tensor(t) if t.sharding else t
                 for k, t in states.items()}
 
     def _state_tensors(self):
@@ -460,16 +642,20 @@ class Model(Layer):
             # sharded again after compile_serving gathered the model
             self._mesh_step = self._build_mesh_step()
         comm = self._step_communicator()
-        with mp.policy_scope(self._policy), collective_context(comm), \
-                step_scope(self._mesh_step), self._gathered():
-            out = self.train_one_batch(*args)
-        with torch.no_grad():
-            if self._policy is not None:
-                out = self._cast_outputs(out)
-            if comm is not None and comm.effective_world_size() > 1:
-                batch = next(a.shape[0] for a in args
-                             if isinstance(a, Tensor) and a.ndim)
-                out = self._mean_over_ranks(out, comm, batch)
+        with self._mesh_scope():
+            args = self._local_inputs(args)
+            with mp.policy_scope(self._policy), collective_context(comm), \
+                    step_scope(self._mesh_step), self._gathered():
+                out = self.train_one_batch(*args)
+            with torch.no_grad():
+                if self._policy is not None:
+                    out = self._cast_outputs(out)
+                if self.input_specs and self._axis_mesh() is not None:
+                    out = self._global_outputs(out, comm, args)
+                elif comm is not None and comm.effective_world_size() > 1:
+                    batch = next(a.shape[0] for a in args
+                                 if isinstance(a, Tensor) and a.ndim)
+                    out = self._mean_over_ranks(out, comm, batch)
         return out
 
     def _mean_over_ranks(self, out, comm, batch):
@@ -562,14 +748,15 @@ class Model(Layer):
             attr[f"aux/{k}"] = {"shape": list(arr.shape),
                                 "dtype": dtype_name(t.dtype) if t is not None
                                 else str(arr.dtype), "aux": True}
-        if self._layout is None or self._layout.rank == 0:
+        lay = self._state_layout()
+        if lay is None or _global_rank() == 0:
             buf = io.BytesIO()
             np.savez(buf, **arrays)
             with zipfile.ZipFile(fpath, "w") as zf:
                 zf.writestr(TENSOR_DICT_FILENAME, buf.getvalue())
                 zf.writestr(STATES_ATTR_FILENAME, json.dumps(attr))
-        if self._layout is not None:
-            self._layout.comm.barrier()
+        if lay is not None:
+            _barrier()
 
     def load_states(self, fpath):
         """Restore states, and the optimizer's states when the model has
@@ -589,3 +776,31 @@ class Model(Layer):
         load_numpy_states(self, arrays)
         return {k[len("aux/"):]: v for k, v in arrays.items()
                 if k.startswith("aux/")}
+
+
+def _global_rank():
+    from .parallel.communicator import initialized
+    return torch.distributed.get_rank() if initialized() else 0
+
+
+def _barrier():
+    from .parallel.communicator import initialized
+    if initialized():
+        torch.distributed.barrier()
+
+
+def _flatten_tensors(out):
+    """The Tensor leaves of ``out`` (a Tensor, or a tuple or list of
+    them and other values) and the function that puts leaves back."""
+    if isinstance(out, Tensor):
+        return [out], lambda leaves: leaves[0]
+    if isinstance(out, (tuple, list)):
+        idx = [i for i, o in enumerate(out) if isinstance(o, Tensor)]
+
+        def rebuild(leaves):
+            items = list(out)
+            for i, t in zip(idx, leaves):
+                items[i] = t
+            return type(out)(items)
+        return [out[i] for i in idx], rebuild
+    return [], lambda leaves: out

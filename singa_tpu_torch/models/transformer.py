@@ -1,28 +1,45 @@
 """Decoder-only Transformer LM: pre-norm GPT-style blocks over the
 hand-written flash-attention kernels K3/K4.
 
-Counterpart of ``singa_tpu/models/transformer.py:33-247`` on one device:
-``_Positions``, :class:`MultiHeadAttention` (three separate q/k/v
-projections, so the state names match), :class:`TransformerBlock` (dense
-GELU FFN), :class:`TransformerLM` (``forward``, ``train_one_batch`` with
-both loss paths, ``compute_dtype``) and :func:`create_model`. Every
-attention call goes through ``ops.attention.attention``: kernel K3 forward
-and K4 backward on the card.
+Counterpart of ``singa_tpu/models/transformer.py:33-487``: ``_Positions``,
+:class:`MultiHeadAttention` (three separate q/k/v projections, so the
+state names match), :class:`TransformerBlock` (dense GELU FFN),
+:class:`TransformerLM` (``forward``, ``train_one_batch`` with both loss
+paths, ``compute_dtype``, ``remat``, ``generate``) and
+:func:`create_model`. Every attention call goes through
+``ops.attention.attention``: kernel K3 forward and K4 backward on the
+card.
 
 ``train_one_batch(ids, targets)`` takes float tensors of token ids and
-target ids, both (B, S). The full-logits loss builds a (B*S, V) f32
-one-hot, as the JAX package does; ``fused_head_chunk`` trains through the
-chunked fused CE head (``ops/losses.py``), which never materialises the
-logits.
+target ids, both (B, S) ((B, S/n) per rank under sequence parallelism).
+The full-logits loss builds a (B*S, V) f32 one-hot, as the JAX package
+does; ``fused_head_chunk`` trains through the chunked fused CE head
+(``ops/losses.py``), which never materialises the logits.
+
+Parallelism follows the mesh the model trains over (``Model.compile``
+under a ``DistOpt`` whose communicator has a mesh): ``tp`` layers
+(``parallel/tensor_parallel.py``) hold their shard of each weight and run
+Megatron's collectives when the ``model`` axis is above 1, the vocab ends
+included (with ``fused_head_chunk`` the CE loss reduces across vocab
+shards online); ``seq_axis`` (``'seq'``) switches attention to ring or
+Ulysses sequence parallelism (``seq_mode``) and the positions to global
+ones, with the caller setting ``Model.input_specs = [P('data', 'seq'),
+...]``. ``remat`` rematerialises each block in the backward
+(``autograd.checkpoint``: K3 runs twice per block per step).
+
+:meth:`TransformerLM.generate` decodes with a static KV cache on one
+device, from the live weights (a sharded model's gathered): one causal
+prefill, then one token a step, attention as plain einsum/softmax as in
+the JAX package (``:405-433``), which runs no Pallas kernel there.
 
 Not ported yet, each raising ``NotImplementedError`` naming ROADMAP.md:
-``remat`` (rematerialised blocks), ``moe`` (expert-parallel FFN),
-``seq_axis`` (ring/Ulysses sequence parallelism), and ``generate`` /
-``decode_adapter`` (KV-cache decoding and LM serving). ``tp`` is accepted
-for parity: on one device the tensor-parallel layers are plain layers.
+``moe`` (the expert-parallel FFN) and ``decode_adapter`` (LM serving,
+slice D).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -39,11 +56,19 @@ def _not_ported(what):
 
 
 class _Positions:
-    """Float position ids ``arange(S)`` broadcast to the (B, S) ids."""
+    """Float global position ids of a (B, S) block of tokens: ``arange(S)``,
+    plus ``rank_on_seq * S`` under an active sequence-parallel axis."""
+
+    def __init__(self, seq_axis=None):
+        self.seq_axis = seq_axis
 
     def __call__(self, ids):
+        from ..parallel.communicator import active_axis, axis_index
         B, S = ids.shape[0], ids.shape[1]
-        pos = torch.arange(S, dtype=torch.float32,
+        off = 0
+        if self.seq_axis and active_axis(self.seq_axis):
+            off = axis_index(self.seq_axis) * S
+        pos = torch.arange(off, off + S, dtype=torch.float32,
                            device=ids.data.device)
         return Tensor(data=pos[None, :].expand(B, S), device=ids.device)
 
@@ -125,13 +150,8 @@ class TransformerLM(model.Model):
                  seq_mode="ring", fused_head_chunk=None,
                  compute_dtype=None):
         super().__init__()
-        if remat:
-            raise _not_ported("remat (rematerialised blocks)")
         if moe:
             raise _not_ported("moe (the expert-parallel FFN)")
-        if seq_axis is not None:
-            raise _not_ported(f"seq_axis={seq_axis!r} (ring and Ulysses "
-                              "sequence parallelism)")
         self.compute_dtype = compute_dtype
         self.vocab_size = vocab_size
         self.d_model = d_model
@@ -141,9 +161,10 @@ class TransformerLM(model.Model):
         self.fused_head_chunk = fused_head_chunk
         self.tok_emb = tp_mod.VocabParallelEmbedding(vocab_size, d_model)
         self.pos_emb = layer.Embedding(max_len, d_model)
-        self._pos = _Positions()
+        self._pos = _Positions(seq_axis)
         self.blocks = [TransformerBlock(d_model, n_heads, causal=causal,
-                                        tp=tp, seq_mode=seq_mode)
+                                        tp=tp, seq_axis=seq_axis,
+                                        seq_mode=seq_mode)
                        for _ in range(n_layers)]
         self.ln_f = layer.LayerNorm()
         self.head = tp_mod.ColumnParallelLinear(vocab_size,
@@ -156,7 +177,7 @@ class TransformerLM(model.Model):
         if self.compute_dtype is not None:
             x = autograd.astype(x, self.compute_dtype)
         for blk in self.blocks:
-            x = blk(x)
+            x = autograd.checkpoint(blk, x) if self.remat else blk(x)
         return self.ln_f(x)
 
     def forward(self, ids):
@@ -170,8 +191,12 @@ class TransformerLM(model.Model):
             h = self._hidden(ids)
             # parameters only, no forward of the head
             self.head.ensure_initialized(h)
+            # the layer's own sharded check turns the cross-shard
+            # reduction on
+            ax = self.head.axis_name if self.head._sharded() else None
             loss = fused_softmax_cross_entropy(
-                h, self.head.W, self.head.b, targets, self.fused_head_chunk)
+                h, self.head.W, self.head.b, targets, self.fused_head_chunk,
+                axis_name=ax)
             out = loss
         else:
             logits = self.forward(ids)
@@ -187,11 +212,151 @@ class TransformerLM(model.Model):
         self.optimizer(loss)
         return out, loss
 
-    def generate(self, *args, **kwargs):
-        raise _not_ported("generate (KV-cache decoding)")
+    def generate(self, ids, max_new_tokens, temperature=1.0, top_k=None,
+                 seed=0):
+        """Autoregressive decoding with a static KV cache
+        (``singa_tpu/models/transformer.py:329-482``): one causal prefill
+        of the prompt fills a (B, H, L, D) cache per layer, then each step
+        embeds one token and attends against the cache. ``ids``: a Tensor
+        or array (B, S0) of prompt ids. ``temperature=0`` is greedy argmax;
+        otherwise softmax sampling with optional ``top_k`` from a
+        ``torch.Generator`` seeded with ``seed``. Returns a numpy (B, S0 +
+        max_new_tokens) int32 array. Reads the live weights on every call
+        (a sharded model's are gathered: every rank calls it). Causal
+        models only; the prompt and the new tokens must fit ``max_len``."""
+        return _decode(self, ids, max_new_tokens, temperature, top_k, seed)
 
     def decode_adapter(self, *args, **kwargs):
         raise _not_ported("decode_adapter (LM serving, slice D)")
+
+
+def _decode_weights(m):
+    """The weights the decode needs, each the full tensor (a shard
+    gathered) in f32: the JAX package's decode promotes its f32
+    activations against bf16 weights, so upcasting the weights once is
+    the same arithmetic."""
+    def w(t):
+        return m._full_data(t).detach().float()
+
+    blocks = []
+    for blk in m.blocks:
+        at, mlp = blk.attn, blk.mlp
+        blocks.append(dict(
+            ln1_s=w(blk.ln1.scale), ln1_b=w(blk.ln1.bias),
+            wq=w(at.q_proj.W), bq=w(at.q_proj.b),
+            wk=w(at.k_proj.W), bk=w(at.k_proj.b),
+            wv=w(at.v_proj.W), bv=w(at.v_proj.b),
+            wo=w(at.proj.W), bo=w(at.proj.b),
+            ln2_s=w(blk.ln2.scale), ln2_b=w(blk.ln2.bias),
+            w_up=w(mlp.up.W), b_up=w(mlp.up.b),
+            w_dn=w(mlp.down.W), b_dn=w(mlp.down.b)))
+    return dict(tok=w(m.tok_emb.W), pos=w(m.pos_emb.W),
+                lnf_s=w(m.ln_f.scale), lnf_b=w(m.ln_f.bias),
+                head_w=w(m.head.W), head_b=w(m.head.b), blocks=blocks)
+
+
+def _ln(x, s, b, eps=1e-5):
+    mean = x.mean(-1, keepdim=True)
+    var = x.var(-1, unbiased=False, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps) * s + b
+
+
+def _split_heads(t, n_heads):
+    B, S, D = t.shape
+    return t.reshape(B, S, n_heads, D // n_heads).transpose(1, 2)
+
+
+def _merge_heads(t):
+    B, H, S, hd = t.shape
+    return t.transpose(1, 2).reshape(B, S, H * hd)
+
+
+@torch.no_grad()
+def _decode(m, ids, max_new_tokens, temperature=1.0, top_k=None, seed=0,
+            on_token=None):
+    """:meth:`TransformerLM.generate`'s tokens. ``on_token(logits)``,
+    when given, is called after each token is drawn with the (B, V)
+    logits it was drawn from (the prefill's first); nothing else keeps
+    them."""
+    from .decode import sample_logits_torch
+    if not m.blocks[0].attn.causal:
+        raise NotImplementedError(
+            "generate() requires a causal model; this TransformerLM was "
+            "built with causal=False")
+    arr = ids.data if isinstance(ids, Tensor) else torch.as_tensor(
+        np.asarray(ids))
+    prompt_np = np.asarray(arr.detach().cpu().numpy()
+                           if isinstance(arr, torch.Tensor) else arr
+                           ).astype(np.int32)
+    if max_new_tokens <= 0:
+        return prompt_np
+    P = _decode_weights(m)
+    dev = P["tok"].device
+    prompt = torch.as_tensor(prompt_np, dtype=torch.long, device=dev)
+    B, S0 = prompt.shape
+    n_heads = m.blocks[0].attn.n_heads
+    hd = m.d_model // n_heads
+    L = S0 + max_new_tokens
+    if L > P["pos"].shape[0]:
+        raise ValueError(f"prompt+new tokens ({L}) exceeds max_len "
+                         f"{P['pos'].shape[0]}")
+    scale = 1.0 / math.sqrt(hd)
+    gen = None
+    if temperature != 0:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+
+    def mlp(p, h2):
+        up = torch.nn.functional.gelu(h2 @ p["w_up"] + p["b_up"],
+                                      approximate="tanh")
+        return up @ p["w_dn"] + p["b_dn"]
+
+    def qkv(p, h):
+        return [_split_heads(h @ p[f"w{c}"] + p[f"b{c}"], n_heads)
+                for c in "qkv"]
+
+    def attend(p, x, q, kc, vc, mask):
+        s = torch.einsum("bhqd,bhkd->bhqk", q, kc) * scale
+        att = torch.softmax(torch.where(mask, s, float("-inf")), -1)
+        o = _merge_heads(torch.einsum("bhqk,bhkd->bhqd", att, vc))
+        x = x + (o @ p["wo"] + p["bo"])
+        return x + mlp(p, _ln(x, p["ln2_s"], p["ln2_b"]))
+
+    def logits_of(x):
+        hN = _ln(x, P["lnf_s"], P["lnf_b"])
+        return hN[:, -1] @ P["head_w"] + P["head_b"]
+
+    x = P["tok"][prompt] + P["pos"][torch.arange(S0, device=dev)][None]
+    causal = torch.ones(S0, S0, dtype=torch.bool, device=dev).tril()
+    caches = []
+    for p in P["blocks"]:
+        q, k, v = qkv(p, _ln(x, p["ln1_s"], p["ln1_b"]))
+        x = attend(p, x, q, k, v, causal)
+        kc = torch.zeros(B, n_heads, L, hd, device=dev)
+        vc = torch.zeros_like(kc)
+        kc[:, :, :S0] = k
+        vc[:, :, :S0] = v
+        caches.append((kc, vc))
+
+    def draw(x):
+        logits = logits_of(x)
+        tok = sample_logits_torch(logits, temperature, top_k, gen)
+        if on_token is not None:
+            on_token(logits)
+        return tok
+
+    toks = [draw(x)]
+    for pos in range(S0, L - 1):
+        x = P["tok"][toks[-1]][:, None] + P["pos"][pos][None, None]
+        valid = torch.arange(L, device=dev) <= pos
+        for p, (kc, vc) in zip(P["blocks"], caches):
+            q, k, v = qkv(p, _ln(x, p["ln1_s"], p["ln1_b"]))
+            kc[:, :, pos:pos + 1] = k
+            vc[:, :, pos:pos + 1] = v
+            x = attend(p, x, q, kc, vc, valid)
+        toks.append(draw(x))
+    new = torch.stack(toks, 1).to(torch.int32).cpu().numpy()
+    return np.concatenate([prompt_np, new], axis=1)
 
 
 def create_model(vocab_size=256, **kwargs):

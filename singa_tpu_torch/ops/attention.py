@@ -3,8 +3,26 @@
 Counterpart of ``singa_tpu/ops/attention.py``: the scan-path plain versions
 ``_block_scan_attention`` / ``_scan_flash_fwd`` / ``_scan_flash_bwd``
 (``:39-171``), :func:`flash_attention` with its custom gradient
-(``:589-631``), the ``_FlashAttention`` tape op (``:737-749``) and the
-functional :func:`attention` (``:808-835``).
+(``:589-631``), the ``_FlashAttention`` tape op (``:737-749``), ring
+attention (``:638-735``), Ulysses attention (``:752-805``) and the
+functional :func:`attention` with its sequence-parallel dispatch
+(``:808-835``).
+
+Sequence parallelism (``seq_axis``, an active axis of the mesh,
+``parallel.communicator.collective_context``): each rank holds the (B, H,
+S/n, D) block of its sequence slice. Ring attention rotates k and v one
+hop a step around the axis's ring (``parallel.ops.shift``, whose
+backward shifts the other way) and folds each visiting block into an
+online-softmax accumulator in f32: each hop's partial is
+:class:`_RingPartials`, whose forward is K3 with ``pos_delta = q_off -
+src * S_local`` (a hop entirely in the causal future comes out with lse
+-1e30 and out 0, and the merge gives it no weight) and whose backward
+recomputes through the plain block scan with that offset, as the JAX
+``custom_vjp`` does. Ulysses attention exchanges heads for sequence with
+one all-to-all, runs K3/K4 on the full sequence with H/n heads in the
+compute dtype, and a second all-to-all restores the sequence sharding;
+with H % n != 0 it warns once and falls back to ring. ``seq_axis`` with no
+active axis is plain flash attention, as in the JAX package.
 
 :func:`flash_attention` is a ``torch.autograd.Function``, as the JAX one is
 a ``jax.custom_vjp``: its forward runs :func:`flash_fwd` and saves ``(q, k,
@@ -54,6 +72,8 @@ USE_PLAIN = False
 
 # kernel launches, by kernel (only where a CUDA kernel runs)
 launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+# of the flash_fwd launches, those with a position delta (ring hops)
+pos_delta_launches = {"flash_fwd": 0}
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
@@ -61,8 +81,9 @@ MAX_HEAD_DIM = 256
 
 def reset_counts():
     """Zero the launch counters."""
-    for k in launches:
-        launches[k] = 0
+    for d in (launches, pos_delta_launches):
+        for k in d:
+            d[k] = 0
 
 
 # -- plain PyTorch versions ----------------------------------------------------
@@ -254,6 +275,8 @@ def flash_fwd(q, k, v, causal, scale, pos_delta=None, block_k=512):
           out.data_ptr(), lse.data_ptr(), B * H, Sq, k.shape[2], D,
           float(scale), int(bool(causal)), int(pos_delta is not None),
           int(pos_delta or 0)), q.device)
+    if pos_delta is not None:
+        pos_delta_launches["flash_fwd"] += 1
     return out, lse
 
 
@@ -363,17 +386,148 @@ class _FlashAttention:
                                            self.scale), device=q.device)
 
 
+# -- ring attention (sequence parallel over a mesh axis) -------------------------
+
+def _ring_partials_scan(qf, kr, vr, delta, causal, scale, block_k):
+    """Normalised block-attention partials through the plain scan:
+    ``(out / l, m + log l)`` with the queries at offset ``delta``
+    (``singa_tpu/ops/attention.py:638-647``)."""
+    po, pm, pl = _block_scan_attention(qf, kr, vr, causal, scale, block_k,
+                                       q_offset=delta)
+    lsafe = torch.clamp(pl, min=1e-30)
+    return po / lsafe[..., None], pm + torch.log(lsafe)
+
+
+class _RingPartials(torch.autograd.Function):
+    """One ring hop's normalised ``(out, lse)``: K3 with ``pos_delta``
+    forward (its plain version on the CPU); the backward recomputes
+    through :func:`_ring_partials_scan` at the same offset."""
+
+    @staticmethod
+    def forward(ctx, qf, kr, vr, delta, causal, scale, block_k):
+        ctx.save_for_backward(qf, kr, vr)
+        ctx.args = (delta, causal, scale, block_k)
+        return flash_fwd(qf, kr, vr, causal, scale, pos_delta=delta,
+                         block_k=block_k)
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
+        qf, kr, vr = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            o, lse = _ring_partials_scan(qf, kr, vr, *ctx.args)
+            dq, dk, dv = torch.autograd.grad(
+                (o, lse), (qf, kr, vr), (g_out, g_lse))
+        return dq, dk, dv, None, None, None, None
+
+
+def ring_attention(q, k, v, axis_name, causal=False, scale=None,
+                   block_k=512):
+    """Sequence-parallel attention over the active mesh axis
+    ``axis_name`` on torch tensors (B, H, S/n, D), this rank's sequence
+    slice: n hops, each folding the visiting k/v block into an f32
+    online-softmax accumulator at global positions, so the result equals
+    single-device attention. k and v move n - 1 times (the JAX package's
+    last rotation returns them home and feeds nothing)."""
+    from ..parallel import ops as collective
+    from ..parallel.communicator import axis_index, axis_size
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    n = axis_size(axis_name)
+    idx = axis_index(axis_name)
+    S_local = q.shape[2]
+    q_off = idx * S_local
+    qf = q.float()
+    kr, vr = k.float(), v.float()
+    out = m = l = None
+    for r in range(n):
+        src = (idx - r) % n
+        o_n, lse = _RingPartials.apply(qf, kr, vr, q_off - src * S_local,
+                                       bool(causal), float(scale),
+                                       int(block_k))
+        if out is None:
+            out, m, l = o_n, lse, torch.ones_like(lse)
+        else:
+            m_new = torch.maximum(m, lse)
+            a1 = torch.exp(m - m_new)
+            a2 = torch.exp(lse - m_new)
+            out = out * a1[..., None] + o_n * a2[..., None]
+            l = l * a1 + a2
+            m = m_new
+        if r + 1 < n:
+            kr = collective.ring_shift(kr, axis_name)
+            vr = collective.ring_shift(vr, axis_name)
+    return (out / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+
+
+def ulysses_attention(q, k, v, axis_name, causal=False, scale=None,
+                      block_k=512):
+    """All-to-all sequence parallelism on torch tensors (B, H, S/n, D):
+    one all-to-all re-shards the heads over the axis while gathering the
+    full sequence ((B, H/n, S, D)), :func:`flash_attention` (K3/K4) runs
+    on it with plain causal masking, and a second all-to-all restores
+    the sequence sharding. Needs H % n == 0."""
+    from ..parallel import ops as collective
+
+    def a2a(t, split, concat):
+        return collective.all_to_all(t, axis_name, split, concat)
+
+    qh, kh, vh = (a2a(t, 1, 2) for t in (q, k, v))
+    out = flash_attention(qh, kh, vh, causal=causal, scale=scale,
+                          block_k=block_k)
+    return a2a(out, 2, 1)
+
+
+class _RingAttention:
+    """Tape op over :func:`ring_attention`, in the compute dtype."""
+
+    def __init__(self, axis_name, causal=False, scale=None):
+        self.axis_name, self.causal, self.scale = axis_name, causal, scale
+
+    def __call__(self, q, k, v):
+        qa, ka, va = cast_compute(q.data, k.data, v.data)
+        return Tensor(data=ring_attention(qa, ka, va, self.axis_name,
+                                          self.causal, self.scale),
+                      device=q.device)
+
+
+class _UlyssesAttention(_RingAttention):
+    """Tape op over :func:`ulysses_attention`, in the compute dtype."""
+
+    def __call__(self, q, k, v):
+        qa, ka, va = cast_compute(q.data, k.data, v.data)
+        return Tensor(data=ulysses_attention(qa, ka, va, self.axis_name,
+                                             self.causal, self.scale),
+                      device=q.device)
+
+
+_DECLINE_LOGGED = set()
+
+
 def attention(q, k, v, causal=False, scale=None, seq_axis=None,
               seq_mode="ring"):
-    """Functional API over :class:`_FlashAttention`. Sequence-parallel
-    attention (``seq_axis``: ring or Ulysses over a mesh axis) needs a
-    device mesh, which the port does not have yet."""
+    """Functional API. With ``seq_axis`` an active sequence-parallel mesh
+    axis, ``seq_mode`` picks the strategy: ``'ring'`` (k/v rotate, O(S/n)
+    workspace) or ``'ulysses'`` (one all-to-all head re-shard each way,
+    the full sequence locally); Ulysses needs the local head count
+    divisible by the axis size and falls back to ring otherwise (one
+    warning). Otherwise plain flash attention (K3/K4)."""
+    from ..parallel.communicator import active_axis, axis_size
     if seq_mode not in ("ring", "ulysses", "alltoall", "all_to_all"):
         raise ValueError(f"unknown seq_mode {seq_mode!r} "
                          "(expected 'ring' or 'ulysses')")
-    if seq_axis is not None:
-        raise NotImplementedError(
-            f"sequence-parallel attention over {seq_axis!r} ({seq_mode}) "
-            "needs a device mesh and is not ported yet (ROADMAP.md: ring "
-            "and Ulysses attention)")
+    if seq_axis is not None and active_axis(seq_axis):
+        if seq_mode in ("ulysses", "alltoall", "all_to_all"):
+            n = axis_size(seq_axis)
+            H = q.shape[1]
+            if H % n == 0:
+                return _UlyssesAttention(seq_axis, causal, scale)(q, k, v)
+            sig = ("ulysses-fallback", H, n)
+            if sig not in _DECLINE_LOGGED:
+                _DECLINE_LOGGED.add(sig)
+                import warnings
+                warnings.warn(
+                    f"ulysses attention needs heads ({H}) divisible by "
+                    f"the '{seq_axis}' axis size ({n}); falling back to "
+                    "ring attention", stacklevel=2)
+        return _RingAttention(seq_axis, causal, scale)(q, k, v)
     return _FlashAttention(causal, scale)(q, k, v)

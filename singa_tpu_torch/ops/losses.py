@@ -10,14 +10,24 @@ weights), so they never reach the logsumexp. The loss is the mean over the
 N tokens.
 
 Plain PyTorch (``torch.matmul``): the JAX package computes it outside any
-Pallas kernel, in XLA. The vocab-parallel form (``axis_name``: the head's
-columns sharded over a mesh axis) is not ported yet (ROADMAP.md).
+Pallas kernel, in XLA.
+
+The vocab-parallel form (``axis_name``, with that mesh axis active and W,
+b this rank's column shard): ids stay global and a rank's vocab offset is
+its coordinate on the axis times its local V; each rank runs the chunked
+scan over its shard, then one ``pmax`` of m and one ``psum`` each of l
+(rescaled to the global max) and of the target logit (exactly one rank
+holds it) merge the ranks' online-softmax states, all O(N), never O(V).
+The backward ``psum``s dh (h is replicated over the axis; each rank made
+its slice's part); dW and db stay the rank's own.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..parallel import ops as collective
+from ..parallel.communicator import active_axis, axis_index
 from ..tensor import Tensor
 
 _NEG = -1e30
@@ -36,10 +46,18 @@ def _chunk(W, b, ci, chunk):
     return Wk, bk
 
 
-def _fwd(h, W, b, ids, chunk):
+def _offset(axis_name, W):
+    """(sharded?, this rank's first vocab column)."""
+    if not axis_name or not active_axis(axis_name):
+        return False, 0
+    return True, axis_index(axis_name) * W.shape[1]
+
+
+def _fwd(h, W, b, ids, chunk, axis_name=None):
     """(mean loss, lse) of the N rows of ``h`` (N, D) against ``ids``."""
+    sharded, offset = _offset(axis_name, W)
     hf, Wf, bf = h.float(), W.float(), b.float()
-    idi = ids.long()
+    idi = ids.long() - offset
     V = W.shape[1]
     n = (V + chunk - 1) // chunk
     N = hf.shape[0]
@@ -58,14 +76,20 @@ def _fwd(h, W, b, ids, chunk):
         got = torch.gather(logits, 1, loc.clamp(0, chunk - 1)[:, None])[:, 0]
         tgt = tgt + torch.where(hit, got, 0.0)
         m = m_new
+    if sharded:
+        m_all = collective.pmax(m, axis_name)
+        l = collective.psum(l * torch.exp(m - m_all), axis_name)
+        tgt = collective.psum(tgt, axis_name)
+        m = m_all
     lse = m + torch.log(torch.clamp(l, min=1e-30))
     return torch.mean(lse - tgt), lse
 
 
-def _bwd(h, W, b, ids, lse, g, chunk):
+def _bwd(h, W, b, ids, lse, g, chunk, axis_name=None):
     """(dh, dW, db) of the mean loss, in the inputs' dtypes."""
+    sharded, offset = _offset(axis_name, W)
     hf, Wf, bf = h.float(), W.float(), b.float()
-    idi = ids.long()
+    idi = ids.long() - offset
     D, V = W.shape
     n = (V + chunk - 1) // chunk
     N = hf.shape[0]
@@ -85,6 +109,8 @@ def _bwd(h, W, b, ids, lse, g, chunk):
         dh = dh + dlog @ Wk.T
         dWs.append(hf.T @ dlog)
         dbs.append(dlog.sum(0))
+    if sharded:
+        dh = collective.psum(dh, axis_name)
     dW = torch.cat(dWs, 1)[:, :V]
     db = torch.cat(dbs)[:V]
     return dh.to(h.dtype), dW.to(W.dtype), db.to(b.dtype)
@@ -94,37 +120,37 @@ class _FusedCE(torch.autograd.Function):
     """The custom gradient of :func:`fused_ce_head`; ids get none."""
 
     @staticmethod
-    def forward(ctx, h, W, b, ids, chunk):
-        loss, lse = _fwd(h, W, b, ids, chunk)
+    def forward(ctx, h, W, b, ids, chunk, axis_name):
+        loss, lse = _fwd(h, W, b, ids, chunk, axis_name)
         ctx.save_for_backward(h, W, b, ids, lse)
-        ctx.chunk = chunk
+        ctx.chunk, ctx.axis_name = chunk, axis_name
         return loss
 
     @staticmethod
     def backward(ctx, g):
         h, W, b, ids, lse = ctx.saved_tensors
-        dh, dW, db = _bwd(h, W, b, ids, lse, g, ctx.chunk)
-        return dh, dW, db, None, None
+        dh, dW, db = _bwd(h, W, b, ids, lse, g, ctx.chunk, ctx.axis_name)
+        return dh, dW, db, None, None, None
 
 
-def fused_ce_head(h, W, b, ids, chunk=8192):
+def fused_ce_head(h, W, b, ids, chunk=8192, axis_name=None):
     """Mean cross entropy of ``softmax(h @ W + b)`` against ``ids``, over
     torch tensors: h (N, D), W (D, V), b (V,), ids (N,) integer or
-    float-encoded. Peak memory is O(N chunk), not O(N V)."""
-    return _FusedCE.apply(h, W, b, ids.detach(), int(chunk))
+    float-encoded. Peak memory is O(N chunk), not O(N V). With
+    ``axis_name`` an active mesh axis, W and b are this rank's vocab
+    shard and ids stay global (module docstring)."""
+    return _FusedCE.apply(h, W, b, ids.detach(), int(chunk), axis_name)
 
 
 def fused_softmax_cross_entropy(hidden, W, b, ids, chunk=8192,
                                 axis_name=None):
     """Tensor API: ``hidden`` (..., D) and ``ids`` (...) are flattened to
-    tokens; returns the scalar mean loss. ``axis_name`` (the vocab-
-    parallel reduction over a mesh axis) is not ported yet."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            f"the vocab-parallel fused CE head over {axis_name!r} needs a "
-            "device mesh and is not ported yet (ROADMAP.md)")
+    tokens; returns the scalar mean loss. ``axis_name`` turns on the
+    vocab-parallel reduction when W's columns are sharded over that
+    active mesh axis."""
     h = hidden.data
     flat = h.reshape(-1, h.shape[-1])
     return Tensor(data=fused_ce_head(flat, W.data, b.data,
-                                     ids.data.reshape(-1), chunk),
+                                     ids.data.reshape(-1), chunk,
+                                     axis_name),
                   device=hidden.device)

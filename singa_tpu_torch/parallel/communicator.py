@@ -20,6 +20,18 @@ the caller asks for the CPU (or names it).
   inside it sync-BN (``ops/batchnorm.py``) averages its batch moments over
   the context's ranks through :meth:`Communicator.all_reduce_grad`, a sum
   whose backward sums the cotangents.
+- The mesh context (``singa_tpu/parallel/communicator.py:40-120``):
+  ``collective_context(*axis_names, mesh=...)`` marks the code within as
+  running over those axes of a ``DeviceMesh`` (``parallel.mesh``), as the
+  JAX package's marks a ``shard_map`` body; :func:`active_axis`,
+  :func:`axis_size`, :func:`axis_index` and :func:`axis_group` read it
+  (each axis is its process group, ``DeviceMesh.get_group``), and
+  :func:`batch_shard_axes` / :func:`active_batch_axes`, :func:`get_mesh`,
+  :func:`set_mesh` and :func:`partitioner` are the JAX package's. The
+  differentiable collectives over an axis are ``parallel/ops.py``'s.
+- ``Communicator(reduce_axes=("data", "seq"))`` sums over the ranks of
+  every reduce axis of its mesh (one process group spanning them), as the
+  JAX package's ``psum`` over an axis tuple does.
 - :func:`rescale_batch` and :func:`replica_fingerprint` are the JAX
   package's.
 """
@@ -34,8 +46,10 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["NcclIdHolder", "init_process", "Communicator",
-           "collective_context", "active_communicator", "rescale_batch",
-           "replica_fingerprint"]
+           "collective_context", "active_communicator", "active_axis",
+           "axis_size", "axis_index", "axis_group",
+           "batch_shard_axes", "active_batch_axes", "get_mesh", "set_mesh",
+           "partitioner", "rescale_batch", "replica_fingerprint"]
 
 
 # the tensor forms of all-gather and reduce-scatter (torch 2.13 renamed
@@ -48,6 +62,38 @@ _REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or \
 
 def initialized() -> bool:
     return dist.is_available() and dist.is_initialized()
+
+
+def gather_over(x, group, dim=0):
+    """The ranks' ``x`` of ``group`` concatenated along ``dim``, in rank
+    order: one all-gather into a new tensor. Along a ``dim`` other than 0
+    the pieces are gathered with that dimension moved to the front and
+    the result is moved back (a copy). What :meth:`Communicator.all_gather`
+    and ``parallel/ops.py``'s ``gather`` run."""
+    dim = dim % x.dim()
+    src = (x if dim == 0 else x.movedim(dim, 0)).contiguous()
+    out = src.new_empty((dist.get_world_size(group) * src.shape[0],)
+                        + tuple(src.shape[1:]))
+    _ALL_GATHER(out, src, group=group)
+    return out if dim == 0 else out.movedim(0, dim).contiguous()
+
+
+def scatter_sum_over(x, group, dim=0):
+    """This rank's slice along ``dim`` of the sum of ``group``'s ``x``
+    (the slices in rank order): one reduce-scatter into a new tensor; the
+    size along ``dim`` must divide by the group's ranks. What
+    :meth:`Communicator.reduce_scatter` and ``parallel/ops.py``'s
+    ``psum_scatter`` run."""
+    dim = dim % x.dim()
+    world = dist.get_world_size(group)
+    src = (x if dim == 0 else x.movedim(dim, 0)).contiguous()
+    if src.shape[0] % world:
+        raise ValueError(
+            f"reduce_scatter: dimension {dim} of {tuple(x.shape)} does not "
+            f"divide over {world} ranks")
+    out = src.new_empty((src.shape[0] // world,) + tuple(src.shape[1:]))
+    _REDUCE_SCATTER(out, src, group=group)
+    return out if dim == 0 else out.movedim(0, dim).contiguous()
 
 
 class NcclIdHolder:
@@ -146,13 +192,11 @@ class Communicator:
     def __init__(self, axis_name: str = "data", world_size=None,
                  mesh=None, reduce_axes=None):
         self.axis_name = axis_name
+        # the axes gradients are summed over: the data axis and any other
+        # batch-like one (sequence parallelism splits the tokens, so
+        # 'seq' joins the reduction)
         self.reduce_axes = tuple(reduce_axes) if reduce_axes is not None \
             else (axis_name,)
-        if self.reduce_axes != (axis_name,):
-            raise NotImplementedError(
-                f"reduce_axes {self.reduce_axes}: only the {axis_name!r} "
-                "axis is ported; gradients summed over sequence- or "
-                "expert-sharded axes are not (ROADMAP.md: slice C2)")
         self.mesh = mesh
         self.local_rank = int(os.environ.get("LOCAL_RANK", 0))
         if world_size is not None and \
@@ -178,25 +222,48 @@ class Communicator:
     def global_rank(self) -> int:
         return dist.get_rank() if initialized() else 0
 
+    def _reduce_axes(self, exclude=()):
+        return tuple(a for a in self.reduce_axes if a not in exclude)
+
+    def _group_of(self, axes):
+        """The process group over ``axes`` of the mesh (None: the default
+        group, without a mesh)."""
+        if self.mesh is None:
+            return None
+        if axes == (self.axis_name,):
+            return self.mesh.get_group(self.axis_name)
+        from .mesh import axes_group
+        return axes_group(self.mesh, axes)
+
     @property
     def group(self):
-        return self.mesh.get_group(self.axis_name) \
-            if self.mesh is not None else None
+        """The process group gradients are summed over: the reduce axes'
+        ranks of the mesh (the data axis's by default), the default group
+        without a mesh."""
+        return self._group_of(self.reduce_axes)
+
+    @property
+    def axis_group(self):
+        """The process group of the data axis alone (gathers, scatters,
+        broadcasts and the rank)."""
+        return self._group_of((self.axis_name,))
 
     def active(self, exclude=()) -> bool:
         """Whether collectives run: a process group is initialised and
-        the data axis is not excluded."""
-        return initialized() and self.axis_name not in exclude
+        some reduce axis is not excluded."""
+        return initialized() and bool(self._reduce_axes(exclude))
 
     @property
     def backend(self):
         return dist.get_backend(self.group) if initialized() else None
 
     def effective_world_size(self, exclude=()) -> int:
-        """Ranks taking part in a collective: the group's size, 1 outside
-        a process group."""
-        return dist.get_world_size(self.group) if self.active(exclude) \
-            else 1
+        """Ranks taking part in a gradient sum: the size of the group of
+        the reduce axes not in ``exclude``, 1 outside a process group."""
+        if not self.active(exclude):
+            return 1
+        return dist.get_world_size(self._group_of(
+            self._reduce_axes(exclude)))
 
     def _count(self, kind, work=None, async_op=False):
         self.counts[kind] += 1
@@ -207,8 +274,12 @@ class Communicator:
     def all_reduce(self, arr, exclude=(), async_op=False):
         """Sum ``arr`` over the ranks, in place; returns ``arr``."""
         if self.active(exclude):
+            axes = self._reduce_axes(exclude)
+            group = self._group_of(axes)
+            if axes != (self.axis_name,) and dist.get_world_size(group) == 1:
+                return arr      # reduce axes of one rank: a sum of one
             self._count("all_reduce", dist.all_reduce(
-                arr, group=self.group, async_op=async_op), async_op)
+                arr, group=group, async_op=async_op), async_op)
         return arr
 
     def all_reduce_grad(self, arr):
@@ -225,12 +296,9 @@ class Communicator:
         axis moved to the front, and the result is moved back (a copy)."""
         if not self.active():
             return arr
-        src = (arr if axis == 0 else arr.movedim(axis, 0)).contiguous()
-        out = src.new_empty((self.effective_world_size() * src.shape[0],)
-                            + tuple(src.shape[1:]))
-        _ALL_GATHER(out, src, group=self.group)
+        out = gather_over(arr, self.axis_group, axis)
         self._count("all_gather")
-        return out if axis == 0 else out.movedim(0, axis).contiguous()
+        return out
 
     def reduce_scatter(self, arr, axis=0):
         """This rank's slice along ``axis`` of the sum of the ranks' ``arr``
@@ -240,32 +308,26 @@ class Communicator:
         the sum is taken with that axis moved to the front (a copy)."""
         if not self.active():
             return arr
-        world = self.effective_world_size()
-        src = (arr if axis == 0 else arr.movedim(axis, 0)).contiguous()
-        if src.shape[0] % world:
-            raise ValueError(
-                f"reduce_scatter: dimension {axis} of {tuple(arr.shape)} "
-                f"does not divide over {world} ranks")
-        out = src.new_empty((src.shape[0] // world,)
-                            + tuple(src.shape[1:]))
-        _REDUCE_SCATTER(out, src, group=self.group)
+        out = scatter_sum_over(arr, self.axis_group, axis)
         self._count("reduce_scatter")
-        return out if axis == 0 else out.movedim(0, axis).contiguous()
+        return out
 
     def broadcast(self, arr, root=0):
         """``arr`` of rank ``root`` on every rank, in place."""
         if self.active():
-            dist.broadcast(arr, src=root, group=self.group)
+            group = self.axis_group
+            dist.broadcast(arr, src=root if group is None else
+                           dist.get_global_rank(group, root), group=group)
             self._count("broadcast")
         return arr
 
     def barrier(self):
         """Wait for every rank of the group (no collective is counted)."""
         if self.active():
-            dist.barrier(group=self.group)
+            dist.barrier(group=self.axis_group)
 
     def rank(self) -> int:
-        return dist.get_rank(self.group) if self.active() else 0
+        return dist.get_rank(self.axis_group) if self.active() else 0
 
     def wait(self):
         """Join every collective started with ``async_op=True``: the
@@ -276,13 +338,32 @@ class Communicator:
 
 
 _ACTIVE: list = []
+# (mesh, axis names) of each enclosing axis context, innermost last
+_ACTIVE_AXES: list = []
+# the axes sharding the batch dimension, per enclosing step
+_BATCH_SHARD_AXES: list = []
+_global_mesh = None
 
 
 @contextlib.contextmanager
-def collective_context(communicator):
-    """Marks the code within as one rank's share of a data-parallel step
-    over ``communicator`` (``Model``'s train step under a ``DistOpt``);
-    ``None`` is a no-op."""
+def collective_context(*args, mesh=None):
+    """Two forms. ``collective_context(communicator)`` marks the code
+    within as one rank's share of a data-parallel step over
+    ``communicator`` (``Model``'s train step under a ``DistOpt``);
+    ``None`` is a no-op. ``collective_context(*axis_names, mesh=None)``
+    marks it as running over those axes of ``mesh`` (default: the
+    process-wide mesh of :func:`set_mesh`), as the JAX package's marks a
+    ``shard_map`` body: inside, the collectives of ``parallel/ops.py``
+    over an axis of the mesh run, and outside they are the identity."""
+    if args and isinstance(args[0], str):
+        m = mesh if mesh is not None else _global_mesh
+        _ACTIVE_AXES.append((m, tuple(args)))
+        try:
+            yield
+        finally:
+            _ACTIVE_AXES.pop()
+        return
+    communicator = args[0] if args else None
     if communicator is None:
         yield
         return
@@ -297,6 +378,95 @@ def active_communicator():
     """The innermost :func:`collective_context`'s communicator, or
     None."""
     return _ACTIVE[-1] if _ACTIVE else None
+
+
+def _frame(axis_name):
+    for m, axes in reversed(_ACTIVE_AXES):
+        if axis_name in axes:
+            if m is not None and axis_name in (m.mesh_dim_names or ()):
+                return m
+            return None
+    return None
+
+
+def active_axis(axis_name: str) -> bool:
+    """Whether ``axis_name`` is an axis of the mesh of an enclosing axis
+    context (:func:`collective_context` with axis names)."""
+    return _frame(axis_name) is not None
+
+
+def axis_size(axis_name: str) -> int:
+    """The degree of an active axis; 1 for one that is not active."""
+    m = _frame(axis_name)
+    if m is None:
+        return 1
+    return int(dict(zip(m.mesh_dim_names, m.mesh.shape))[axis_name])
+
+
+def axis_index(axis_name: str) -> int:
+    """This rank's coordinate on an active axis (``lax.axis_index``); 0
+    on one that is not active."""
+    from .mesh import axis_rank
+    return axis_rank(_frame(axis_name), axis_name)
+
+
+def axis_group(axis_name: str):
+    """The process group of an active axis: this rank and those that
+    differ from it only along the axis."""
+    m = _frame(axis_name)
+    if m is None:
+        raise RuntimeError(f"mesh axis {axis_name!r} is not active")
+    return m.get_group(axis_name)
+
+
+@contextlib.contextmanager
+def batch_shard_axes(axes):
+    """Declare the mesh axes sharding the batch dimension for the code
+    within (``Model``'s step enters it from its input specs)."""
+    axes = tuple(axes) if isinstance(axes, (tuple, list)) else (axes,)
+    _BATCH_SHARD_AXES.append(axes)
+    try:
+        yield
+    finally:
+        _BATCH_SHARD_AXES.pop()
+
+
+def active_batch_axes() -> tuple:
+    """The axes cross-replica batch statistics reduce over: the declared
+    batch-shard axes (default ``data``) that are active."""
+    axes = _BATCH_SHARD_AXES[-1] if _BATCH_SHARD_AXES else ("data",)
+    return tuple(a for a in axes if a is not None and active_axis(a))
+
+
+def get_mesh(config=None):
+    """The process-wide mesh: the one :func:`set_mesh` gave, else (and
+    whenever ``config`` is given) one made by ``parallel.mesh.make_mesh``
+    over every rank of the process group."""
+    global _global_mesh
+    if _global_mesh is None or config is not None:
+        from .mesh import make_mesh
+        _global_mesh = make_mesh(config=config)
+    return _global_mesh
+
+
+def set_mesh(mesh):
+    """Make ``mesh`` (a ``DeviceMesh``, or None) the process-wide mesh."""
+    global _global_mesh
+    _global_mesh = mesh
+
+
+def process_mesh():
+    """The mesh :func:`set_mesh` gave, or None (never makes one)."""
+    return _global_mesh
+
+
+def partitioner(mesh=None, batch_axis="data", model_axis="model"):
+    """The JAX package's shim onto ``gspmd.Partitioner``: its serving
+    partitioner, which the port has not yet (``gspmd.Partitioner``
+    raises, naming ROADMAP.md: slice D)."""
+    from .gspmd import Partitioner
+    return Partitioner(mesh if mesh is not None else get_mesh(),
+                       batch_axis=batch_axis, model_axis=model_axis)
 
 
 def rescale_batch(manifest, new_world):

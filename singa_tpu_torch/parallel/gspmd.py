@@ -38,8 +38,12 @@ dimension the degree divides stay replicated and are averaged as under a
 and a guard's scalars and shadows stay replicated too: sync-BN gives every
 rank the same values, and they are a small share of the bytes.
 
-Not ported: the tensor- and expert-sharded axes (``model`` > 1 and
-``reduce_axes`` beyond ``data``, ROADMAP.md slice C2), pipeline stages
+The tensor-parallel layout of ``Model`` under a ``model`` axis above 1 is a
+:class:`ShardedLayout` too (``by_spec``: the parameters' announced specs
+choose the dimension), so both share one slicing code.
+
+Not ported: a train mesh with ``model`` > 1 (tensor parallelism with
+ZeRO/FSDP, ROADMAP.md slice C2), the expert axis, pipeline stages
 (``stage`` > 1, slice E), and the serving half of the module (the
 serving mesh, partitioner and rule tables, slice D); each raises naming
 ROADMAP.md.
@@ -330,9 +334,13 @@ def _local(full, dim, rank, world):
 
 class ShardedLayout:
     """The ZeRO/FSDP layout of one model over the ``axis`` ranks of
-    ``comm`` (module docstring). ``sizes`` is the mesh's axis table."""
+    ``comm`` (module docstring). ``sizes`` is the mesh's axis table.
+    ``by_spec`` makes it the tensor-parallel layout instead: a parameter
+    is sharded along the dimension its announced ``Tensor.spec`` gives
+    ``axis`` (mesh-fitted by :func:`fit_state_spec`), and never gathered
+    for a step (``Model`` keeps it over the ``model`` axis)."""
 
-    def __init__(self, comm, sizes, axis=DATA_AXIS):
+    def __init__(self, comm, sizes, axis=DATA_AXIS, by_spec=False):
         _check_axis(sizes, axis)
         if axis != comm.axis_name:
             raise NotImplementedError(
@@ -342,6 +350,7 @@ class ShardedLayout:
         self.comm = comm
         self.sizes = sizes
         self.axis = axis
+        self.by_spec = by_spec
         self.world = comm.effective_world_size()
         self.rank = comm.rank()
         self.dims = {}          # parameter name -> its sharded dimension
@@ -384,8 +393,14 @@ class ShardedLayout:
         """Shard each parameter of ``{name: Tensor}`` that the layout's rule
         shards (:func:`fsdp_dim`); returns self."""
         for name, t in named_params.items():
-            # the port's parameters announce no tensor-parallel spec yet
-            dim = fsdp_dim(None, tuple(t.shape), self.sizes, self.axis)
+            if self.by_spec:
+                spec = fit_state_spec(t.spec, tuple(t.shape), self.sizes)
+                dim = list(spec).index(self.axis) \
+                    if self.axis in spec else None
+            else:
+                # ZeRO/FSDP as before the layers announced specs: the
+                # first dimension the degree divides
+                dim = fsdp_dim(None, tuple(t.shape), self.sizes, self.axis)
             if dim is None:
                 continue
             self.dims[name] = dim

@@ -1,16 +1,21 @@
-"""The device mesh of data-parallel training.
+"""The device mesh of parallel training.
 
 Counterpart of ``singa_tpu/parallel/mesh.py:18-93``. :class:`MeshConfig`
 and its :meth:`~MeshConfig.degrees` are the JAX package's own (one axis
-table: ``data``, ``expert``, ``seq``, ``pipe``, ``model``). The port runs
-the ``data`` axis only: :func:`make_mesh` builds a
-``torch.distributed.device_mesh.DeviceMesh`` over the ranks of the
-initialised process group (``parallel.communicator.init_process``), and a
-``model``, ``pipe``, ``seq`` or ``expert`` degree above 1 raises
-(ROADMAP.md, slice C2). :func:`axis_sizes` reads a mesh as the JAX
-package's axis table, the unported axes at degree 1, as the JAX package
-keeps them; ``parallel.gspmd.train_mesh`` builds its mesh through
-:func:`make_mesh`.
+table: ``data``, ``expert``, ``seq``, ``pipe``, ``model``).
+:func:`make_mesh` builds a ``torch.distributed.device_mesh.DeviceMesh``
+over the ranks of the initialised process group
+(``parallel.communicator.init_process``) with the ``data`` axis and every
+other axis whose degree is above 1, in the JAX package's axis order and
+rank layout (row-major, ``model`` innermost: rank r holds the shard that
+JAX device r holds, so weights carry across shard for shard). The
+``data``, ``seq`` and ``model`` axes run; an ``expert`` or ``pipe`` degree
+above 1 raises (ROADMAP.md: MoE and pipeline stages). :func:`axis_sizes`
+reads a mesh as the JAX package's axis table, the absent axes at degree
+1, as the JAX package keeps them; :func:`axis_rank` is a rank's
+coordinate on an axis and :func:`axes_group` the process group of the
+ranks that differ only along some axes. ``parallel.gspmd.train_mesh``
+builds its mesh through :func:`make_mesh`.
 """
 
 from __future__ import annotations
@@ -20,7 +25,8 @@ from dataclasses import dataclass
 
 import torch.distributed as dist
 
-__all__ = ["MeshConfig", "make_mesh", "elastic_mesh", "axis_sizes"]
+__all__ = ["MeshConfig", "make_mesh", "elastic_mesh", "axis_sizes",
+           "axis_rank", "axes_group"]
 
 
 @dataclass
@@ -63,21 +69,26 @@ def _world():
 
 
 def make_mesh(device_type=None, config: MeshConfig | None = None):
-    """A one-axis ``DeviceMesh`` named ``data`` over every rank of the
-    process group. ``device_type`` defaults to ``"cuda"`` under NCCL and
-    ``"cpu"`` otherwise."""
+    """A ``DeviceMesh`` over every rank of the process group: the
+    ``data`` axis and each other axis of degree above 1, in
+    :attr:`MeshConfig.axis_order` (a data-only config gives the one-axis
+    mesh named ``data``). ``device_type`` defaults to ``"cuda"`` under
+    NCCL and ``"cpu"`` otherwise. An ``expert`` or ``pipe`` degree above
+    1 raises."""
     from torch.distributed.device_mesh import init_device_mesh
-    deg = (config or MeshConfig()).degrees(_world())
-    sharded = {a: n for a, n in deg.items() if a != "data" and n > 1}
-    if sharded:
+    cfg = config or MeshConfig()
+    deg = cfg.degrees(_world())
+    unported = {a: deg[a] for a in ("expert", "pipe") if deg[a] > 1}
+    if unported:
         raise NotImplementedError(
-            f"mesh axes {sharded}: only the data axis is ported; tensor, "
-            "pipeline, sequence and expert parallelism are not (ROADMAP.md:"
-            " slice C2)")
+            f"mesh axes {unported}: the data, seq and model axes are "
+            "ported; expert parallelism (parallel/moe.py, slice C2) and "
+            "pipeline stages (slice E) are not (ROADMAP.md)")
+    names = tuple(a for a in cfg.axis_order if a == "data" or deg[a] > 1)
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return init_device_mesh(device_type, (deg["data"],),
-                            mesh_dim_names=("data",))
+    return init_device_mesh(device_type, tuple(deg[a] for a in names),
+                            mesh_dim_names=names)
 
 
 def elastic_mesh(device_type=None, config: MeshConfig | None = None,
@@ -106,3 +117,37 @@ def axis_sizes(mesh) -> dict:
     table = dict.fromkeys(MeshConfig.axis_order, 1)
     table.update({k: int(v) for k, v in named.items()})
     return table
+
+
+def axis_rank(mesh, axis) -> int:
+    """This rank's coordinate on ``axis`` of ``mesh`` (0 on an axis the
+    mesh lacks, or with no mesh)."""
+    if mesh is None or axis not in (mesh.mesh_dim_names or ()):
+        return 0
+    return int(mesh.get_local_rank(axis))
+
+
+def axes_group(mesh, axes):
+    """The process group of this rank and the ranks that differ from it
+    only along ``axes`` (names of ``mesh``; absent or degree-1 axes are
+    dropped), ordered row-major over those axes as the JAX package's
+    collectives over an axis tuple are. One axis is ``mesh.get_group``;
+    several are made once per mesh, by every rank in the same order
+    (``torch.distributed.new_subgroups_by_enumeration``); none is the
+    first axis's group of one rank."""
+    names = tuple(mesh.mesh_dim_names)
+    sizes = dict(zip(names, mesh.mesh.shape))
+    live = tuple(a for a in names if a in axes and sizes[a] > 1)
+    if len(live) <= 1:
+        return mesh.get_group(live[0] if live else names[0])
+    cache = mesh.__dict__.setdefault("_singa_axes_groups", {})
+    if live not in cache:
+        ranks = mesh.mesh
+        keep = [names.index(a) for a in live]
+        rest = [i for i in range(len(names)) if i not in keep]
+        n = 1
+        for a in live:
+            n *= int(sizes[a])
+        rows = ranks.permute(*rest, *keep).reshape(-1, n).tolist()
+        cache[live] = dist.new_subgroups_by_enumeration(rows)[0]
+    return cache[live]

@@ -137,8 +137,11 @@ class Tensor:
         self.stores_grad = stores_grad
         self.name = name
         self.grad = None
-        # (dim, full shape) of a ZeRO/FSDP shard (parallel.gspmd)
+        # (dim, full shape) of a shard (parallel.gspmd: ZeRO/FSDP, or the
+        # tensor-parallel layout its spec announces)
         self.sharding = None
+        # the layout a tensor-parallel layer announces (a PartitionSpec)
+        self.spec = None
 
     @classmethod
     def lazy(cls, thunk, shape, dtype, device):
@@ -159,6 +162,7 @@ class Tensor:
         t.name = None
         t.grad = None
         t.sharding = None
+        t.spec = None
         return t
 
     @property
@@ -447,6 +451,7 @@ def _wrap(arr, like) -> Tensor:
     t.name = None
     t.grad = None
     t.sharding = None
+    t.spec = None
     return t
 
 

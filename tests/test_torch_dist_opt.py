@@ -205,7 +205,10 @@ def test_communicator_primitives_and_mesh(ranked):
         assert int(o["mesh/size"]) == WORLD
         np.testing.assert_array_equal(o["mesh/all_reduce"],
                                       np.full(2, WORLD))
-        assert "slice C2" in str(o["mesh/model_refused"])
+        # the model axis is ported; the expert axis waits for MoE
+        assert o["mesh/model"].tolist() == [str(("data", "model")),
+                                            str((1, WORLD))]
+        assert "ROADMAP" in str(o["mesh/expert_refused"])
         assert not bool(o["fingerprint/differs"])
         # DistOpt's world is the group's; a world that disagrees raises
         np.testing.assert_array_equal(o["comm/dist_world"], [WORLD, r])
@@ -230,10 +233,17 @@ def test_outside_a_process_group_the_communicator_is_the_identity():
 
 
 def test_what_is_not_ported_names_the_roadmap():
-    # ZeRO/FSDP is ported (tests/test_torch_gspmd_train.py)
+    """Ported since: ZeRO/FSDP (``tests/test_torch_gspmd_train.py``) and
+    ``reduce_axes`` beyond ``data`` (the LM over a ``seq`` axis,
+    ``tests/test_torch_lm_sp.py``): here the JAX package's communicator of
+    the same axes, outside any mesh a world of one in both."""
     assert topt.DistOpt(topt.SGD(), zero=True).zero
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        topt.DistOpt(topt.SGD(), reduce_axes=("data", "seq"))
+    axes = ("data", "expert", "seq")
+    d = topt.DistOpt(topt.SGD(), reduce_axes=axes)
+    jd = jopt.DistOpt(jopt.SGD(), reduce_axes=axes)
+    assert d.communicator.reduce_axes == jd.communicator.reduce_axes == axes
+    assert d.communicator.effective_world_size() == \
+        jd.communicator.effective_world_size() == 1
     with pytest.raises(ValueError):
         topt.DistOpt(topt.SGD(), bucket_mb=-1)
     with pytest.raises(ValueError, match="float16"):

@@ -214,11 +214,26 @@ def test_the_k4_wrappers_take_only_cuda_tensors():
 
 
 def test_attention_refuses_sequence_parallelism():
+    """Sequence-parallel attention is ported (ring and Ulysses over an
+    active mesh axis: ``tests/test_torch_mesh_ops.py``). With no active
+    axis ``seq_axis`` is plain flash attention, as in the JAX package
+    (``attention`` outside ``shard_map``): both modes equal the JAX
+    package's call within the f32 bound; an unknown ``seq_mode`` is
+    still refused."""
     dev = tdevice.create_cpu_device()
-    t = Tensor(data=np.zeros((1, 2, 8, 4), np.float32), device=dev)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TA.attention(t, t, t, causal=True, seq_axis="seq")
+    rng = np.random.RandomState(5)
+    arrays = [rng.randn(1, 2, 8, 4).astype(np.float32) for _ in range(3)]
+    ts = [Tensor(data=a, device=dev) for a in arrays]
+    from singa_tpu import device as jdevice
+    from singa_tpu import tensor as jtensor
+    jdev = jdevice.create_cpu_device()
+    js = [jtensor.Tensor(data=a, device=jdev, requires_grad=False)
+          for a in arrays]
+    for mode in ("ring", "ulysses"):
+        got = TA.attention(*ts, causal=True, seq_axis="seq", seq_mode=mode)
+        want = JA.attention(*js, causal=True, seq_axis="seq", seq_mode=mode)
+        _close(got.data, want.data, "float32", mode)
     with pytest.raises(ValueError, match="seq_mode"):
-        TA.attention(t, t, t, seq_mode="spiral")
-    out = TA.attention(t, t, t, causal=True)
+        TA.attention(ts[0], ts[1], ts[2], seq_mode="spiral")
+    out = TA.attention(*ts, causal=True)
     assert out.shape == (1, 2, 8, 4)

@@ -50,13 +50,12 @@ BF16_RTOL = 1e-2
 
 # public functions of singa_tpu.autograd the port does not have yet
 EXCLUDED = {
-    "checkpoint": "remat (ROADMAP.md: slice C2)",
     "rnn_op": "ops/rnn.py (ROADMAP.md: slice E, with char_rnn)",
 }
-# held by a test of their own below
+# held by a test of their own below (checkpoint: tests/test_torch_remat.py)
 DEDICATED = {"backward", "gradients", "infer_dependency", "is_training",
              "set_training", "axis_helper", "back_broadcast",
-             "ctensor2numpy"}
+             "ctensor2numpy", "checkpoint"}
 
 
 class _Pkg:

@@ -43,6 +43,30 @@ GSPMD_RUNS = ("dist", "mesh_dist", "mesh_plain", "zero", "fsdp_plain")
 GSPMD_STEPS = 3
 DROP_STEPS = 3
 DROP_SEED = 5         # every rank's device generator (the dropout masks)
+# the Transformer LM on a mesh: tests/test_transformer.py's shapes
+LM_KW = dict(d_model=32, n_heads=2, n_layers=2, max_len=64)
+LM_STEPS = 8
+# name -> the mesh (MeshConfig degrees) and the model's settings; the
+# tp_sp mesh takes four ranks, the others two, and rematerialises its
+# blocks (the recompute replays the ring's sends and the TP all-reduces)
+LM_RUNS = {
+    "tp": dict(model=2, vocab=31),
+    "sp_ring": dict(seq=2, vocab=31, seq_axis="seq", seq_mode="ring"),
+    "sp_ulysses": dict(seq=2, vocab=31, seq_axis="seq", seq_mode="ulysses"),
+    "tp_v32": dict(model=2, vocab=32),
+    "tp_v32_fused": dict(model=2, vocab=32, fused_head_chunk=8),
+    "tp_sp": dict(model=2, seq=2, vocab=31, seq_axis="seq",
+                  seq_mode="ring", remat=True),
+}
+# the mesh whose rank layout is read, by world
+MESH_LAYOUTS = {2: dict(model=2), 4: dict(seq=2, model=2)}
+# the collectives of parallel/ops.py: name -> (op, its arguments)
+MESH_OPS = {"all_reduce": ("AllReduce", ()),
+            "copy_to_parallel": ("CopyToParallel", ()),
+            "all_gather": ("AllGather", (-1,)),
+            "reduce_scatter": ("ReduceScatter", (-1,)),
+            "pmean": ("PMean", ()),
+            "all_to_all": ("AllToAll", (0, 1))}
 
 
 def free_port():
@@ -360,11 +384,14 @@ def case_dist_opt(rank, world, dev, inputs):
     out["mesh/size"] = np.asarray(mesh.size())
     out["mesh/all_reduce"] = C.Communicator(mesh=mesh).all_reduce(
         torch.ones(2)).numpy()
+    tp_mesh = M.make_mesh(config=M.MeshConfig(model=world))
+    out["mesh/model"] = np.asarray([str(tp_mesh.mesh_dim_names),
+                                    str(tuple(tp_mesh.mesh.shape))])
     try:
-        M.make_mesh(config=M.MeshConfig(model=2))
-        out["mesh/model_refused"] = np.asarray("")
+        M.make_mesh(config=M.MeshConfig(expert=world))
+        out["mesh/expert_refused"] = np.asarray("")
     except NotImplementedError as e:
-        out["mesh/model_refused"] = np.asarray(str(e))
+        out["mesh/expert_refused"] = np.asarray(str(e))
     out["fingerprint/differs"] = np.asarray(bool(C.replica_fingerprint(
         [torch.full((3,), float(rank))], comm)[1]))
     return out
@@ -591,16 +618,18 @@ def case_gspmd(rank, world, dev, inputs):
 
 
 def case_example(rank, world, dev, inputs):
-    """``train_cnn.main`` with ``inputs["argv"]``, each training loss it
-    returned recorded (``Model.__call__`` wrapped), and the model's states
-    (gathered, under ``--fsdp``, before ``main`` leaves the process
-    group)."""
+    """``main`` of the example ``inputs["script"]`` (``train_cnn`` by
+    default) with ``inputs["argv"]``, each training loss it returned
+    recorded (``Model.__call__`` wrapped), and the model's states
+    (gathered, under ``--fsdp`` or a model axis, before ``main`` leaves
+    the process group)."""
     import runpy
     import torch.distributed
     from singa_tpu_torch import model as model_mod
+    script = str(inputs["script"]) if "script" in inputs else "train_cnn"
     example = runpy.run_path(
-        os.path.join(ROOT, "singa_tpu_torch", "examples", "train_cnn.py"),
-        run_name="train_cnn")
+        os.path.join(ROOT, "singa_tpu_torch", "examples", f"{script}.py"),
+        run_name=script)
     losses, seen, out = [], [], {}
     call = model_mod.Model.__call__
     destroy = torch.distributed.destroy_process_group
@@ -625,9 +654,160 @@ def case_example(rank, world, dev, inputs):
     return out
 
 
+def _lm_model(vocab, **kw):
+    from singa_tpu_torch.models import transformer
+    return transformer.TransformerLM(vocab, **LM_KW, **kw)
+
+
+def _lm_compiled(dev, inputs, run):
+    """A ``TransformerLM`` of ``run`` (an ``LM_RUNS`` entry) under a
+    ``DistOpt(SGD(lr=0.3, momentum=0.9))`` over its mesh, compiled on the
+    global batch, with the numpy seed's weights."""
+    from singa_tpu_torch import opt, tensor
+    from singa_tpu_torch.model import load_numpy_states
+    from singa_tpu_torch.parallel import mesh as M
+    from singa_tpu_torch.parallel.communicator import set_mesh
+    from singa_tpu_torch.parallel.gspmd import P
+    cfg = dict(run)
+    vocab = cfg.pop("vocab")
+    degrees = {a: cfg.pop(a) for a in ("model", "seq") if a in cfg}
+    seq = "seq_axis" in cfg
+    m = _lm_model(vocab, tp=True, **cfg)
+    d = opt.DistOpt(opt.SGD(lr=0.3, momentum=0.9),
+                    reduce_axes=("data", "seq") if seq else None)
+    mesh = M.make_mesh(config=M.MeshConfig(**degrees))
+    d.communicator.mesh = mesh
+    set_mesh(mesh)
+    m.set_optimizer(d)
+    if seq:
+        m.input_specs = [P("data", "seq"), P("data", "seq")]
+        m.output_specs = [P("data", "seq"), P()]
+    tx = tensor.Tensor(data=inputs[f"ids{vocab}"], device=dev)
+    m.compile([tx], is_train=True, use_graph=True)
+    load_numpy_states(m, _init(inputs, f"init{vocab}/"))
+    return m, tx, tensor.Tensor(data=inputs[f"tgt{vocab}"], device=dev)
+
+
+def case_lm_mesh(rank, world, dev, inputs):
+    """The LM of ``tests/test_transformer.py`` on the mesh of each
+    ``LM_RUNS`` entry named in ``inputs["runs"]``: ``LM_STEPS`` steps'
+    losses, the gathered states,
+    the collectives of a step and the shapes a rank holds; after the
+    ``tp_v32_fused`` run its archive restored into a fresh TP model,
+    greedy ``generate`` from it beside the argmax of its own forward, and
+    its next loss."""
+    import torch
+    from singa_tpu_torch.parallel import ops as collective
+    from singa_tpu_torch.parallel.communicator import set_mesh
+    from singa_tpu_torch.tensor import Tensor
+    work = str(inputs["workdir"])
+    out = {}
+    for name in inputs["runs"].tolist():
+        run = LM_RUNS[name]
+        m, tx, ty = _lm_compiled(dev, inputs, run)
+        losses = []
+        for step in range(LM_STEPS):
+            collective.reset_counts()
+            losses.append(float(m(tx, ty)[1].data.detach()))
+        out[f"{name}/losses"] = np.asarray(losses)
+        out[f"{name}/collectives"] = np.asarray(
+            [collective.counts[k] for k in collective.KINDS])
+        out[f"{name}/local/head"] = np.asarray(m.head.W.shape)
+        out[f"{name}/local/tok"] = np.asarray(m.tok_emb.W.shape)
+        out[f"{name}/local/q"] = np.asarray(
+            m.blocks[0].attn.q_proj.W.shape)
+        _states(m, name, out)
+        if name != "tp_v32_fused":
+            continue
+        zpath = os.path.join(work, "tp.zip")
+        m.save_states(zpath)
+        out[f"{name}/next_loss"] = np.asarray(
+            float(m(tx, ty)[1].data.detach()))
+        m2, _, _ = _lm_compiled(dev, inputs, run)
+        m2.load_states(zpath)
+        gen = m2.generate(tx, max_new_tokens=4, temperature=0)
+        out[f"{name}/generated"] = gen
+        m2.eval()
+        cur = gen[:, :-4]
+        want = []
+        for _ in range(4):
+            logits = m2(Tensor(data=cur.astype(np.float32), device=dev)).data
+            nxt = torch.argmax(logits[:, -1], -1).numpy()
+            want.append(nxt)
+            cur = np.concatenate([cur, nxt[:, None].astype(cur.dtype)], 1)
+        out[f"{name}/reforward"] = np.stack(want, 1)
+        m2.train()
+        out[f"{name}/restored_loss"] = np.asarray(
+            float(m2(tx, ty)[1].data.detach()))
+    set_mesh(None)
+    return out
+
+
+def case_mesh_ops(rank, world, dev, inputs):
+    """The six collectives of ``parallel/ops.py`` over a ``model`` axis of
+    every rank: forward and backward on this rank's slice of the inputs,
+    the backward also through torch autograd; the rank's coordinates on a
+    ``MESH_LAYOUTS`` mesh; then ring and Ulysses attention on this rank's sequence block, outputs and gradients, and
+    Ulysses with indivisible heads (it falls back to ring)."""
+    import warnings
+    import torch
+    from singa_tpu_torch.ops import attention as A
+    from singa_tpu_torch.parallel import mesh as M
+    from singa_tpu_torch.parallel import ops as collective
+    from singa_tpu_torch.parallel.communicator import collective_context
+    from singa_tpu_torch.tensor import Tensor
+    out = {}
+    mesh = M.make_mesh(config=M.MeshConfig(model=world))
+    with collective_context("model", mesh=mesh):
+        for name, (cls, args) in MESH_OPS.items():
+            x = torch.from_numpy(inputs[f"op/{name}/x"][rank])
+            dy = torch.from_numpy(inputs[f"op/{name}/dy"][rank])
+            op = getattr(collective, cls)("model", *args)
+            out[f"{name}/y"] = op.forward(x).numpy()
+            out[f"{name}/dx"] = op.backward(dy).numpy()
+            xt = Tensor(data=x.clone().requires_grad_(), device=dev)
+            y = getattr(collective, cls)("model", *args)(xt)
+            (g,) = torch.autograd.grad(y.data, xt.data, dy)
+            out[f"{name}/dx_autograd"] = g.numpy()
+        collective.reset_counts()
+        t = torch.arange(6.0).reshape(2, 3) + rank
+        out["shift"] = collective.ring_shift(t, "model").numpy()
+        out["shift_counts"] = np.asarray(
+            [collective.counts[k] for k in collective.KINDS])
+    lmesh = M.make_mesh(config=M.MeshConfig(**MESH_LAYOUTS[world]))
+    names = list(lmesh.mesh_dim_names)
+    out["coords/names"] = np.asarray(names)
+    out["coords/values"] = np.asarray([M.axis_rank(lmesh, a) for a in names])
+    smesh = M.make_mesh(config=M.MeshConfig(seq=world))
+    for case in ("ring_causal", "ring_full", "ulysses_causal",
+                 "ulysses_full", "ulysses_h2"):
+        mode, how = case.split("_")
+        q, k, v, g = (torch.from_numpy(inputs[f"attn/{how == 'h2'}/{n}"])
+                      for n in "qkvg")
+        S = q.shape[2] // world
+        blk = [t[:, :, rank * S:(rank + 1) * S].clone().requires_grad_()
+               for t in (q, k, v)]
+        causal = how != "full"
+        with collective_context("seq", mesh=smesh), \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            A.reset_counts()
+            o = A.attention(*(Tensor(data=t, device=dev) for t in blk),
+                            causal=causal, seq_axis="seq", seq_mode=mode)
+            grads = torch.autograd.grad(
+                o.data, blk, g[:, :, rank * S:(rank + 1) * S])
+        out[f"{case}/out"] = o.data.detach().numpy()
+        for n, gr in zip("qkv", grads):
+            out[f"{case}/d{n}"] = gr.numpy()
+        out[f"{case}/warned"] = np.asarray(
+            any("falling back to ring" in str(w.message) for w in caught))
+    return out
+
+
 CASES = {"dist_opt": case_dist_opt, "sync_bn": case_sync_bn,
          "guard": case_guard, "example": case_example,
-         "gspmd": case_gspmd}
+         "gspmd": case_gspmd, "lm_mesh": case_lm_mesh,
+         "mesh_ops": case_mesh_ops}
 
 
 def main(argv):
