@@ -319,6 +319,38 @@ failure exits nonzero:
    that gate must refuse. Readings by kind: collectives per step and
    those staged through host memory (gloo takes CUDA tensors for
    all-to-all and sends only through the host).
+22. "moe": the Mixture-of-Experts LM, ``LM_SHAPE`` with ``MOE`` (8
+   experts of d_ff 2048, top-2, capacity factor 1.25), from seeded
+   weights. (a) One MoE layer at T = 8192 tokens on the card against the
+   same op in float64 on the CPU, at capacity factors 1.25 and
+   ``MOE_DROP_CF`` (which drops at least half the picks): a token whose
+   top-3 gates lie ``MOE_MARGIN`` apart that picks other experts fails;
+   the card keeps exactly what the capacity rule keeps of its own picks;
+   those tokens are held within ``MOE_TOL`` of the largest |y| but the
+   ones whose keeps a near tie ahead of them moved; the tokens excluded,
+   the picks dropped. (b) 3 graphed f32 steps at ``MOE_DROP_CF`` against
+   eager; 6 graphed fused-SGD steps
+   against 6 eager, f32 and ``compute_dtype=bfloat16``: bitwise, else the
+   LM's gates; routers f32; per replay K3 6, K4 6, K1-multi one launch
+   per chunk of each dtype's parameters (a trace of replays, none on the
+   host); readings: step p50/p99 in alternating rounds beside the dense
+   LM's graphed step, busy ms and idle share of a replay, one MoE layer's
+   forward and backward device ms by kind (the experts' ``bmm``,
+   dispatch/combine, the router: ``torch.profiler``'s device time per
+   ATen op), peak memory above the start. (c) ``remat=True`` bitwise
+   with (b)'s f32 run, K3 12 per replay; ``bf16_mixed`` with the guard,
+   the routers f32, the poisoned last step a no-op (phase 21 (b)'s
+   rule). (d) greedy ``generate`` of 64 tokens after 512, held as phase
+   21 (c) against full forwards at the decode's drop-free capacity. (e)
+   two processes of this script (``--moe-rank``) over gloo, ``expert=2``
+   over ``("data", "expert")``, depth cut to 2 blocks, drop-free
+   capacity, 3 eager steps, each held against the rank's dense run of
+   the same batch at phase 21 (d)'s bounds; 4 all-to-alls a block and
+   step, each staged through host memory. (f) four processes
+   (``--tp-fsdp-rank``), ``train_mesh(data=2, model=2)``, the dense LM
+   cut to 2 blocks, 3 eager steps with ``fsdp_axis="data"`` against the
+   same TP run without FSDP at the same bounds; a rank's state bytes
+   against the TP run's, at most ``TP_FSDP_SHARE`` of them.
 
 Rows of kernels that a graph replays (K2, K1-multi with and without the
 flag, K5-multi with the flag, K3/K4) carry ``replays`` and
@@ -331,7 +363,9 @@ tick, the launches per replayed step of phase 17's DistOpt runs
 and of phase 18's FSDP steps, per replayed step and serving tick of
 each phase-19 model, and per replayed step fed from image files (phase
 20); K3's and K4's rows the launches per replayed LM step with remat
-(phase 21 (a)). K3's f32 row carries its ring launches per step and
+(phase 21 (a)), per replayed MoE step (phase 22 (b), K1-multi f32
+and bf16) and per replayed MoE step with remat (phase 22 (c)). K3's f32
+row carries its ring launches per step and
 rank (phase 21 (d)), and a ``flash_fwd_ring`` row holds the K3 ring
 reading.
 Its last lines are the ``{"kernels": [...]}`` record, the
@@ -542,6 +576,34 @@ LM_RANK_RUNS = {
 }
 RING_SHAPE = (8, 8, 512, 64)        # one ring hop of the LM at sp=2
 RING_DELTAS = (0, -512)
+# phase 22, the MoE LM: LM_SHAPE with docs/distributed.md's MoEFFN (8
+# experts of d_ff 2048 = 4 d_model, top-2, capacity factor 1.25)
+MOE = dict(moe=8, moe_top_k=2, moe_capacity_factor=1.25)
+MOE_STEPS = 6               # graphed steps (and the eager run held to them)
+MOE_ROUNDS = 2              # alternating timing rounds, MoE and dense
+MOE_TRACED = 2              # replays traced for the launches per replay
+# (a) the layer at T = B S tokens on the card against float64 on the CPU,
+# as a fraction of the largest |y|: f32 products of length 512 and 2048
+# (TF32 off); a token whose top-(k+1) gates lie within MOE_MARGIN of each
+# other may route otherwise in f32 and is not held
+MOE_TOL = 1e-4
+MOE_MARGIN = 1e-5
+# a capacity factor that drops picks: E C = k T / 2 slots for k T picks,
+# so at least half drop ((a), and (b)'s graphed steps at this capacity)
+MOE_DROP_CF = 0.5
+MOE_DROP_STEPS = 3
+# (e) expert parallelism: two ranks over ("data", "expert"), drop-free
+# capacity (cf = E, so a rank's capacity from its own tokens drops what
+# the dense run's drops: nothing), the LM cut to MOE_RANK_LAYERS blocks
+MOE_RANK_LAYERS = 2
+MOE_RANK_STEPS = 3
+# (f) tensor parallelism with FSDP: four ranks, train_mesh(data=2,
+# model=2), the dense LM cut to MOE_RANK_LAYERS blocks
+TP_FSDP_RANKS = 4
+# the most of the TP run's state bytes a rank may hold under FSDP over a
+# data degree of 2: half, and a little for the few tensors no dimension
+# of which the degree divides
+TP_FSDP_SHARE = 0.55
 # the rest of train_cnn.py: model -> (one input's shape, batch)
 ZOO = {"xceptionnet": ((3, 299, 299), 32), "alexnet": ((3, 224, 224), 32),
        "cnn": ((1, 28, 28), 64), "mlp": ((784,), 64)}
@@ -4168,18 +4230,18 @@ class nccl_world1:
         shutil.rmtree(self.store, ignore_errors=True)
 
 
-def run_ranks(flag, work, what):
-    """``DIST_RANKS`` processes of this script (``flag R DIST_RANKS
-    work``) on the one card, waited for with one deadline
-    (``DIST_RANK_TIMEOUT_S``; a rank still running then is killed); each
-    must exit 0. Returns each rank's ``work/rank<r>.npz`` arrays."""
+def run_ranks(flag, work, what, ranks=DIST_RANKS):
+    """``ranks`` processes of this script (``flag R ranks work``) on the
+    one card, waited for with one deadline (``DIST_RANK_TIMEOUT_S``; a
+    rank still running then is killed); each must exit 0. Returns each
+    rank's ``work/rank<r>.npz`` arrays."""
     import numpy as np
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), flag,
-         str(r), str(DIST_RANKS), work],
+         str(r), str(ranks), work],
         stdout=open(os.path.join(work, f"rank{r}.log"), "w"),
-        stderr=subprocess.STDOUT) for r in range(DIST_RANKS)]
+        stderr=subprocess.STDOUT) for r in range(ranks)]
     try:
         for p in procs:
             p.wait(timeout=max(0.0, DIST_RANK_TIMEOUT_S
@@ -4192,15 +4254,15 @@ def run_ranks(flag, work, what):
                 p.kill()
                 p.wait()
     logs = [open(os.path.join(work, f"rank{r}.log")).read()
-            for r in range(DIST_RANKS)]
+            for r in range(ranks)]
     codes = [p.returncode for p in procs]
-    check(codes == [0] * DIST_RANKS,
+    check(codes == [0] * ranks,
           f"{what}: rank exit codes {codes} (deadline "
           f"{DIST_RANK_TIMEOUT_S} s):\n" + "\n".join(
               f"--- rank {r} ---\n{log[-4000:]}"
               for r, log in enumerate(logs)))
     outs = []
-    for r in range(DIST_RANKS):
+    for r in range(ranks):
         with np.load(os.path.join(work, f"rank{r}.npz")) as z:
             outs.append({k: z[k] for k in z.files})
     return outs
@@ -5771,8 +5833,7 @@ def lm_remat_phase(dev, tx, ty, start):
             LM_MESH_ROUNDS, LM_GRAPH_ROUND_STEPS)
         rec = {"compute_dtype": dname, "steps": LM_MESH_STEPS,
                "bitwise": bitwise, "reason": reason,
-               "max_param_rel_diff": rel[worst], "max_param_rel_diff_at":
-               worst, "losses": r["losses"], "plain_losses": p["losses"]}
+               "max_param_rel_diff": rel, "max_param_rel_diff_at": worst, "losses": r["losses"], "plain_losses": p["losses"]}
         for n in models:
             q = quantiles(times[n])
             rec[n] = {"step_p50_ms": q["p50_ms"], "step_p99_ms": q["p99_ms"],
@@ -5805,8 +5866,10 @@ def lm_remat_phase(dev, tx, ty, start):
     return out, keep
 
 
-def lm_mixed_phase(dev, tx, ty, start, f32_model, f32_first_loss):
-    """Phase 21 (b): the LM compiled with ``policy="bf16_mixed"`` (the
+def lm_mixed_phase(dev, tx, ty, start, f32_model, f32_first_loss,
+                   what="bf16_mixed LM", **kw):
+    """Phase 21 (b) (and 22 (c) with the MoE settings ``kw``, labelled
+    ``what``): the LM compiled with ``policy="bf16_mixed"`` (the
     fused SGD inside the guard), graphed, ``LM_MESH_STEPS`` steps from
     ``start``, the last one poisoned: an LM's inputs are token ids, which
     no NaN reaches (an id out of range is a zero row), so the guard's
@@ -5819,12 +5882,12 @@ def lm_mixed_phase(dev, tx, ty, start, f32_model, f32_first_loss):
     import torch
     from singa_tpu_torch import opt
     from singa_tpu_torch.model import load_numpy_states
-    m = lm_model(dev, tx, use_graph=True, policy="bf16_mixed")
+    m = lm_model(dev, tx, use_graph=True, policy="bf16_mixed", **kw)
     load_numpy_states(m, start)
     m.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, fused=True))
     guard = m.optimizer
     check(hasattr(guard, "dynamic_loss_scale"),
-          f"bf16_mixed LM: the optimizer is {type(guard).__name__}, not "
+          f"{what}: the optimizer is {type(guard).__name__}, not "
           "the guard")
     m.train()
     torch.cuda.synchronize()
@@ -5845,15 +5908,15 @@ def lm_mixed_phase(dev, tx, ty, start, f32_model, f32_first_loss):
         and not torch.equal(before[k], after[k])]
     stats = guard.stats()
     check(not moved and stats["skipped_total"] == skipped + 1,
-          f"bf16_mixed LM: the poisoned replay moved {moved[:5]} or "
+          f"{what}: the poisoned replay moved {moved[:5]} or "
           f"skipped {stats['skipped_total'] - skipped} steps")
     guard.inner.loss_scale.data.copy_(scale)
     graphs = list(m.graph_stats().values())
     check(graphs == [{"n_captures": 1, "n_replays": LM_MESH_STEPS - 1}],
-          f"bf16_mixed LM: {graphs}")
+          f"{what}: {graphs}")
     rel = abs(losses[0] - f32_first_loss) / abs(f32_first_loss)
     check(rel <= LM_MIXED_LOSS_RTOL,
-          f"bf16_mixed LM: first loss {losses[0]} against the f32 run's "
+          f"{what}: first loss {losses[0]} against the f32 run's "
           f"{f32_first_loss} (rtol {LM_MIXED_LOSS_RTOL})")
     times = alternating_rounds(
         {"bf16_mixed": lambda k: timed_steps(m, tx, ty, k),
@@ -5865,7 +5928,10 @@ def lm_mixed_phase(dev, tx, ty, start, f32_model, f32_first_loss):
            stats["skipped_total"], "step_p50_ms": q["p50_ms"],
            "f32_step_p50_ms": qf["p50_ms"], "step_ms": times["bf16_mixed"],
            "peak_above_start_bytes": peak}
-    print(f"bf16_mixed LM B{LM['batch']} S{LM['seq']}: first loss "
+    if kw.get("moe"):
+        check(all(b.mlp.wg.dtype == torch.float32 for b in m.blocks),
+              f"{what}: a router is not f32")
+    print(f"{what} B{LM['batch']} S{LM['seq']}: first loss "
           f"{losses[0]:.6f} (f32 {f32_first_loss:.6f}, rel {rel:.3g}); "
           f"step {LM_MESH_STEPS} poisoned: no state moved, 1 skip; step "
           f"p50 {q['p50_ms']:.2f} ms against f32 {qf['p50_ms']:.2f} ms; "
@@ -5875,22 +5941,29 @@ def lm_mixed_phase(dev, tx, ty, start, f32_model, f32_first_loss):
     return rec
 
 
-def lm_generate_phase(dev, tx, start):
-    """Phase 21 (c): greedy ``generate`` of ``GEN_NEW`` tokens from the
+def lm_generate_phase(dev, tx, start, what="generate", **kw):
+    """Phase 21 (c) (and 22 (d) with the MoE settings ``kw``, labelled
+    ``what``): greedy ``generate`` of ``GEN_NEW`` tokens from the
     first ``GEN_PROMPT`` tokens of the b8 batch, f32. At each step the
     decode's logits must be within ``LM_LOGIT_TOL`` of the full forward's
     (through K3) at the last position, and its token the forward's argmax
-    up to the first step whose top-2 margin is under that tolerance.
-    Readings: prefill ms, per-token ms p50, tokens/s."""
+    up to the first step whose top-2 margin is under that tolerance. A
+    MoE decode runs a drop-free capacity (cf = E), so the full forwards
+    it is held to run at that capacity too (the JAX package's rule: the
+    two agree wherever the forward drops nothing). Readings: prefill ms,
+    per-token ms p50, tokens/s."""
     import numpy as np
     import torch
     from singa_tpu_torch.model import load_numpy_states
     from singa_tpu_torch.models import transformer
     from singa_tpu_torch.ops import attention as at
     from singa_tpu_torch.tensor import Tensor
-    m = lm_model(dev, tx, train=False)
+    m = lm_model(dev, tx, train=False, **kw)
     load_numpy_states(m, start)
     m.eval()
+    if m.moe:
+        for blk in m.blocks:
+            blk.mlp.capacity_factor = float(blk.mlp.n_experts)
     prompt = tx.data[:, :GEN_PROMPT].cpu().numpy().astype(np.int32)
     marks = [torch.cuda.Event(enable_timing=True)]
     logits = []
@@ -5918,7 +5991,7 @@ def lm_generate_phase(dev, tx, start):
         err = (logits[i] - full).abs().max().item()
         worst = max(worst, err / scale)
         check(err <= tol * scale,
-              f"generate: step {i} logits differ from the full forward's by "
+              f"{what}: step {i} logits differ from the full forward's by "
               f"{err} (max |logit| {scale}, tolerance {tol} x)")
         top2 = torch.topk(full, 2, -1).values
         margins = (top2[:, 0] - top2[:, 1]).tolist()
@@ -5928,12 +6001,12 @@ def lm_generate_phase(dev, tx, start):
                 diverged[b] = i
             if diverged[b] is None:
                 check(tokens[b, GEN_PROMPT + i] == want[b],
-                      f"generate: row {b} step {i} token "
+                      f"{what}: row {b} step {i} token "
                       f"{tokens[b, GEN_PROMPT + i]} against the forward's "
                       f"argmax {want[b]} (top-2 margin {margins[b]})")
     k3 = at.launches["flash_fwd"]
     check(k3 == GEN_NEW * LM["layers"],
-          f"generate: the full forwards launched K3 {k3} times")
+          f"{what}: the full forwards launched K3 {k3} times")
     total = sum(ms)
     rec = {"prompt": GEN_PROMPT, "new": GEN_NEW, "batch": LM["batch"],
            "prefill_ms": ms[0], "token_ms": ms[1:],
@@ -5941,7 +6014,7 @@ def lm_generate_phase(dev, tx, start):
            "tokens_per_s": LM["batch"] * GEN_NEW / (total / 1e3),
            "max_logit_rel_err": worst, "tolerance": tol,
            "first_step_under_margin_by_row": diverged}
-    print(f"generate B{LM['batch']} prompt {GEN_PROMPT} + {GEN_NEW} greedy: "
+    print(f"{what} B{LM['batch']} prompt {GEN_PROMPT} + {GEN_NEW} greedy: "
           f"prefill {rec['prefill_ms']:.2f} ms, per token p50 "
           f"{rec['token_p50_ms']:.3f} ms, {rec['tokens_per_s']:.0f} "
           f"tokens/s; logits within {worst:.3g} x max |logit| of the full "
@@ -6309,6 +6382,756 @@ def lm_mesh_phase(dev):
             "ring": ring, "ranks": ranks, "seconds": seconds}
 
 
+def sgd_launches(model):
+    """K1-multi launches per step over ``model``'s parameters: the
+    multi-tensor update takes one launch per chunk of each dtype's
+    parameters."""
+    from collections import Counter
+    groups = Counter(p.dtype for p in model.get_params().values())
+    return sum(multi_chunks("sgd_multi", n) for n in groups.values())
+
+
+def moe_model(dev, tx, compute_dtype=None, **kw):
+    """The MoE LM at ``LM_SHAPE`` with ``MOE``'s experts (:func:`lm_model`;
+    ``kw`` as there)."""
+    return lm_model(dev, tx, compute_dtype, **dict(MOE, **kw))
+
+
+def queue_keeps(picks, E, C):
+    """The capacity rule on the experts ``picks`` (one (T,) int array per
+    round), in numpy: a pick is kept while its queue position in its
+    expert, the expert's kept picks of earlier rounds plus its picks by
+    earlier tokens of this round, is below ``C``. Returns one (T,) bool
+    array per round."""
+    import numpy as np
+    count = np.zeros(E, np.int64)
+    keeps = []
+    for idx in picks:
+        hot = np.eye(E, dtype=np.int64)[idx]
+        pos = (np.cumsum(hot, 0) - hot + count)[np.arange(len(idx)), idx]
+        keep = pos < C
+        count += (hot * keep[:, None]).sum(0)
+        keeps.append(keep)
+    return keeps
+
+
+def moe_layer_check(dev):
+    """Phase 22 (a): one ``MoEFFN`` at the step's shape (T = B S tokens,
+    D = d_model, ``MOE``'s experts), from numpy-seeded weights, forward on
+    the card (f32) against the same op in float64 on the CPU, at ``MOE``'s
+    capacity factor and at ``MOE_DROP_CF``, which must drop picks. Gates:
+    every token whose top-(k+1) gates lie ``MOE_MARGIN`` or more apart
+    picks the same experts on both sides; the card keeps exactly the picks
+    that the capacity rule keeps of its own picks (:func:`queue_keeps`);
+    every token with no near tie is held within ``MOE_TOL`` of the largest
+    |y|, but one whose keeps differ, which a near tie's other pick ahead
+    of it in its expert's queue explains; the aux loss within
+    ``MOE_TOL``. Readings: the tokens excluded (near ties, routed
+    otherwise, kept otherwise), the picks dropped, the forward's ms on the
+    card. Returns a record per capacity factor."""
+    import numpy as np
+    import torch
+    from singa_tpu_torch.parallel import moe
+    T, D = LM["batch"] * LM["seq"], LM["d_model"]
+    E, k = MOE["moe"], MOE["moe_top_k"]
+    F = 4 * D
+    rng = np.random.default_rng(SEED + 22)
+    arrays = [rng.standard_normal((T, D)),
+              rng.standard_normal((D, E)) / np.sqrt(D),
+              rng.standard_normal((E, D, F)) * np.sqrt(2.0 / (D + F)),
+              rng.standard_normal((E, F)) * 0.02,
+              rng.standard_normal((E, F, D)) * np.sqrt(2.0 / (D + F)),
+              rng.standard_normal((E, D)) * 0.02]
+    card = [torch.tensor(a, dtype=torch.float32, device=dev.torch_device)
+            for a in arrays]
+    cpu = [torch.tensor(a, dtype=torch.float64) for a in arrays]
+    with torch.no_grad():
+        gates = torch.softmax(card[0] @ card[1], -1)
+        wgates = torch.softmax(cpu[0] @ cpu[1], -1)
+    top = torch.topk(wgates, k + 1, -1).values
+    near = ((top[:, :-1] - top[:, 1:]).min(-1).values < MOE_MARGIN).numpy()
+    out = {}
+    for cf in (MOE["moe_capacity_factor"], MOE_DROP_CF):
+        op = moe._MoEFFN(E, k, cf, None, ())
+        C = moe.capacity(T, E, k, cf)
+        with torch.no_grad():
+            y, aux = op.forward(*card)
+            want, want_aux = op.forward(*cpu)
+            ms = time_ms(lambda: op.forward(*card))
+            got_r = [(i.cpu().numpy(), kp.cpu().numpy())
+                     for i, kp, _ in moe.route(gates, k, C)]
+            want_r = [(i.numpy(), kp.numpy())
+                      for i, kp, _ in moe.route(wgates, k, C)]
+        routed = np.zeros(T, bool)
+        kept = np.zeros(T, bool)
+        for (gi, gk), (wi, wk) in zip(got_r, want_r):
+            routed |= gi != wi
+            kept |= gk != wk
+        check(not (routed & ~near).any(),
+              f"moe layer cf {cf}: {int((routed & ~near).sum())} tokens "
+              "with no near tie pick other experts on the card than in "
+              "float64")
+        rule = queue_keeps([gi for gi, _ in got_r], E, C)
+        check(all((gk == r).all() for (_, gk), r in zip(got_r, rule)),
+              f"moe layer cf {cf}: the card keeps other picks than the "
+              "capacity rule keeps of its own picks")
+        dropped = int(sum((~wk).sum() for _, wk in want_r))
+        card_dropped = int(sum((~gk).sum() for _, gk in got_r))
+        least = max(0, T * k - E * C)
+        check(dropped >= least and card_dropped >= least,
+              f"moe layer cf {cf}: dropped {dropped} picks in float64, "
+              f"{card_dropped} on the card, of {T * k} picks for {E * C} "
+              f"slots (at least {least})")
+        if cf == MOE_DROP_CF:
+            check(dropped > 0 and card_dropped > 0,
+                  f"moe layer cf {cf}: no pick dropped")
+        held = ~near & ~kept
+        ref = want.numpy()
+        scale = float(np.abs(ref).max())
+        err = float(np.abs(y.cpu().double().numpy()[held]
+                           - ref[held]).max())
+        check(err <= MOE_TOL * scale,
+              f"moe layer cf {cf}: {err} off float64 (max |y| {scale}, "
+              f"tolerance {MOE_TOL} x) over the {int(held.sum())} held "
+              "tokens")
+        aux_rel = abs(float(aux) - float(want_aux)) / abs(float(want_aux))
+        check(aux_rel <= MOE_TOL, f"moe layer cf {cf}: aux {float(aux)} "
+              f"against {float(want_aux)} in float64")
+        out[str(cf)] = {
+            "tokens": T, "experts": E, "top_k": k, "capacity_factor": cf,
+            "capacity": C, "max_abs_err": err, "max_abs_ref": scale,
+            "tolerance": MOE_TOL, "aux_rel_err": aux_rel,
+            "near_ties": int(near.sum()), "routed_otherwise":
+            int(routed.sum()), "kept_otherwise": int(kept.sum()),
+            "held_tokens": int(held.sum()), "picks_dropped": dropped,
+            "picks_dropped_card": card_dropped, "picks": T * k,
+            "forward_ms": ms}
+        print(f"moe layer T{T} D{D} E{E} F{F} top-{k} cf {cf} (C {C}) on "
+              f"the card against float64 on the CPU: max err {err:.3g} of "
+              f"max |y| {scale:.3g} (tolerance {MOE_TOL} x), aux rel "
+              f"{aux_rel:.3g}; tokens excluded {T - int(held.sum())} (near "
+              f"ties {int(near.sum())}, routed otherwise "
+              f"{int(routed.sum())}, kept otherwise {int(kept.sum())}); "
+              f"picks dropped {dropped} of {T * k} ({card_dropped} on the "
+              f"card); forward {ms:.3f} ms", flush=True)
+    return out
+
+
+MOE_OP_KINDS = {
+    "experts_bmm": ("aten::bmm",),
+    "experts_other": ("aten::gelu", "aten::gelu_backward", "aten::add",
+                      "aten::sum"),
+    "dispatch_combine": ("aten::index_copy", "aten::index",
+                         "aten::index_put_", "aten::_index_put_impl_",
+                         "aten::index_select", "aten::index_fill_",
+                         "aten::index_add_", "aten::index_fill",
+                         "aten::cat", "aten::mul", "aten::slice_backward",
+                         "aten::where", "aten::copy_", "aten::fill_",
+                         "aten::zero_"),
+    "router": ("aten::mm", "aten::_softmax", "aten::_softmax_backward_data",
+               "aten::argmax", "aten::cumsum", "aten::one_hot",
+               "aten::gather", "aten::scatter", "aten::scatter_add_",
+               "aten::lt", "aten::sub", "aten::rsub", "aten::mean",
+               "aten::div", "aten::eq", "aten::stack"),
+}
+
+
+def moe_kinds(dev, dtype):
+    """Device ms of one MoE layer's forward and backward at the step's
+    shape by kind (``MOE_OP_KINDS``: the experts' ``bmm``, their bias and
+    GELU, dispatch and combine, the router), from the device time
+    ``torch.profiler`` gives each ATen op of an eager call; ops of no kind
+    go to ``other``. None where the profiler saw no device time."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from singa_tpu_torch.parallel import moe
+    T, D = LM["batch"] * LM["seq"], LM["d_model"]
+    E, k, cf = MOE["moe"], MOE["moe_top_k"], MOE["moe_capacity_factor"]
+    rng = np.random.default_rng(SEED + 23)
+    shapes = [(T, D), (D, E), (E, D, 4 * D), (E, 4 * D), (E, 4 * D, D),
+              (E, D)]
+    args = [torch.tensor(rng.standard_normal(s) * 0.05,
+                         device=dev.torch_device,
+                         dtype=torch.float32 if i == 1 else dtype,
+                         requires_grad=True) for i, s in enumerate(shapes)]
+    op = moe._MoEFFN(E, k, cf, None, ())
+
+    def step():
+        y, aux = op.forward(*args)
+        torch.autograd.grad([y.float().sum(), aux], args)
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    by_op = {}
+    for evt in prof.key_averages():
+        if not evt.key.startswith("aten::"):
+            continue        # a kernel's own entry: its op holds its time
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        if us:
+            by_op[evt.key] = by_op.get(evt.key, 0.0) + us / 1e3
+    if not by_op:
+        return None
+    kinds = dict.fromkeys(list(MOE_OP_KINDS) + ["other"], 0.0)
+    for key, ms in by_op.items():
+        kind = next((n for n, ops in MOE_OP_KINDS.items() if key in ops),
+                    "other")
+        kinds[kind] += ms
+    kinds["total"] = sum(by_op.values())
+    kinds["by_op"] = by_op
+    return kinds
+
+
+def graph_verdict(g, e, what):
+    """A graphed LM run ``g`` against the eager run ``e`` of
+    :func:`lm_graph_run`: bitwise, else held to the LM's gates (losses
+    finite and falling, each parameter within ``LM_PARAM_TOL`` of its
+    norm; phase 12's rule, the reason printed). Returns whether bitwise,
+    the reason, the parameter furthest off and its relative distance."""
+    import numpy as np
+    rel = {k: ((g["params"][k].float() - v.float()).norm()
+               / v.float().norm()).item()
+           for k, v in e["params"].items()}
+    worst = max(rel, key=rel.get)
+    bitwise = g["losses"] == e["losses"] and rel[worst] == 0.0
+    reason = "bitwise" if bitwise else (
+        f"not bitwise: losses {g['losses']} against {e['losses']}, "
+        f"{worst} by {rel[worst]:.3g}; held to the LM's gates")
+    if not bitwise:
+        print(f"{what}: {reason}", flush=True)
+        check(all(np.isfinite(g["losses"])) and
+              g["losses"][-1] < g["losses"][0] and
+              rel[worst] <= LM_PARAM_TOL,
+              f"{what}: {reason} (tolerance {LM_PARAM_TOL})")
+    return bitwise, reason, worst, rel[worst]
+
+
+def moe_drop_graph(dev, tx, ty, start):
+    """Phase 22 (b) at a capacity that drops: ``MOE_DROP_STEPS`` graphed
+    f32 fused-SGD steps of the MoE LM at ``MOE_DROP_CF`` against the same
+    steps eager (:func:`graph_verdict`), one capture. Every block drops at
+    least k T - E C of its k T picks a step (E C slots), so the spare row
+    of the dispatch, the zero weight in the combine and the gradient of a
+    dropped pick's gate through the top-k denominator run in the capture
+    and its replays."""
+    import torch
+    from singa_tpu_torch.parallel import moe
+    T, E, k = LM["batch"] * LM["seq"], MOE["moe"], MOE["moe_top_k"]
+    C = moe.capacity(T, E, k, MOE_DROP_CF)
+    least = T * k - E * C
+    check(least > 0, f"moe LM cf {MOE_DROP_CF}: {E * C} slots for "
+          f"{T * k} picks drop nothing")
+    runs = {}
+    for name, graph in (("graph", True), ("eager", False)):
+        m = moe_model(dev, tx, use_graph=graph,
+                      moe_capacity_factor=MOE_DROP_CF)
+        runs[name] = lm_graph_run(m, start, tx, ty, MOE_DROP_STEPS)
+        if graph:
+            stats = list(m.graph_stats().values())
+            check(stats == [{"n_captures": 1,
+                             "n_replays": MOE_DROP_STEPS - 1}],
+                  f"moe LM cf {MOE_DROP_CF}: {stats}")
+        del m
+        torch.cuda.empty_cache()
+    g, e = runs["graph"], runs["eager"]
+    bitwise, reason, worst, rel = graph_verdict(
+        g, e, f"moe LM cf {MOE_DROP_CF}")
+    print(f"moe LM f32 cf {MOE_DROP_CF} (C {C}: each block drops at least "
+          f"{least} of {T * k} picks a step): {MOE_DROP_STEPS} graphed "
+          f"steps against eager {reason}; losses "
+          + " ".join(f"{v:.5f}" for v in g["losses"]), flush=True)
+    return {"capacity_factor": MOE_DROP_CF, "capacity": C,
+            "least_dropped_per_block": least, "picks_per_block": T * k,
+            "steps": MOE_DROP_STEPS, "bitwise": bitwise, "reason": reason,
+            "max_param_rel_diff": rel, "max_param_rel_diff_at": worst,
+            "losses": g["losses"], "eager_losses": e["losses"]}
+
+
+def moe_graph_phase(dev, tx, ty, start, dense_start):
+    """Phase 22 (b): ``MOE_STEPS`` graphed fused-SGD steps of the MoE LM
+    against the same steps eager, f32 and ``compute_dtype=bfloat16``, from
+    ``start``: losses and states bitwise, else the LM's gates (phase 12's
+    rule, the reason printed); the routers f32; in a trace of replays K3
+    6, K4 6 and K1-multi 2 launches, none counted on the host. Readings:
+    step p50/p99 in alternating rounds beside the dense LM's graphed step
+    (from ``dense_start``), the device busy ms and idle share of a replay,
+    device ms of the MoE layer by kind (:func:`moe_kinds`), peak memory
+    above the start. Returns the records and the f32 graphed model."""
+    import numpy as np
+    import torch
+    layers = LM["layers"]
+    out, keep = {"dropping": moe_drop_graph(dev, tx, ty, start)}, None
+    for dname, cdt in (("float32", None), ("bfloat16", torch.bfloat16)):
+        models = {"graph": moe_model(dev, tx, cdt, use_graph=True),
+                  "eager": moe_model(dev, tx, cdt, use_graph=False)}
+        n_params = len(models["graph"].get_params())
+        runs = {n: lm_graph_run(m, start, tx, ty, MOE_STEPS)
+                for n, m in models.items()}
+        g, e = runs["graph"], runs["eager"]
+        bitwise, reason, worst, rel = graph_verdict(g, e,
+                                                    f"moe LM {dname}")
+        m = models["graph"]
+        stats = list(m.graph_stats().values())
+        check(stats == [{"n_captures": 1, "n_replays": MOE_STEPS - 1}],
+              f"moe LM {dname}: {stats}")
+        routers = {str(b.mlp.wg.dtype) for b in m.blocks}
+        banks = {str(b.mlp.w1.dtype) for b in m.blocks}
+        check(routers == {"torch.float32"},
+              f"moe LM {dname}: routers {routers}")
+        per_step = {"flash_fwd": layers, "flash_bwd_dq": layers,
+                    "flash_bwd_dkv": layers, "sgd_multi": sgd_launches(m)}
+        trace = traced(lambda: m(tx, ty), MOE_TRACED, per_step,
+                       f"moe LM {dname} replays")
+        check(not trace["host_launches"],
+              f"moe LM {dname}: replays counted {trace['host_launches']} "
+              "on the host")
+        dense = lm_model(dev, tx, cdt, use_graph=True)
+        lm_graph_run(dense, dense_start, tx, ty, 2)
+        times = alternating_rounds(
+            {"moe": lambda k: timed_steps(m, tx, ty, k),
+             "dense": lambda k: timed_steps(dense, tx, ty, k)},
+            MOE_ROUNDS, LM_GRAPH_ROUND_STEPS)
+        del dense
+        torch.cuda.empty_cache()
+        kinds = moe_kinds(dev, cdt or torch.float32)
+        q, qd = quantiles(times["moe"]), quantiles(times["dense"])
+        rec = {"compute_dtype": dname, "steps": MOE_STEPS,
+               "bitwise": bitwise, "reason": reason,
+               "max_param_rel_diff": rel, "max_param_rel_diff_at": worst,
+               "losses": g["losses"], "eager_losses": e["losses"],
+               "router_dtypes": sorted(routers),
+               "expert_bank_dtypes": sorted(banks), "params": n_params,
+               "step_p50_ms": q["p50_ms"], "step_p99_ms": q["p99_ms"],
+               "dense_step_p50_ms": qd["p50_ms"],
+               "dense_step_p99_ms": qd["p99_ms"], "step_ms": times["moe"],
+               "dense_step_ms": times["dense"],
+               "peak_above_start_bytes": g["peak_above_start_bytes"],
+               "launches_per_replay": {
+                   k: v / MOE_TRACED for k, v in trace["launches"].items()},
+               "traced": trace, "layer_device_ms_by_kind": kinds}
+        out[dname] = rec
+        kind_text = "not measured (no device time in the profile)" \
+            if kinds is None else ", ".join(
+                f"{k} {v:.3f}" for k, v in kinds.items() if k != "by_op")
+        print(f"moe LM {dname} B{LM['batch']} S{LM['seq']} E{MOE['moe']} "
+              f"top-{MOE['moe_top_k']}: graph against eager {reason}; "
+              f"routers {sorted(routers)}, banks {sorted(banks)}; step p50 "
+              f"{q['p50_ms']:.2f} ms p99 {q['p99_ms']:.2f} against the "
+              f"dense LM's {qd['p50_ms']:.2f} / {qd['p99_ms']:.2f} "
+              f"({MOE_ROUNDS} alternating rounds of "
+              f"{LM_GRAPH_ROUND_STEPS}); replay busy "
+              f"{trace['busy_ms']:.2f} ms, idle {trace['idle_share']:.3f}; "
+              f"per replay {rec['launches_per_replay']}; peak above the "
+              f"start {g['peak_above_start_bytes'] / 2**30:.2f} GiB; one "
+              f"layer's forward and backward, device ms by kind: "
+              f"{kind_text}", flush=True)
+        if dname == "float32":
+            keep = (m, g)
+        del models, runs
+        torch.cuda.empty_cache()
+    return out, keep
+
+
+def moe_remat(dev, tx, ty, start, plain):
+    """Phase 22 (c), remat: the MoE LM with ``remat=True``, graphed, f32,
+    ``MOE_STEPS`` steps from ``start``, bitwise with the plain graphed run
+    ``plain`` (phase 22 (b)'s losses and parameters); in a trace of
+    replays K3 launches twice per block, K4 once."""
+    import torch
+    layers = LM["layers"]
+    m = moe_model(dev, tx, use_graph=True, remat=True)
+    run = lm_graph_run(m, start, tx, ty, MOE_STEPS)
+    rel = {k: ((run["params"][k].float() - v.float()).norm()
+               / v.float().norm()).item()
+           for k, v in plain["params"].items()}
+    worst = max(rel, key=rel.get)
+    check(run["losses"] == plain["losses"] and rel[worst] == 0.0,
+          f"moe LM remat: losses {run['losses']} against the plain run's "
+          f"{plain['losses']}, {worst} by {rel[worst]:.3g} (bitwise "
+          "expected)")
+    trace = traced(lambda: m(tx, ty), MOE_TRACED, {
+        "flash_fwd": 2 * layers, "flash_bwd_dq": layers,
+        "flash_bwd_dkv": layers, "sgd_multi": sgd_launches(m)},
+        "moe LM remat replays")
+    rec = {"bitwise": True, "losses": run["losses"],
+           "peak_above_start_bytes": run["peak_above_start_bytes"],
+           "launches_per_replay": {
+               k: v / MOE_TRACED for k, v in trace["launches"].items()},
+           "traced": trace}
+    print(f"moe LM remat f32: bitwise with the plain graphed run; per "
+          f"replay {rec['launches_per_replay']}; peak above the start "
+          f"{run['peak_above_start_bytes'] / 2**30:.2f} GiB", flush=True)
+    del m
+    torch.cuda.empty_cache()
+    return rec
+
+
+def moe_rank_phase(dev, start):
+    """Phase 22 (e): ``DIST_RANKS`` processes of this script
+    (:func:`moe_rank_main`) on the one card over gloo, eager, each
+    ``MOE_RANK_STEPS`` steps of the MoE LM (cut to ``MOE_RANK_LAYERS``
+    blocks, drop-free capacity) on the global batch over ``MeshConfig(
+    expert=2)``, held by the rank against its own dense run of the same
+    batch from the same weights (phase 21 (d)'s rule): losses within
+    ``LM_RANK_LOSS_RTOL``, parameters and momenta within
+    ``LM_RANK_STATE_TOL`` of their norms. Per step and rank: 4 all-to-alls
+    a block, each staged through host memory (gloo), one K3 a block."""
+    import shutil
+    import tempfile
+    import numpy as np
+    work = tempfile.mkdtemp(prefix="chip_smoke_moe_")
+    try:
+        tx, ty = lm_data(dev)
+        np.savez(os.path.join(work, "inputs.npz"),
+                 ids=tx.data.cpu().numpy(), tgt=ty.data.cpu().numpy(),
+                 **{f"start/{k}": v for k, v in start.items()})
+        t0 = time.perf_counter()
+        outs = run_ranks("--moe-rank", work, "moe ep gloo")
+        seconds = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    layers = MOE_RANK_LAYERS
+    runs = []
+    for r, o in enumerate(outs):
+        losses, dense = o["ep/losses"], o["ep/dense_losses"]
+        rel = float((np.abs(losses - dense) / np.abs(dense)).max())
+        worst = {kind: float(o[f"ep/max_{kind}_rel"])
+                 for kind in ("param", "momentum")}
+        check(rel <= LM_RANK_LOSS_RTOL and
+              max(worst.values()) <= LM_RANK_STATE_TOL,
+              f"moe ep rank {r}: losses {losses.tolist()} against the dense "
+              f"{dense.tolist()} (rtol {LM_RANK_LOSS_RTOL}), parameters "
+              f"{worst['param']:.3g}, momenta {worst['momentum']:.3g} off "
+              f"(tolerance {LM_RANK_STATE_TOL}; {o['ep/top_param']}, "
+              f"{o['ep/top_momentum']})")
+        a2a = o["ep/all_to_all"].tolist()
+        staged = o["ep/staged_all_to_all"].tolist()
+        k3 = o["ep/k3"].tolist()
+        check(a2a == [4 * layers] * MOE_RANK_STEPS and staged == a2a,
+              f"moe ep rank {r}: all-to-alls per step {a2a}, staged "
+              f"{staged}, expected {4 * layers} each, all staged")
+        check(k3 == [layers] * MOE_RANK_STEPS,
+              f"moe ep rank {r}: K3 per step {k3}")
+        check(o["ep/local_w1"].tolist() ==
+              [MOE["moe"] // 2, LM["d_model"], 4 * LM["d_model"]],
+              f"moe ep rank {r}: expert bank {o['ep/local_w1'].tolist()}")
+        runs.append({"losses": losses.tolist(),
+                     "dense_losses": dense.tolist(), "max_loss_rel": rel,
+                     "max_param_rel": worst["param"],
+                     "max_momentum_rel": worst["momentum"],
+                     "top_params": o["ep/top_param"].tolist(),
+                     "top_momenta": o["ep/top_momentum"].tolist(),
+                     "all_to_all_per_step": a2a,
+                     "host_staged_per_step": staged, "k3_per_step": k3,
+                     "local_w1": o["ep/local_w1"].tolist(),
+                     "step_ms": o["ep/step_ms"].tolist()})
+    r0 = runs[0]
+    print(f"moe ep=2 over gloo on the card, {DIST_RANKS} ranks, depth cut "
+          f"to {layers} blocks, drop-free capacity, {MOE_RANK_STEPS} eager "
+          f"steps: losses " + " ".join(f"{v:.5f}" for v in r0["losses"])
+          + f" (dense {' '.join(f'{v:.5f}' for v in r0['dense_losses'])}, "
+          f"rel {max(r['max_loss_rel'] for r in runs):.3g}); parameters "
+          f"within {max(r['max_param_rel'] for r in runs):.3g}, momenta "
+          f"within {max(r['max_momentum_rel'] for r in runs):.3g} "
+          f"(tolerance {LM_RANK_STATE_TOL}); all-to-alls per step "
+          f"{r0['all_to_all_per_step']}, host-staged "
+          f"{r0['host_staged_per_step']}; a rank's bank {r0['local_w1']}; "
+          f"step ms " + " ".join(f"{v:.1f}" for v in r0["step_ms"])
+          + f"; {seconds:.1f} s", flush=True)
+    return {"backend": "gloo", "ranks": DIST_RANKS, "layers": layers,
+            "steps": MOE_RANK_STEPS, "seconds": seconds, "runs": runs}
+
+
+def _moe_rank_lm(dev, tx, ty, start, ep):
+    """``MOE_RANK_STEPS`` eager fused-SGD steps of the MoE LM of phase 22
+    (e) (``MOE_RANK_LAYERS`` blocks, cf = E), on one process (``ep``
+    False) or over ``MeshConfig(expert=2)``: losses, per-step all-to-alls,
+    host-staged ones and K3 launches, step ms, parameters, momenta, the
+    bank a rank holds."""
+    import torch
+    from singa_tpu_torch import opt
+    from singa_tpu_torch.model import load_numpy_states
+    from singa_tpu_torch.models import transformer
+    from singa_tpu_torch.ops import attention as at
+    from singa_tpu_torch.parallel import mesh as M
+    from singa_tpu_torch.parallel import ops as collective
+    from singa_tpu_torch.parallel.gspmd import P
+    m = transformer.TransformerLM(
+        LM["vocab"], d_model=LM["d_model"], n_heads=LM["heads"],
+        n_layers=MOE_RANK_LAYERS, max_len=LM["seq"], tp=False,
+        fused_head_chunk=8192, moe=MOE["moe"], moe_top_k=MOE["moe_top_k"],
+        moe_capacity_factor=float(MOE["moe"]))
+    sgd = opt.SGD(lr=0.1, momentum=0.9, fused=True)
+    if ep:
+        d = opt.DistOpt(sgd, reduce_axes=("data", "expert"))
+        d.communicator.mesh = M.make_mesh(config=M.MeshConfig(expert=2))
+        m.set_optimizer(d)
+        m.input_specs = [P(("data", "expert")), P(("data", "expert"))]
+    else:
+        m.set_optimizer(sgd)
+    m.compile([tx], is_train=True, use_graph=False)
+    load_numpy_states(m, start)
+    rec = {"losses": [], "all_to_all": [], "staged": [], "k3": [],
+           "step_ms": []}
+    for _ in range(MOE_RANK_STEPS):
+        collective.reset_counts()
+        at.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec["losses"].append(float(m(tx, ty)[1].data.detach()))
+        torch.cuda.synchronize()
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["all_to_all"].append(collective.counts["all_to_all"])
+        rec["staged"].append(collective.host_staged["all_to_all"])
+        rec["k3"].append(at.launches["flash_fwd"])
+    rec["params"] = {k: v.data.detach().cpu().numpy()
+                     for k, v in m.get_states().items()}
+    rec["momenta"] = _momenta(m.optimizer)
+    rec["local_w1"] = list(m.blocks[0].mlp.w1.shape)
+    del m
+    torch.cuda.empty_cache()
+    return rec
+
+
+def moe_rank_main(rank, world, work):
+    """One rank of phase 22 (e): joins the gloo group on ``cuda:0``, runs
+    the dense MoE LM and the expert-parallel one, writes what it saw to
+    ``work/rank<rank>.npz``."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, HERE)
+    from singa_tpu_torch import device
+    from singa_tpu_torch.parallel import communicator as C
+    from singa_tpu_torch.tensor import Tensor
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = device.create_cuda_gpu(0)
+    C.init_process(C.NcclIdHolder(file=os.path.join(work, "store")), rank,
+                   world, device=dev, backend="gloo",
+                   timeout_s=DIST_RANK_TIMEOUT_S)
+    try:
+        with np.load(os.path.join(work, "inputs.npz")) as z:
+            inputs = {k: z[k] for k in z.files}
+        start = {k[len("start/"):]: v for k, v in inputs.items()
+                 if k.startswith("start/")}
+        tx = Tensor(data=inputs["ids"], device=dev)
+        ty = Tensor(data=inputs["tgt"], device=dev)
+        dense = _moe_rank_lm(dev, tx, ty, start, ep=False)
+        ep = _moe_rank_lm(dev, tx, ty, start, ep=True)
+        out = {"ep/losses": np.asarray(ep["losses"]),
+               "ep/dense_losses": np.asarray(dense["losses"]),
+               "ep/all_to_all": np.asarray(ep["all_to_all"]),
+               "ep/staged_all_to_all": np.asarray(ep["staged"]),
+               "ep/k3": np.asarray(ep["k3"]),
+               "ep/step_ms": np.asarray(ep["step_ms"]),
+               "ep/local_w1": np.asarray(ep["local_w1"])}
+        for kind, floor in (("param", 0.0), ("momentum", LM_RANK_FLOOR)):
+            top = _state_rel(ep[kind + "s" if kind == "param" else
+                                "momenta"],
+                             dense[kind + "s" if kind == "param" else
+                                   "momenta"], floor)
+            out[f"ep/max_{kind}_rel"] = np.asarray(top[0][0])
+            out[f"ep/top_{kind}"] = np.asarray(
+                [f"{k} {r:.3g}" + (" (floor)" if f else "")
+                 for r, k, f in top])
+        np.savez(os.path.join(work, f"rank{rank}.npz"), **out)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def tp_fsdp_phase(dev, start):
+    """Phase 22 (f): ``TP_FSDP_RANKS`` processes of this script
+    (:func:`tp_fsdp_rank_main`) on the one card over gloo, eager, each
+    ``MOE_RANK_STEPS`` steps of the dense LM (cut to ``MOE_RANK_LAYERS``
+    blocks) on ``train_mesh(data=2, model=2)`` with ``fsdp_axis="data"``,
+    held against the same tensor-parallel run without FSDP (losses
+    ``LM_RANK_LOSS_RTOL``, parameters and momenta ``LM_RANK_STATE_TOL`` of
+    their norms). Reading: a rank's state bytes against the TP run's."""
+    import shutil
+    import tempfile
+    import numpy as np
+    work = tempfile.mkdtemp(prefix="chip_smoke_tpfsdp_")
+    try:
+        tx, ty = lm_data(dev)
+        np.savez(os.path.join(work, "inputs.npz"),
+                 ids=tx.data.cpu().numpy(), tgt=ty.data.cpu().numpy(),
+                 **{f"start/{k}": v for k, v in start.items()})
+        t0 = time.perf_counter()
+        outs = run_ranks("--tp-fsdp-rank", work, "tp fsdp gloo",
+                         ranks=TP_FSDP_RANKS)
+        seconds = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    runs = []
+    for r, o in enumerate(outs):
+        losses, tp = o["fsdp/losses"], o["tp/losses"]
+        rel = float((np.abs(losses - tp) / np.abs(tp)).max())
+        worst = {kind: float(o[f"fsdp/max_{kind}_rel"])
+                 for kind in ("param", "momentum")}
+        check(rel <= LM_RANK_LOSS_RTOL and
+              max(worst.values()) <= LM_RANK_STATE_TOL,
+              f"tp fsdp rank {r}: losses {losses.tolist()} against the TP "
+              f"run's {tp.tolist()} (rtol {LM_RANK_LOSS_RTOL}), parameters "
+              f"{worst['param']:.3g}, momenta {worst['momentum']:.3g} off "
+              f"(tolerance {LM_RANK_STATE_TOL})")
+        share = float(o["fsdp/bytes"]) / float(o["tp/bytes"])
+        check(share <= TP_FSDP_SHARE, f"tp fsdp rank {r}: holds "
+              f"{share:.3f} of the TP run's state bytes (at most "
+              f"{TP_FSDP_SHARE})")
+        runs.append({"losses": losses.tolist(), "tp_losses": tp.tolist(),
+                     "max_loss_rel": rel, "max_param_rel": worst["param"],
+                     "max_momentum_rel": worst["momentum"],
+                     "top_params": o["fsdp/top_param"].tolist(),
+                     "top_momenta": o["fsdp/top_momentum"].tolist(),
+                     "state_bytes": int(o["fsdp/bytes"]),
+                     "tp_state_bytes": int(o["tp/bytes"]),
+                     "bytes_share": share,
+                     "step_ms": o["fsdp/step_ms"].tolist(),
+                     "tp_step_ms": o["tp/step_ms"].tolist()})
+    r0 = runs[0]
+    print(f"tp fsdp: train_mesh(data=2, model=2) over gloo on the card, "
+          f"{TP_FSDP_RANKS} ranks, depth cut to {MOE_RANK_LAYERS} blocks, "
+          f"{MOE_RANK_STEPS} eager steps: losses "
+          + " ".join(f"{v:.5f}" for v in r0["losses"])
+          + " (TP without FSDP "
+          + " ".join(f"{v:.5f}" for v in r0["tp_losses"])
+          + f", rel {max(r['max_loss_rel'] for r in runs):.3g}); parameters "
+          f"within {max(r['max_param_rel'] for r in runs):.3g}, momenta "
+          f"within {max(r['max_momentum_rel'] for r in runs):.3g}; a rank "
+          f"holds {r0['state_bytes']} state bytes against the TP run's "
+          f"{r0['tp_state_bytes']} ({r0['bytes_share']:.3f}); step ms "
+          + " ".join(f"{v:.1f}" for v in r0["step_ms"]) + " (TP "
+          + " ".join(f"{v:.1f}" for v in r0["tp_step_ms"])
+          + f"); {seconds:.1f} s", flush=True)
+    return {"backend": "gloo", "ranks": TP_FSDP_RANKS,
+            "layers": MOE_RANK_LAYERS, "steps": MOE_RANK_STEPS,
+            "seconds": seconds, "runs": runs}
+
+
+def tp_fsdp_rank_main(rank, world, work):
+    """One rank of phase 22 (f): the TP LM on ``train_mesh(data=2,
+    model=2)`` without and with ``fsdp_axis="data"``, every rank given the
+    global batch (``input_specs`` over ``data``)."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, HERE)
+    from singa_tpu_torch import device, opt
+    from singa_tpu_torch.model import load_numpy_states
+    from singa_tpu_torch.models import transformer
+    from singa_tpu_torch.parallel import communicator as C
+    from singa_tpu_torch.parallel import gspmd
+    from singa_tpu_torch.parallel.gspmd import P
+    from singa_tpu_torch.tensor import Tensor
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = device.create_cuda_gpu(0)
+    C.init_process(C.NcclIdHolder(file=os.path.join(work, "store")), rank,
+                   world, device=dev, backend="gloo",
+                   timeout_s=DIST_RANK_TIMEOUT_S)
+    try:
+        with np.load(os.path.join(work, "inputs.npz")) as z:
+            inputs = {k: z[k] for k in z.files}
+        start = {k[len("start/"):]: v for k, v in inputs.items()
+                 if k.startswith("start/")}
+        tx = Tensor(data=inputs["ids"], device=dev)
+        ty = Tensor(data=inputs["tgt"], device=dev)
+        got = {}
+        for name, fsdp in (("tp", None), ("fsdp", "data")):
+            m = transformer.TransformerLM(
+                LM["vocab"], d_model=LM["d_model"], n_heads=LM["heads"],
+                n_layers=MOE_RANK_LAYERS, max_len=LM["seq"], tp=True,
+                fused_head_chunk=8192)
+            m.set_optimizer(opt.DistOpt(
+                opt.SGD(lr=0.1, momentum=0.9, fused=True)))
+            m.input_specs = [P("data"), P("data")]
+            m.compile([tx], is_train=True, use_graph=False,
+                      mesh=gspmd.train_mesh(data=2, model=2),
+                      fsdp_axis=fsdp)
+            load_numpy_states(m, start)
+            losses, times = [], []
+            for _ in range(MOE_RANK_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(float(m(tx, ty)[1].data.detach()))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            got[name] = {
+                "losses": losses, "step_ms": times,
+                "bytes": gspmd.Partitioner.per_device_bytes(
+                    m._state_tensors()),
+                "params": {k: v.data.detach().cpu().numpy()
+                           for k, v in m.get_states().items()},
+                "momenta": _momenta(m.optimizer)}
+            del m
+            torch.cuda.empty_cache()
+        out = {}
+        for name, rec in got.items():
+            out[f"{name}/losses"] = np.asarray(rec["losses"])
+            out[f"{name}/step_ms"] = np.asarray(rec["step_ms"])
+            out[f"{name}/bytes"] = np.asarray(rec["bytes"])
+        for kind, key, floor in (("param", "params", 0.0),
+                                 ("momentum", "momenta", LM_RANK_FLOOR)):
+            top = _state_rel(got["fsdp"][key], got["tp"][key], floor)
+            out[f"fsdp/max_{kind}_rel"] = np.asarray(top[0][0])
+            out[f"fsdp/top_{kind}"] = np.asarray(
+                [f"{k} {r:.3g}" + (" (floor)" if f else "")
+                 for r, k, f in top])
+        np.savez(os.path.join(work, f"rank{rank}.npz"), **out)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def moe_phase(dev):
+    """Phase 22, "moe": (a) the MoE layer against float64, (b) the MoE LM
+    graphed against eager, f32 and bf16, (c) remat and ``bf16_mixed``,
+    (d) generate, (e) expert parallelism over two ranks, (f) tensor
+    parallelism with FSDP over four. Returns the phase's record."""
+    import torch
+    t0 = time.perf_counter()
+    tx, ty = lm_data(dev)
+    start = lm_states(moe_model(dev, tx, train=False), SEED + 22)
+    dense_start = lm_states(lm_model(dev, tx, train=False), SEED + 4)
+    torch.backends.cudnn.deterministic = True
+    layer = moe_layer_check(dev)
+    graphed, (f32_model, plain) = moe_graph_phase(dev, tx, ty, start,
+                                                  dense_start)
+    remat = moe_remat(dev, tx, ty, start, plain)
+    mixed = lm_mixed_phase(dev, tx, ty, start, f32_model, plain["losses"][0],
+                           what="bf16_mixed moe LM", **MOE)
+    del f32_model, plain
+    torch.cuda.empty_cache()
+    generate = lm_generate_phase(dev, tx, start, what="moe generate", **MOE)
+    rank_start = lm_states(transformer_lm(dev, tx, moe=True), SEED + 24)
+    ep = moe_rank_phase(dev, rank_start)
+    fsdp = tp_fsdp_phase(dev, lm_states(transformer_lm(dev, tx), SEED + 25))
+    torch.backends.cudnn.deterministic = False
+    seconds = time.perf_counter() - t0
+    print(f"moe phase: {seconds:.1f} s", flush=True)
+    return {"layer": layer, "graph": graphed, "remat": remat,
+            "bf16_mixed": mixed, "generate": generate, "ep": ep,
+            "tp_fsdp": fsdp, "seconds": seconds}
+
+
+def transformer_lm(dev, tx, moe=False):
+    """An eval LM of ``MOE_RANK_LAYERS`` blocks at ``LM_SHAPE``'s width
+    (with ``MOE``'s experts when ``moe``), for the rank legs' seeded
+    weights (its state names and shapes)."""
+    from singa_tpu_torch.models import transformer
+    m = transformer.TransformerLM(
+        LM["vocab"], d_model=LM["d_model"], n_heads=LM["heads"],
+        n_layers=MOE_RANK_LAYERS, max_len=LM["seq"], tp=False,
+        fused_head_chunk=8192, **(MOE if moe else {}))
+    m.compile([tx], is_train=False)
+    return m
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6402,6 +7225,9 @@ def main():
     torch.cuda.empty_cache()
     # the LM on a mesh (phase 21)
     lm_mesh = lm_mesh_phase(dev)
+    torch.cuda.empty_cache()
+    # the MoE LM, expert parallelism, TP with FSDP (phase 22)
+    moe = moe_phase(dev)
 
     # one line per kernel: its f32 case at main-path shapes, launches from
     # the f32 run of its layout
@@ -6529,6 +7355,18 @@ def main():
         for kname in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
             per_replay.setdefault(kname + suffix, {})["lm_remat"] = \
                 got[kname]
+    # the MoE LM (phase 22 (b), (c)): K3/K4 once per block and K1-multi
+    # per replayed step, f32 and bf16; K3 twice per block with remat
+    for dname, suffix in (("float32", ""), ("bfloat16", "_bf16")):
+        got = moe["graph"][dname]["launches_per_replay"]
+        for kname in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            per_replay.setdefault(kname + suffix, {})["lm_moe"] = \
+                got[kname]
+        per_replay.setdefault("sgd_multi", {})[f"lm_moe_{dname}"] = \
+            got["sgd_multi"]
+    for kname in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        per_replay[kname]["lm_moe_remat"] = \
+            moe["remat"]["launches_per_replay"][kname]
     # the ring path (phase 21 (d)): K3 with pos_delta on each hop
     ring_runs = lm_mesh["ranks"]["sp_ring"]
     ring_per_step = ring_runs[0]["k3_k4dq_ring_per_step"][0][2]
@@ -6573,7 +7411,7 @@ def main():
               "xception_serve": xception_serve, "s2d": s2d,
               "imagenet_zoo": imagenet,
               "dist": dist, "fsdp": fsdp, "image_files": image_files,
-              "lm_mesh": lm_mesh, "kernels": kernels}
+              "lm_mesh": lm_mesh, "moe": moe, "kernels": kernels}
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
@@ -6596,4 +7434,10 @@ if __name__ == "__main__":
     if len(sys.argv) == 5 and sys.argv[1] == "--lm-rank":
         sys.exit(lm_rank_main(int(sys.argv[2]), int(sys.argv[3]),
                               sys.argv[4]))
+    if len(sys.argv) == 5 and sys.argv[1] == "--moe-rank":
+        sys.exit(moe_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                               sys.argv[4]))
+    if len(sys.argv) == 5 and sys.argv[1] == "--tp-fsdp-rank":
+        sys.exit(tp_fsdp_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                                   sys.argv[4]))
     sys.exit(main())

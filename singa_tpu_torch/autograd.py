@@ -923,7 +923,11 @@ def checkpoint(block, x):
     holding non-parameter state (BatchNorm's running statistics, which a
     recompute would update twice) raises ``ValueError``; the block must
     return one Tensor. A dropout inside the block keeps its masks: the
-    recompute reads the forward's draws."""
+    recompute reads the forward's draws. A sublayer's ``aux_loss`` (the
+    MoE load-balance term) read before the backward is the forward's: a
+    loss built from it reaches the router's weights through the
+    checkpoint (the backward's recompute sets the attribute again, to the
+    same value)."""
     from torch.utils.checkpoint import checkpoint as torch_checkpoint
     from .layer import Layer
     if not isinstance(block, Layer):

@@ -51,16 +51,17 @@ with ``--cpu``), takes its ``datasets.partition`` of each global batch
 and evaluation accuracies are summed over the ranks. Without those
 variables ``--dist`` runs a world of 1.
 
-The train mesh and ZeRO/FSDP (``parallel.gspmd``): ``--mesh Dx1`` compiles
-the model with ``mesh=gspmd.train_mesh(data=D)`` (D the ranks of the
-``torchrun`` world; a plain SGD's gradients are averaged over them as
-well), ``--fsdp`` with ``fsdp_axis="data"`` (the parameters and momenta
-held as shards, gathered for each step; without ``--mesh`` the mesh is
-every rank). Without ``torchrun``'s variables they run a world of 1 and
-no mesh is built.
+The train mesh and ZeRO/FSDP (``parallel.gspmd``): ``--mesh DxM`` compiles
+the model with ``mesh=gspmd.train_mesh(data=D, model=M)`` (D x M the ranks
+of the ``torchrun`` world; a plain SGD's gradients are averaged over the D
+data ranks as well; the CNNs announce no tensor-parallel spec, so the M
+model ranks of a data coordinate train replicas on the same rows),
+``--fsdp`` with ``fsdp_axis="data"`` (the parameters and momenta held as
+shards, gathered for each step; without ``--mesh`` the mesh is every
+rank). Without ``torchrun``'s variables they run a world of 1 and no mesh
+is built.
 
-Refused, each naming ROADMAP.md: ``--mesh DxM`` with M > 1 (tensor
-parallelism, slice C2), ``--bucket-mb auto`` (it reads the JAX
+Refused, each naming ROADMAP.md: ``--bucket-mb auto`` (it reads the JAX
 package's measured A/B winner); ``--resilient``, ``--ckpt-dir``,
 ``--save-every``, ``--profile-every``, ``--anomaly-factor`` (the
 fault-tolerant driver, slice E) and ``--telemetry`` (observability, slice
@@ -127,8 +128,9 @@ def build_parser():
     ap.add_argument("--spars", type=float, default=0.05)
     ap.add_argument("--dist", action="store_true")
     ap.add_argument("--mesh", default=None, metavar="DxM",
-                    help="train mesh of D data ranks (M must be 1): "
-                         "Model.compile(mesh=gspmd.train_mesh(data=D))")
+                    help="train mesh of D data by M model ranks: "
+                         "Model.compile(mesh=gspmd.train_mesh(data=D, "
+                         "model=M))")
     ap.add_argument("--fsdp", action="store_true",
                     help="ZeRO/FSDP over the data ranks: "
                          "Model.compile(fsdp_axis='data')")
@@ -158,9 +160,6 @@ def mesh_degrees(spec):
 def _refuse(args):
     """The flags this example does not take yet, each naming ROADMAP.md;
     None when every flag given is ported."""
-    if args.mesh and mesh_degrees(args.mesh)[1] > 1:
-        return f"--mesh {args.mesh}: tensor-parallel training (a model " \
-            "degree above 1) is not ported yet (ROADMAP.md: slice C2)"
     if args.bucket_mb == "auto":
         return "--bucket-mb auto: it reads the JAX package's measured " \
             "bucket A/B (bench.py), which the port has not measured " \
@@ -281,8 +280,12 @@ def train(args, dev, rank, world, bucket_mb):
         say("note: --bucket-mb/--no-overlap shape the gradient collectives "
             "and need --dist; ignored on a single replica")
 
+    # the model ranks of a data coordinate (innermost in the mesh) take
+    # the same rows
+    width = mesh_degrees(args.mesh)[1] if args.mesh else 1
+
     def shard(*arrays):
-        return datasets.partition(rank, world, *arrays)
+        return datasets.partition(rank // width, world // width, *arrays)
 
     input_size = getattr(model, "input_size", None)
     need_resize = (getattr(model, "dimension", 4) == 4
@@ -302,10 +305,10 @@ def train(args, dev, rank, world, bucket_mb):
 
     mesh = None
     if args.mesh or args.fsdp:
-        data, width = mesh_degrees(args.mesh) if args.mesh else (-1, 1)
+        data = mesh_degrees(args.mesh)[0] if args.mesh else -1
         if communicator.initialized():    # else a world of 1, no mesh
             mesh = gspmd.train_mesh(data=data, model=width)
-        say(f"GSPMD train mesh=data{world}xmodel{width}"
+        say(f"GSPMD train mesh=data{world // width}xmodel{width}"
             + (" fsdp=data" if args.fsdp else ""))
     model.compile([stage(shard(train_x[:args.bs])[0])], is_train=True,
                   use_graph=True,

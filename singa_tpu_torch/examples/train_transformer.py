@@ -6,6 +6,8 @@
         --fused-head-chunk 8192 --fused-optim
     torchrun --nproc_per_node 2 singa_tpu_torch/examples/train_transformer.py \\
         --tp 2 [--sp 2] [--generate 16]
+    torchrun --nproc_per_node 2 \\
+        singa_tpu_torch/examples/train_transformer.py --moe 8 --ep 2
 
 The counterpart of ``examples/train_transformer.py``: the same model
 arguments, the same synthetic data (token ids uniform over the vocab from
@@ -15,21 +17,22 @@ one warm-up step, then ``--steps`` steps with the loss every 5 and the
 tokens/s at the end, and with ``--generate N`` N tokens decoded greedily
 from the first row after training. Every attention call runs the
 flash-attention kernels K3 (forward) and K4 (backward); a ring hop runs
-K3 with a position delta. It runs on the card unless ``--cpu`` is given.
+K3 with a position delta. ``--moe N`` replaces each block's FFN by N
+experts (``parallel/moe.py``, top-2, capacity factor 1.25), whose
+load-balance losses join the loss. It runs on the card unless ``--cpu``
+is given.
 
-Under ``torchrun`` (world = tp x sp x data) each rank joins the process
+Under ``torchrun`` (world = tp x sp x ep x data) each rank joins the process
 group: over NCCL on the card ``cuda:LOCAL_RANK`` when every rank has a
 card of its own, else over gloo, the ranks taking the cards in turn
 (NCCL refuses two ranks on one device), and over gloo with ``--cpu``.
 Gloo runs eagerly: a CUDA graph cannot capture its collectives. The mesh is
-``MeshConfig(model=tp, seq=sp)``, the optimizer a ``DistOpt`` with
-``reduce_axes=("data", "expert", "seq")``, and every rank is called with
-the global batch: ``input_specs`` shard it over ``data`` (and its tokens
-over ``seq``), as the JAX example's step does. Without ``torchrun`` the
-example runs one process, with no mesh.
-
-Not ported yet, each refused with a pointer to ROADMAP.md: ``--ep`` above
-1 and ``--moe`` (the expert-parallel FFN).
+``MeshConfig(model=tp, seq=sp, expert=ep)``, the optimizer a ``DistOpt``
+with ``reduce_axes=("data", "expert", "seq")``, and every rank is called
+with the global batch: ``input_specs`` shard it over ``data`` (with
+``--ep`` over ``("data", "expert")``: expert peers hold distinct tokens)
+and its tokens over ``seq``, as the JAX example's step does. Without
+``torchrun`` the example runs one process, with no mesh.
 """
 
 import argparse
@@ -69,21 +72,8 @@ def build_parser():
     return ap
 
 
-def _refuse(args):
-    """What this example does not do yet, each naming ROADMAP.md."""
-    if args.ep > 1:
-        return f"--ep {args.ep}: expert parallelism (parallel/moe.py) is " \
-            "not ported yet (ROADMAP.md)"
-    if args.moe:
-        return "--moe: the expert-parallel FFN is not ported yet (ROADMAP.md)"
-    return None
-
-
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    refused = _refuse(args)
-    if refused:
-        raise SystemExit(refused)
 
     import torch
     from singa_tpu_torch import device
@@ -93,11 +83,12 @@ def main(argv=None):
     launched = "WORLD_SIZE" in os.environ
     rank = int(os.environ["RANK"]) if launched else 0
     world = int(os.environ["WORLD_SIZE"]) if launched else 1
-    if args.tp * args.sp > world:
+    need = args.tp * args.sp * args.ep
+    if need > world:
         raise SystemExit(
-            f"--tp {args.tp} --sp {args.sp} takes {args.tp * args.sp} "
+            f"--tp {args.tp} --sp {args.sp} --ep {args.ep} takes {need} "
             f"ranks or more, this run has {world}: launch it with torchrun "
-            f"--nproc_per_node {args.tp * args.sp}")
+            f"--nproc_per_node {need}")
     # NCCL takes one rank per card: ranks that share a card join over gloo
     cards = torch.cuda.device_count()
     backend = "gloo" if args.cpu or world > cards else "nccl"
@@ -141,6 +132,7 @@ def train(args, dev, rank, world):
         args.vocab, d_model=args.d_model, n_heads=args.heads,
         n_layers=args.layers, max_len=args.seq + args.generate,
         tp=args.tp > 1, seq_axis="seq" if args.sp > 1 else None,
+        moe=args.moe or None,
         fused_head_chunk=args.fused_head_chunk or None,
         compute_dtype=torch.bfloat16 if args.bf16 else None)
     sgd = opt.SGD(lr=0.1, momentum=0.9, fused=args.fused_optim)
@@ -153,17 +145,19 @@ def train(args, dev, rank, world):
         from singa_tpu_torch.parallel.gspmd import P
         dist = opt.DistOpt(sgd, reduce_axes=("data", "expert", "seq"))
         msh = mesh_mod.make_mesh(config=mesh_mod.MeshConfig(
-            model=args.tp, seq=args.sp))
+            model=args.tp, seq=args.sp, expert=args.ep))
         say(f"mesh: {mesh_mod.axis_sizes(msh)} over {world} ranks "
             f"({torch.distributed.get_backend()})")
         dist.communicator.mesh = msh
         set_mesh(msh)
         model.set_optimizer(dist)
-        # every rank takes the global batch; its tokens shard over data
-        # (and seq)
-        spec = P("data", "seq") if args.sp > 1 else P("data")
+        # every rank takes the global batch; its rows shard over every
+        # batch-like axis in use (data, and expert: expert peers hold
+        # distinct tokens), its tokens over seq
+        batch_ax = ("data", "expert") if args.ep > 1 else "data"
+        spec = P(batch_ax, "seq") if args.sp > 1 else P(batch_ax)
         model.input_specs = [spec, spec]
-        if args.sp > 1:
+        if args.sp > 1 or args.ep > 1:
             model.output_specs = [spec, P()]
         # a CUDA graph cannot capture gloo's collectives
         use_graph = not (dev.is_cuda and

@@ -63,12 +63,15 @@ a ``DistOpt`` whose communicator has a mesh (``parallel.mesh.make_mesh``;
 or the process-wide one of ``communicator.set_mesh``, which the
 ``DistOpt`` then takes) runs every train and eval call inside the mesh's
 axis context (``collective_context(*axes)``, ``batch_shard_axes``), so the
-tensor-parallel layers, the vocab-parallel CE head and ring/Ulysses
-attention reach their collectives. With a ``model`` axis above 1,
-:meth:`compile` leaves on each rank its slice of every parameter whose
-announced spec divides the axis (``Tensor.spec``; a
-``gspmd.ShardedLayout`` over the ``model`` group, the one slicing code
-ZeRO uses), and the optimizer states that mirror them follow.
+tensor-parallel layers, the vocab-parallel CE head, ring/Ulysses
+attention and the MoE FFN reach their collectives (``compile(mesh=)``'s
+mesh too). With a ``model`` or ``expert`` axis above 1, :meth:`compile`
+leaves on each rank its block of every parameter whose announced spec
+divides the axis (``Tensor.spec``: the tensor-parallel weights over
+``model``, the expert banks over ``expert``; a ``gspmd.ShardedLayout``
+per axis, the one slicing code ZeRO uses), and the optimizer states
+that mirror them follow; ZeRO/FSDP then cuts each of those blocks along
+its first whole dimension that the data degree divides.
 ``get_states``/``save_states`` gather those shards (collective: every
 rank calls), so the archive has the dense model's names and shapes, and
 :func:`load_numpy_states` cuts full arrays to this rank's shard. With
@@ -80,9 +83,11 @@ outputs, a floating one that leads with the batch comes back global
 other (the loss) is averaged over the reduce axes. Without
 ``input_specs`` the per-rank batches of a ``DistOpt`` stay as they are.
 The gradients are summed over the ``DistOpt``'s ``reduce_axes``
-(``("data", "seq")`` for sequence parallelism): a tensor-parallel shard's
+(``("data", "seq")`` for sequence parallelism, ``("data", "expert")``
+for experts), each but over its own shard axes: a tensor-parallel shard's
 on its own, a parameter replicated over ``model`` alike on the model
-ranks through the f/g pairs.
+ranks through the f/g pairs, an expert bank's over the batch axes but
+``expert`` (its tokens came through the all-to-all).
 """
 
 from __future__ import annotations
@@ -117,6 +122,7 @@ def load_numpy_states(model, states, strict=True):
     whose layers have not run yet has no states: run it once
     (``compile_serving`` does) before loading. Returns the model state
     names loaded."""
+    from .parallel.gspmd import cuts_of, local_part
     mine = model._live_states()
     if not mine:
         raise RuntimeError(
@@ -136,9 +142,7 @@ def load_numpy_states(model, states, strict=True):
             if tuple(arr.shape) != tuple(want):
                 raise ValueError(f"state {k!r}: shape {arr.shape} does not "
                                  f"match the model's {tuple(want)}")
-            if t.sharding:
-                arr = model._state_layout().local(arr, t.sharding[0])
-            t.copy_from_numpy(arr)
+            t.copy_from_numpy(local_part(arr, cuts_of(t)))
             loaded.append(k)
     if strict:
         missing = sorted(set(mine) - set(loaded))
@@ -176,7 +180,7 @@ class Model(Layer):
         self._fsdp_axis = None        # compile(fsdp_axis=)
         self._layout = None           # gspmd.ShardedLayout under FSDP
         self._mesh_step = None        # gspmd.MeshStep of the train step
-        self._tp_layout = None        # gspmd.ShardedLayout over 'model'
+        self._spec_layouts = []       # gspmd.ShardedLayouts, model/expert
         self._step_count = 0          # train calls (time profiling)
         # per-input layouts over the mesh (e.g. [P("data", "seq")] * 2)
         self.input_specs = None
@@ -273,12 +277,13 @@ class Model(Layer):
             optimizer.bind(self.dev)
         if hasattr(optimizer, "bind_model"):
             optimizer.bind_model(self)
+        if optimizer is not None:
+            for lay in self._spec_layouts:
+                lay.adopt(optimizer, lay.comm)
         self._mesh_step = None
         if self._meshed() and optimizer is not None and \
                 self.dev is not None:
             self._mesh_step = self._build_mesh_step()
-        if self._tp_layout is not None and optimizer is not None:
-            self._tp_layout.adopt(optimizer, self._tp_layout.comm)
 
     def compile(self, inputs, is_train=True, use_graph=False,
                 sequential=False, policy=None, mesh=None, fsdp_axis=None):
@@ -329,13 +334,13 @@ class Model(Layer):
             t.name = t.name or name
         if self.optimizer is not None:
             self.optimizer.bind(self.dev)
-        self._shard_model_axis(mesh, fsdp_axis)
         dist = self._dist_opt()
         if fsdp_axis is True:
             fsdp_axis = "data"
         if fsdp_axis is None and dist is not None and dist.zero:
             fsdp_axis = dist.axis_name
         self._gspmd_mesh, self._fsdp_axis = mesh, fsdp_axis
+        self._shard_spec_axes()
         self._mesh_step = None
         if self._meshed() and self.optimizer is not None:
             self._mesh_step = self._build_mesh_step()
@@ -455,18 +460,22 @@ class Model(Layer):
             self._layout = None
             self._mesh_step = None
             self.drop_graphs()
-        if self._tp_layout is not None:
-            self._tp_layout.unshard()
-            self._tp_layout = None
+        if self._spec_layouts:
+            for lay in reversed(self._spec_layouts):
+                lay.unshard()
+            self._spec_layouts = []
             self.drop_graphs()
 
     # -- tensor and sequence parallelism over a mesh ----------------------------
     def _axis_mesh(self):
-        """The mesh the model's ``DistOpt`` trains over: its communicator's,
-        else the process-wide one (``communicator.set_mesh``), which the
-        communicator then takes, as the JAX package's step does; None
-        without a ``DistOpt`` or a mesh."""
+        """The mesh the model trains over: ``compile(mesh=)``'s, else its
+        ``DistOpt``'s communicator's, else the process-wide one
+        (``communicator.set_mesh``), which the communicator then takes, as
+        the JAX package's step does; None without a ``DistOpt`` or a
+        mesh."""
         from .parallel.communicator import process_mesh
+        if self._gspmd_mesh is not None:
+            return self._gspmd_mesh
         dist = self._dist_opt()
         if dist is None:
             return None
@@ -474,38 +483,35 @@ class Model(Layer):
             dist.communicator.mesh = process_mesh()
         return dist.communicator.mesh
 
-    def _shard_model_axis(self, mesh=None, fsdp_axis=None):
-        """Under a mesh whose ``model`` axis is above 1, leave on this
-        rank its slice of every parameter whose announced spec divides the
-        axis, and make the optimizer's mirroring states follow."""
+    def _shard_spec_axes(self):
+        """Under a mesh whose ``model`` or ``expert`` axis is above 1, leave
+        on this rank its block of every parameter whose announced spec
+        divides the axis (a ``gspmd.ShardedLayout`` per axis, ``by_spec``),
+        and make the optimizer's mirroring states follow. ZeRO/FSDP cuts on
+        top of these (``_build_mesh_step``)."""
         from .parallel import gspmd
         from .parallel.communicator import Communicator
         from .parallel.mesh import axis_sizes
         axes = self._axis_mesh()
-        if axes is None or axis_sizes(axes)["model"] <= 1:
+        if axes is None:
             return
-        if mesh is not None or fsdp_axis is not None or \
-                self._dist_opt().zero:
-            raise NotImplementedError(
-                "a model axis above 1 under compile(mesh=/fsdp_axis=) or "
-                "DistOpt(zero=True): tensor parallelism with ZeRO/FSDP is "
-                "not ported yet (ROADMAP.md: gspmd.train_mesh(model>1))")
-        comm = Communicator(axis_name=gspmd.MODEL_AXIS, mesh=axes)
-        self._tp_layout = gspmd.ShardedLayout(
-            comm, axis_sizes(axes), gspmd.MODEL_AXIS,
-            by_spec=True).shard(self.get_params())
-        if self.optimizer is not None:
-            self._tp_layout.adopt(self.optimizer, comm)
+        sizes = axis_sizes(axes)
+        for axis in gspmd.SPEC_AXES:
+            if sizes[axis] <= 1:
+                continue
+            lay = gspmd.ShardedLayout(
+                Communicator(axis_name=axis, mesh=axes), sizes, axis,
+                by_spec=True).shard(self.get_params())
+            if not lay.params:      # nothing announces this axis
+                continue
+            self._spec_layouts.append(lay)
+            if self.optimizer is not None:
+                lay.adopt(self.optimizer, lay.comm)
 
-    def _state_layout(self):
-        """The layout whose shards the model's sharded states are."""
-        return self._layout or self._tp_layout
-
-    def _full_data(self, t):
-        """The full torch tensor of state ``t``: its data, or its shard
-        gathered (collective)."""
-        lay = self._state_layout()
-        return lay.full(t) if t.sharding and lay is not None else t.data
+    def _sharded(self):
+        """Whether some state is cut (ZeRO/FSDP, or a model/expert
+        axis)."""
+        return self._layout is not None or bool(self._spec_layouts)
 
     def _mesh_scope(self):
         """The axis context of the model's mesh (every axis; the batch
@@ -610,11 +616,11 @@ class Model(Layer):
         """Every state Tensor by name. Under ZeRO/FSDP or tensor
         parallelism a sharded one comes back as a new Tensor holding its
         full value (collective)."""
+        from .parallel.gspmd import full_tensor
         states = self._live_states()
-        lay = self._state_layout()
-        if lay is None:
+        if not self._sharded():
             return states
-        return {k: lay.full_tensor(t) if t.sharding else t
+        return {k: full_tensor(t) if t.sharding else t
                 for k, t in states.items()}
 
     def _state_tensors(self):
@@ -748,14 +754,14 @@ class Model(Layer):
             attr[f"aux/{k}"] = {"shape": list(arr.shape),
                                 "dtype": dtype_name(t.dtype) if t is not None
                                 else str(arr.dtype), "aux": True}
-        lay = self._state_layout()
-        if lay is None or _global_rank() == 0:
+        sharded = self._sharded()
+        if not sharded or _global_rank() == 0:
             buf = io.BytesIO()
             np.savez(buf, **arrays)
             with zipfile.ZipFile(fpath, "w") as zf:
                 zf.writestr(TENSOR_DICT_FILENAME, buf.getvalue())
                 zf.writestr(STATES_ATTR_FILENAME, json.dumps(attr))
-        if lay is not None:
+        if sharded:
             _barrier()
 
     def load_states(self, fpath):

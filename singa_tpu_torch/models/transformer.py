@@ -3,10 +3,11 @@ hand-written flash-attention kernels K3/K4.
 
 Counterpart of ``singa_tpu/models/transformer.py:33-487``: ``_Positions``,
 :class:`MultiHeadAttention` (three separate q/k/v projections, so the
-state names match), :class:`TransformerBlock` (dense GELU FFN),
+state names match), :class:`TransformerBlock` (dense GELU FFN, or with
+``moe`` the Mixture-of-Experts FFN of ``parallel/moe.py``),
 :class:`TransformerLM` (``forward``, ``train_one_batch`` with both loss
-paths, ``compute_dtype``, ``remat``, ``generate``) and
-:func:`create_model`. Every attention call goes through
+paths and the MoE aux losses, ``compute_dtype``, ``remat``, ``generate``)
+and :func:`create_model`. Every attention call goes through
 ``ops.attention.attention``: kernel K3 forward and K4 backward on the
 card.
 
@@ -24,17 +25,21 @@ included (with ``fused_head_chunk`` the CE loss reduces across vocab
 shards online); ``seq_axis`` (``'seq'``) switches attention to ring or
 Ulysses sequence parallelism (``seq_mode``) and the positions to global
 ones, with the caller setting ``Model.input_specs = [P('data', 'seq'),
-...]``. ``remat`` rematerialises each block in the backward
-(``autograd.checkpoint``: K3 runs twice per block per step).
+...]``; ``moe`` experts shard over the ``expert`` axis, the tokens over
+``input_specs = [P(('data', 'expert')), ...]``. ``remat`` rematerialises
+each block in the backward (``autograd.checkpoint``: K3 runs twice per
+block per step; the loss adds the MoE aux losses of the forward, read
+before the backward).
 
 :meth:`TransformerLM.generate` decodes with a static KV cache on one
 device, from the live weights (a sharded model's gathered): one causal
 prefill, then one token a step, attention as plain einsum/softmax as in
-the JAX package (``:405-433``), which runs no Pallas kernel there.
+the JAX package (``:405-433``), which runs no Pallas kernel there; a MoE
+block decodes through the same MoE op with the expert axis inactive and
+a drop-free capacity (cf = E, ``:374-392``).
 
-Not ported yet, each raising ``NotImplementedError`` naming ROADMAP.md:
-``moe`` (the expert-parallel FFN) and ``decode_adapter`` (LM serving,
-slice D).
+Not ported yet, raising ``NotImplementedError`` naming ROADMAP.md:
+``decode_adapter`` (LM serving, slice D).
 """
 
 from __future__ import annotations
@@ -119,15 +124,23 @@ class TransformerBlock(layer.Layer):
     def __init__(self, d_model, n_heads, d_ff=None, causal=True, tp=True,
                  seq_axis=None, moe=None, moe_top_k=None,
                  moe_capacity_factor=1.25, seq_mode="ring"):
+        """``moe``: the number of experts; the dense FFN is then a
+        :class:`~..parallel.moe.MoEFFN` over the mesh ``expert`` axis
+        (``self.mlp.aux_loss`` is valid inside the same
+        ``train_one_batch``). ``moe_top_k`` defaults to ``min(2, moe)``."""
         super().__init__()
-        if moe:
-            raise _not_ported("moe (the expert-parallel FFN)")
         d_ff = d_ff or 4 * d_model
         self.ln1 = layer.LayerNorm()
         self.attn = MultiHeadAttention(d_model, n_heads, causal, tp,
                                        seq_axis, seq_mode=seq_mode)
         self.ln2 = layer.LayerNorm()
-        self.mlp = tp_mod.TPMLP(d_ff, d_model, activation="gelu")
+        if moe:
+            from ..parallel.moe import MoEFFN
+            top_k = moe_top_k if moe_top_k is not None else min(2, moe)
+            self.mlp = MoEFFN(moe, d_ff, top_k=top_k,
+                              capacity_factor=moe_capacity_factor)
+        else:
+            self.mlp = tp_mod.TPMLP(d_ff, d_model, activation="gelu")
 
     def forward(self, x):
         x = autograd.add(x, self.attn(self.ln1(x)))
@@ -136,6 +149,10 @@ class TransformerBlock(layer.Layer):
 
 class TransformerLM(model.Model):
     """GPT-style language model with next-token loss.
+
+    ``moe``: experts per block (the MoE FFN over the ``expert`` mesh axis);
+    the blocks' load-balance aux losses join the training loss scaled by
+    ``moe_aux_weight``. ``moe_top_k`` defaults to ``min(2, moe)``.
 
     ``compute_dtype`` (e.g. ``torch.bfloat16``): cast the summed
     embeddings to this dtype, so every downstream layer initialises its
@@ -150,8 +167,6 @@ class TransformerLM(model.Model):
                  seq_mode="ring", fused_head_chunk=None,
                  compute_dtype=None):
         super().__init__()
-        if moe:
-            raise _not_ported("moe (the expert-parallel FFN)")
         self.compute_dtype = compute_dtype
         self.vocab_size = vocab_size
         self.d_model = d_model
@@ -162,10 +177,11 @@ class TransformerLM(model.Model):
         self.tok_emb = tp_mod.VocabParallelEmbedding(vocab_size, d_model)
         self.pos_emb = layer.Embedding(max_len, d_model)
         self._pos = _Positions(seq_axis)
-        self.blocks = [TransformerBlock(d_model, n_heads, causal=causal,
-                                        tp=tp, seq_axis=seq_axis,
-                                        seq_mode=seq_mode)
-                       for _ in range(n_layers)]
+        self.blocks = [TransformerBlock(
+            d_model, n_heads, causal=causal, tp=tp, seq_axis=seq_axis,
+            moe=moe, moe_top_k=moe_top_k,
+            moe_capacity_factor=moe_capacity_factor, seq_mode=seq_mode)
+            for _ in range(n_layers)]
         self.ln_f = layer.LayerNorm()
         self.head = tp_mod.ColumnParallelLinear(vocab_size,
                                                 gather_output=True)
@@ -197,7 +213,7 @@ class TransformerLM(model.Model):
             loss = fused_softmax_cross_entropy(
                 h, self.head.W, self.head.b, targets, self.fused_head_chunk,
                 axis_name=ax)
-            out = loss
+            out = None
         else:
             logits = self.forward(ids)
             if self.compute_dtype is not None:
@@ -209,8 +225,17 @@ class TransformerLM(model.Model):
             oh_flat = autograd.reshape(onehot, (B * S, V))
             loss = autograd.softmax_cross_entropy(flat, oh_flat)
             out = logits
+        if self.moe:
+            for blk in self.blocks:
+                aux = blk.mlp.aux_loss
+                if aux.dtype != torch.float32:
+                    aux = autograd.astype(aux, np.float32)
+                loss = autograd.add(loss, autograd.mul(
+                    aux, float(self.moe_aux_weight)))
         self.optimizer(loss)
-        return out, loss
+        # the fused head has no logits: the total loss (with the MoE aux)
+        # fills the output slot, so both outputs are what the step took
+        return (loss if out is None else out), loss
 
     def generate(self, ids, max_new_tokens, temperature=1.0, top_k=None,
                  seed=0):
@@ -235,21 +260,28 @@ def _decode_weights(m):
     gathered) in f32: the JAX package's decode promotes its f32
     activations against bf16 weights, so upcasting the weights once is
     the same arithmetic."""
+    from ..parallel.gspmd import full_data
+
     def w(t):
-        return m._full_data(t).detach().float()
+        return full_data(t).detach().float()
 
     blocks = []
     for blk in m.blocks:
         at, mlp = blk.attn, blk.mlp
-        blocks.append(dict(
-            ln1_s=w(blk.ln1.scale), ln1_b=w(blk.ln1.bias),
-            wq=w(at.q_proj.W), bq=w(at.q_proj.b),
-            wk=w(at.k_proj.W), bk=w(at.k_proj.b),
-            wv=w(at.v_proj.W), bv=w(at.v_proj.b),
-            wo=w(at.proj.W), bo=w(at.proj.b),
-            ln2_s=w(blk.ln2.scale), ln2_b=w(blk.ln2.bias),
-            w_up=w(mlp.up.W), b_up=w(mlp.up.b),
-            w_dn=w(mlp.down.W), b_dn=w(mlp.down.b)))
+        p = dict(ln1_s=w(blk.ln1.scale), ln1_b=w(blk.ln1.bias),
+                 wq=w(at.q_proj.W), bq=w(at.q_proj.b),
+                 wk=w(at.k_proj.W), bk=w(at.k_proj.b),
+                 wv=w(at.v_proj.W), bv=w(at.v_proj.b),
+                 wo=w(at.proj.W), bo=w(at.proj.b),
+                 ln2_s=w(blk.ln2.scale), ln2_b=w(blk.ln2.bias))
+        if hasattr(mlp, "up"):
+            p.update(w_up=w(mlp.up.W), b_up=w(mlp.up.b),
+                     w_dn=w(mlp.down.W), b_dn=w(mlp.down.b))
+        else:
+            # every expert, gathered; "wg" marks the MoE path below
+            p.update({k: w(getattr(mlp, k))
+                      for k in ("wg", "w1", "b1", "w2", "b2")})
+        blocks.append(p)
     return dict(tok=w(m.tok_emb.W), pos=w(m.pos_emb.W),
                 lnf_s=w(m.ln_f.scale), lnf_b=w(m.ln_f.bias),
                 head_w=w(m.head.W), head_b=w(m.head.b), blocks=blocks)
@@ -306,7 +338,21 @@ def _decode(m, ids, max_new_tokens, temperature=1.0, top_k=None, seed=0,
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
 
+    moe_op = None
+    if m.moe:
+        # the training MoE op with the expert axis inactive (the gathered
+        # weights hold every expert) and drop-free capacity: cf = E makes
+        # C = k T, so none of a step's few tokens is dropped
+        from ..parallel.moe import _MoEFFN
+        mlp0 = m.blocks[0].mlp
+        moe_op = _MoEFFN(mlp0.n_experts, mlp0.top_k,
+                         float(mlp0.n_experts), None, ())
+
     def mlp(p, h2):
+        if "wg" in p:
+            y, _aux = moe_op.forward(h2.reshape(-1, h2.shape[-1]), p["wg"],
+                                     p["w1"], p["b1"], p["w2"], p["b2"])
+            return y.reshape(h2.shape)
         up = torch.nn.functional.gelu(h2 @ p["w_up"] + p["b_up"],
                                       approximate="tanh")
         return up @ p["w_dn"] + p["b_dn"]

@@ -46,10 +46,11 @@ optimizer's :meth:`Optimizer.update_params`, so the fused step stays one
 multi-tensor call.
 
 Under ZeRO/FSDP (``DistOpt(zero=True)`` or ``Model.compile(fsdp_axis=)``,
-``parallel.gspmd``) an optimizer's ``layout`` is the model's
-``ShardedLayout``: the states that mirror a sharded parameter
-(``<param>:<kind>``) are this rank's shards of it, made from the shard
-that the update hands them, and :meth:`Optimizer.get_states` /
+``parallel.gspmd``), and for a tensor- or expert-parallel model, an
+optimizer's ``layouts`` are the model's ``ShardedLayout`` objects: the states
+that mirror a sharded parameter (``<param>:<kind>``) are this rank's
+block of it, made from the block that the update hands them, and
+:meth:`Optimizer.get_states` /
 :meth:`Optimizer.set_states` gather and cut them (collectively), so their
 names, shapes and host arrays are those of a replicated run;
 :meth:`Optimizer.state_tensor_dict` gives the live shards.
@@ -175,7 +176,7 @@ class Optimizer:
         self._lr_multipliers = {}
         self._step_cache = {}         # per-step device scalars
         self._touched = None          # in _apply_masked: aux -> its before
-        self.layout = None            # parallel.gspmd.ShardedLayout
+        self.layouts = []             # parallel.gspmd.ShardedLayouts
 
     # -- device binding ---------------------------------------------------
     def bind(self, device):
@@ -380,15 +381,17 @@ class Optimizer:
                 for k, v in self.state_tensor_dict().items()}
 
     def _host(self, t):
-        if t.sharding is not None and self.layout is not None:
-            t = self.layout.full_tensor(t)
+        if t.sharding is not None:
+            from .parallel.gspmd import full_tensor
+            t = full_tensor(t)
         return t.to_numpy()
 
     def set_states(self, states):
         """Restore from ``get_states`` output (host arrays) into a bound
         optimizer. A live aux state keeps its dtype; a new one takes the
         array's. Under a ``layout`` the state of a sharded parameter takes
-        this rank's slice of the array."""
+        this rank's block of the array."""
+        from .parallel.gspmd import cuts_of, local_part
         if self.device is None:
             raise RuntimeError(
                 "set_states needs the optimizer's device: bind it first "
@@ -401,18 +404,19 @@ class Optimizer:
                 continue
             t = self._aux.get(k)
             if t is not None:
-                dim = t.sharding[0] if t.sharding is not None else None
-            elif self.layout is not None:       # a sharded param's state
-                dim = self.layout.dims.get(k.rpartition(":")[0])
-            else:
-                dim = None
-            part = arr if dim is None else self.layout.local(arr, dim)
+                cuts = cuts_of(t)
+            else:                   # a new state mirrors its parameter's cuts
+                param = next((lay.named[k.rpartition(":")[0]]
+                              for lay in self.layouts
+                              if k.rpartition(":")[0] in lay.named), None)
+                cuts = cuts_of(param) if param is not None else ()
+            part = local_part(arr, cuts)
             if t is not None:
                 t.copy_from_numpy(part)
                 continue
             t = self._aux[k] = Tensor(data=part, device=self.device, name=k)
-            if dim is not None:
-                t.sharding = (dim, arr.shape)
+            if cuts:
+                t.sharding = (cuts, arr.shape)
 
 
 class SGD(Optimizer):
@@ -669,8 +673,19 @@ class DistOpt:
     (:meth:`reduced_mean`), the update runs on the shards, and its half,
     partial and sparse drivers raise ``gspmd.ShardingDecline`` (they keep
     replicated states); outside such a model's train step the plain
-    driver raises too. ``reduce_axes`` beyond the data axis raise
-    (ROADMAP.md). ``nccl_id``, ``buffSize`` and a driver's ``threshold``
+    driver raises too.
+
+    ``reduce_axes`` (e.g. ``("data", "expert", "seq")``) are the mesh axes
+    gradients are summed over (``Communicator(reduce_axes=)``): every axis
+    that splits the batch. A parameter sharded over an axis (its
+    ``Tensor.spec``: ``expert`` for an expert bank, ``model`` for a
+    tensor-parallel shard) holds distinct values on that axis's ranks, so
+    its gradient's sum skips the axis (``_shard_axes``, per parameter, in
+    every driver; buckets group gradients by the axes they skip). The
+    average still divides by the full batch-shard count over every reduce
+    axis: an expert's gradient already holds its peers' tokens through the
+    all-to-all's transpose. ``nccl_id``, ``buffSize`` and a driver's
+    ``threshold``
     are accepted for parity and ignored; ``world_size`` is the process
     group's (an explicit value that disagrees raises).
     """
@@ -758,6 +773,20 @@ class DistOpt:
         self.backward_and_update(loss)
 
     # -- collectives ------------------------------------------------------
+    @staticmethod
+    def _shard_axes(p):
+        """The mesh axes ``p`` is sharded over (its ``Tensor.spec``), sorted:
+        per-shard gradients on those axes are distinct values, not replicas,
+        so their sum skips those axes (``singa_tpu/opt.py:620-635``)."""
+        spec = getattr(p, "spec", None)
+        axes = set()
+        for entry in spec or ():
+            if isinstance(entry, (tuple, list)):
+                axes.update(entry)
+            elif entry is not None:
+                axes.add(entry)
+        return tuple(sorted(axes))
+
     def all_reduce(self, arr, exclude=(), async_op=False):
         return self.communicator.all_reduce(arr, exclude=exclude,
                                             async_op=async_op)
@@ -841,39 +870,44 @@ class DistOpt:
         return arr
 
     def _buckets(self, pairs, wire):
-        """``(wire dtype, members)`` in the order their collectives start:
-        each gradient alone without ``bucket_mb``; else a bucket as soon as
-        its bytes reach the target, the partly filled ones at the end in
-        the order they were opened."""
+        """``((skipped axes, wire dtype), members)`` in the order their
+        collectives start: each gradient alone without ``bucket_mb``; else
+        a bucket per key as soon as its bytes reach the target, the partly
+        filled ones at the end in the order they were opened. Gradients
+        that skip different axes never share a collective."""
         if not self.bucket_mb:
             for p, g in pairs:
-                yield (wire if wire is not None else g.data.dtype), [(p, g)]
+                yield (self._shard_axes(p), wire if wire is not None
+                       else g.data.dtype), [(p, g)]
             return
         target = int(self.bucket_mb * (1 << 20))
-        buckets = {}          # wire dtype -> [members, bytes]
+        buckets = {}          # (skipped axes, wire dtype) -> [members, bytes]
         for p, g in pairs:
             eff = wire if wire is not None else g.data.dtype
-            slot = buckets.setdefault(eff, [[], 0])
+            key = (self._shard_axes(p), eff)
+            slot = buckets.setdefault(key, [[], 0])
             slot[0].append((p, g))
             slot[1] += g.data.numel() * eff.itemsize
             if slot[1] >= target:
-                yield eff, buckets.pop(eff)[0]
-        for eff, (items, _n) in buckets.items():
-            yield eff, items
+                yield key, buckets.pop(key)[0]
+        for key, (items, _n) in buckets.items():
+            yield key, items
 
-    def _flush_bucket(self, eff, items):
-        """Start one bucket's collective (``async_op=True``): its members'
-        gradients cast to ``eff`` and concatenated (a lone member is
-        reduced as it is). Returns each member with its view of the
-        reduced buffer, to be read after :meth:`Communicator.wait`."""
+    def _flush_bucket(self, key, items):
+        """Start one bucket's collective (``async_op=True``) over the reduce
+        axes but the bucket's skipped ones: its members' gradients cast to
+        the key's wire dtype and concatenated (a lone member is reduced as
+        it is). Returns each member with its view of the reduced buffer, to
+        be read after :meth:`Communicator.wait`."""
+        exclude, eff = key
         casts = [g.data if g.data.dtype == eff else g.data.to(eff)
                  for _p, g in items]
         if len(items) == 1:
             buf = casts[0].contiguous()
-            self.all_reduce(buf, async_op=True)
+            self.all_reduce(buf, exclude=exclude, async_op=True)
             return [(items[0][0], items[0][1], buf)]
         buf = torch.cat([c.reshape(-1) for c in casts])
-        self.all_reduce(buf, async_op=True)
+        self.all_reduce(buf, exclude=exclude, async_op=True)
         out, off = [], 0
         for (p, g), c in zip(items, casts):
             out.append((p, g, buf[off:off + c.numel()].view(c.shape)))
@@ -891,8 +925,8 @@ class DistOpt:
         if wire is None:
             wire = self._policy_wire()
         started = []
-        for eff, items in self._buckets(pairs, wire):
-            started += self._flush_bucket(eff, items)
+        for key, items in self._buckets(pairs, wire):
+            started += self._flush_bucket(key, items)
             if not self.overlap:
                 self.communicator.wait()
         self.communicator.wait()
@@ -958,7 +992,8 @@ class DistOpt:
             grad = g.data
             if clipping:
                 grad = torch.clamp(grad, -clip_value, clip_value)
-            g.data = self.all_reduce(grad.to(wire)).float()
+            g.data = self.all_reduce(grad.to(wire),
+                                     exclude=self._shard_axes(p)).float()
             pairs.append((p, g))
         self._update(self._mean(pairs))
 
@@ -981,13 +1016,15 @@ class DistOpt:
             rot = int(rotation) % n
             chosen = [(p, g) for i, (p, g) in enumerate(pairs)
                       if i % n == rot]
-            for _p, g in chosen:
-                g.data = self.all_reduce(g.data)
+            for p, g in chosen:
+                g.data = self.all_reduce(g.data,
+                                         exclude=self._shard_axes(p))
             self._mean(chosen)
         else:
             step = self.opt.step_counter.data
-            for i, (_p, g) in enumerate(pairs):
-                summed = self.all_reduce(g.data.clone())
+            for i, (p, g) in enumerate(pairs):
+                summed = self.all_reduce(g.data.clone(),
+                                         exclude=self._shard_axes(p))
                 sel = torch.remainder(step + i, n) == 0
                 g.data = torch.where(sel, summed / n, g.data)
         self.opt.update_params(pairs)
@@ -1025,6 +1062,6 @@ class DistOpt:
             sparse = torch.where(mask, grad, 0.0)
             if corr:
                 res.data.copy_(grad - sparse)
-            g.data = self.all_reduce(sparse)
+            g.data = self.all_reduce(sparse, exclude=self._shard_axes(p))
             pairs.append((p, g))
         self._update(self._mean(pairs))

@@ -47,7 +47,7 @@ import torch.distributed as dist
 
 __all__ = ["NcclIdHolder", "init_process", "Communicator",
            "collective_context", "active_communicator", "active_axis",
-           "axis_size", "axis_index", "axis_group",
+           "axis_size", "axis_index", "axis_group", "axes_group_of",
            "batch_shard_axes", "active_batch_axes", "get_mesh", "set_mesh",
            "partitioner", "rescale_batch", "replica_fingerprint"]
 
@@ -225,6 +225,18 @@ class Communicator:
     def _reduce_axes(self, exclude=()):
         return tuple(a for a in self.reduce_axes if a not in exclude)
 
+    def _one_rank(self, axes):
+        """Whether ``axes`` (other than the data axis alone) span this rank
+        only: none of the mesh's is above degree 1, or, without a mesh,
+        the process group is of one rank."""
+        if axes == (self.axis_name,):
+            return False
+        if self.mesh is None:
+            return dist.get_world_size() == 1
+        from .mesh import axis_sizes
+        sizes = axis_sizes(self.mesh)
+        return all(sizes.get(a, 1) <= 1 for a in axes)
+
     def _group_of(self, axes):
         """The process group over ``axes`` of the mesh (None: the default
         group, without a mesh)."""
@@ -260,7 +272,8 @@ class Communicator:
     def effective_world_size(self, exclude=()) -> int:
         """Ranks taking part in a gradient sum: the size of the group of
         the reduce axes not in ``exclude``, 1 outside a process group."""
-        if not self.active(exclude):
+        if not self.active(exclude) or \
+                self._one_rank(self._reduce_axes(exclude)):
             return 1
         return dist.get_world_size(self._group_of(
             self._reduce_axes(exclude)))
@@ -275,11 +288,11 @@ class Communicator:
         """Sum ``arr`` over the ranks, in place; returns ``arr``."""
         if self.active(exclude):
             axes = self._reduce_axes(exclude)
-            group = self._group_of(axes)
-            if axes != (self.axis_name,) and dist.get_world_size(group) == 1:
+            if self._one_rank(axes):
                 return arr      # reduce axes of one rank: a sum of one
             self._count("all_reduce", dist.all_reduce(
-                arr, group=group, async_op=async_op), async_op)
+                arr, group=self._group_of(axes), async_op=async_op),
+                async_op)
         return arr
 
     def all_reduce_grad(self, arr):
@@ -417,6 +430,21 @@ def axis_group(axis_name: str):
     if m is None:
         raise RuntimeError(f"mesh axis {axis_name!r} is not active")
     return m.get_group(axis_name)
+
+
+def axes_group_of(axes):
+    """The process group of this rank and the ranks that differ from it
+    only along the active axes among ``axes`` (one mesh's, row-major over
+    them, as ``lax.psum`` over an axis tuple spans them), or None when
+    none is active."""
+    from .mesh import axes_group
+    live = tuple(a for a in axes if active_axis(a))
+    if not live:
+        return None
+    meshes = {id(_frame(a)) for a in live}
+    if len(meshes) != 1:
+        raise RuntimeError(f"axes {live} are active over different meshes")
+    return axes_group(_frame(live[0]), live)
 
 
 @contextlib.contextmanager

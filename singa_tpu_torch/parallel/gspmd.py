@@ -25,7 +25,9 @@ parameters, and the optimizer states that mirror them (``<param>:<kind>``,
 the f32 masters under ``bf16_mixed`` being the parameters themselves), as
 shards: a parameter's data between steps is this rank's contiguous slice
 along the dimension :func:`fsdp_state_spec` shards, and its
-``Tensor.sharding`` is ``(dim, full shape)``. A step all-gathers every
+``Tensor.sharding`` is ``(cuts, full shape)``, the cuts ``(layout, dim)``
+innermost first (:func:`cuts_of`, :func:`full_data`,
+:func:`local_part`). A step all-gathers every
 sharded parameter into its full tensor, runs forward and backward on
 them, reduce-scatters each of their gradients into this rank's slice
 (divided by the world with the rest), puts the shard back as the
@@ -38,15 +40,19 @@ dimension the degree divides stay replicated and are averaged as under a
 and a guard's scalars and shadows stay replicated too: sync-BN gives every
 rank the same values, and they are a small share of the bytes.
 
-The tensor-parallel layout of ``Model`` under a ``model`` axis above 1 is a
-:class:`ShardedLayout` too (``by_spec``: the parameters' announced specs
-choose the dimension), so both share one slicing code.
+The tensor- and expert-parallel layouts of ``Model`` under a ``model`` or
+``expert`` axis above 1 are :class:`ShardedLayout` objects too (``by_spec``:
+the parameters' announced specs choose the dimension), so all share one
+slicing code, and ZeRO/FSDP cuts on top of them (:func:`fsdp_state_spec`:
+the first dimension still whole that the data degree divides), the
+``model`` axis of :func:`train_mesh` included. Reduce-scattering an
+FSDP shard's gradient sums it over the data ranks and, through the
+``DistOpt``, over the other reduce axes but the parameter's own shard
+axes.
 
-Not ported: a train mesh with ``model`` > 1 (tensor parallelism with
-ZeRO/FSDP, ROADMAP.md slice C2), the expert axis, pipeline stages
-(``stage`` > 1, slice E), and the serving half of the module (the
-serving mesh, partitioner and rule tables, slice D); each raises naming
-ROADMAP.md.
+Not ported: pipeline stages (``stage`` > 1, slice E) and the serving half
+of the module (the serving mesh, partitioner and rule tables, slice D);
+each raises naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -59,11 +65,13 @@ import torch
 from ..autograd_base import register_param
 from ..tensor import Tensor
 
-__all__ = ["BATCH_AXIS", "MODEL_AXIS", "DATA_AXIS", "ShardingDecline",
+__all__ = ["BATCH_AXIS", "MODEL_AXIS", "DATA_AXIS", "EXPERT_AXIS",
+           "SPEC_AXES", "ShardingDecline",
            "PartitionSpec", "P", "replicated_spec", "col_spec",
            "col_bias_spec", "row_spec", "vocab_spec", "expert_spec",
            "batch_spec", "fit_state_spec", "fsdp_state_spec", "fsdp_dim",
            "train_degrees", "train_mesh", "Partitioner", "ShardedLayout",
+           "cuts_of", "full_data", "full_tensor", "local_part",
            "MeshStep", "step_scope", "active_step", "active_layout",
            "active_reducer", "serving_mesh", "serving_partitioner",
            "lm_param_specs", "ring_cache_specs", "pool_specs",
@@ -73,6 +81,9 @@ BATCH_AXIS = "batch"
 MODEL_AXIS = "model"
 # the training batch axis (serving's is BATCH_AXIS)
 DATA_AXIS = "data"
+EXPERT_AXIS = "expert"
+# the axes whose announced specs a model keeps cut between steps
+SPEC_AXES = (MODEL_AXIS, EXPERT_AXIS)
 
 
 class ShardingDecline(ValueError):
@@ -238,27 +249,26 @@ def train_mesh(data=-1, model=1, stage=1, device_type=None):
     (``parallel.communicator.init_process``): a ``DeviceMesh`` from
     ``parallel.mesh.make_mesh``, ``stage`` bound to its ``pipe`` axis name
     as in the JAX package. Degrees are decided by :func:`train_degrees`.
-    The port's data mesh covers every rank (each rank is a process that
+    The port's mesh covers every rank (each rank is a process that
     trains), so a subset of the ranks raises :class:`ShardingDecline`;
-    ``model`` > 1 and ``stage`` > 1 raise ``NotImplementedError``."""
+    ``stage`` > 1 raises ``NotImplementedError``. A ``model`` degree above
+    1 trains the tensor-parallel layers over its axis (``Model.compile(
+    mesh=)``, with ZeRO/FSDP over ``data`` on top when asked)."""
     from . import mesh as mesh_mod
     deg = train_degrees(mesh_mod._world(), data, model, stage)
-    if deg["model"] > 1:
-        raise NotImplementedError(
-            f"train mesh model={deg['model']}: tensor-parallel training "
-            "is not ported yet (ROADMAP.md: slice C2)")
     if deg["pipe"] > 1:
         raise NotImplementedError(
             f"train mesh stage={deg['pipe']}: pipeline stages "
             "(parallel/pipeline.py) are not ported yet (ROADMAP.md: "
             "slice E)")
     world = mesh_mod._world()
-    if deg["data"] != world:
+    covered = deg["data"] * deg["model"]
+    if covered != world:
         raise ShardingDecline(
-            f"train mesh data={deg['data']} covers {deg['data']} of the "
-            f"{world} ranks: each rank of the port is a process that "
-            "trains, so the data axis spans every rank: launch that "
-            "many ranks or pass data=-1")
+            f"train mesh data={deg['data']} model={deg['model']} covers "
+            f"{covered} of the {world} ranks: each rank of the port is a "
+            "process that trains, so the mesh spans every rank: launch "
+            "that many ranks or pass data=-1")
     return mesh_mod.make_mesh(device_type, mesh_mod.MeshConfig(
         data=deg["data"], model=deg["model"], pipe=deg["pipe"]))
 
@@ -332,30 +342,70 @@ def _local(full, dim, rank, world):
     return part.clone(memory_format=torch.contiguous_format)
 
 
+def cuts_of(t):
+    """The cuts of Tensor ``t``: ``((layout, dim), ...)``, innermost
+    first (``Tensor.sharding`` is ``(cuts, full shape)``); () for a whole
+    tensor."""
+    return t.sharding[0] if t.sharding else ()
+
+
+def full_data(t):
+    """The full torch tensor of state ``t``: every cut gathered, the
+    outermost first (collective: every rank calls it); ``t.data`` for a
+    whole tensor."""
+    data = t.data
+    for lay, dim in reversed(cuts_of(t)):
+        data = lay.gather(data.detach(), dim, t.name)
+    return data
+
+
+def full_tensor(t):
+    """A new Tensor holding the full value of ``t`` (collective)."""
+    return Tensor(data=full_data(t), device=t.device, name=t.name,
+                  requires_grad=t.requires_grad, stores_grad=t.stores_grad)
+
+
+def local_part(full, cuts):
+    """This rank's block of ``full`` (torch or numpy) under ``cuts``."""
+    for lay, dim in cuts:
+        full = lay.local(full, dim)
+    return full
+
+
 class ShardedLayout:
-    """The ZeRO/FSDP layout of one model over the ``axis`` ranks of
-    ``comm`` (module docstring). ``sizes`` is the mesh's axis table.
-    ``by_spec`` makes it the tensor-parallel layout instead: a parameter
-    is sharded along the dimension its announced ``Tensor.spec`` gives
-    ``axis`` (mesh-fitted by :func:`fit_state_spec`), and never gathered
-    for a step (``Model`` keeps it over the ``model`` axis)."""
+    """One cut of a model's parameters, and of the optimizer states that
+    mirror them, over the ``axis`` ranks of a mesh (module docstring):
+    ZeRO/FSDP by default, or with ``by_spec`` a tensor- or expert-parallel
+    layout, each parameter cut along the dimension its announced
+    ``Tensor.spec`` gives ``axis`` (mesh-fitted by
+    :func:`fit_state_spec`) and never gathered for a step (``Model`` keeps
+    it over the ``model`` and ``expert`` axes). ``sizes`` is the mesh's
+    axis table and ``comm`` a ``Communicator``; its gathers and scatters
+    run over ``axis`` (``comm`` itself when ``axis`` is its axis, else
+    one over ``axis`` of ``comm``'s mesh).
+
+    Cuts stack: an FSDP layout made after a spec layout cuts each
+    parameter on its first dimension that is still whole and divides the
+    ``axis`` degree (:func:`fsdp_state_spec` on top of the announced spec),
+    so ``Tensor.sharding`` lists every cut, innermost first
+    (:func:`cuts_of`), beside the full shape. A layout undoes only its
+    own cut, the outermost."""
 
     def __init__(self, comm, sizes, axis=DATA_AXIS, by_spec=False):
+        from .communicator import Communicator
         _check_axis(sizes, axis)
         if axis != comm.axis_name:
-            raise NotImplementedError(
-                f"fsdp axis {axis!r}: the port shards over the data axis "
-                f"{comm.axis_name!r} only; the tensor- and expert-sharded "
-                "axes are not ported yet (ROADMAP.md: slice C2)")
+            comm = Communicator(axis_name=axis, mesh=comm.mesh)
         self.comm = comm
         self.sizes = sizes
         self.axis = axis
         self.by_spec = by_spec
-        self.world = comm.effective_world_size()
+        self.world = int(sizes[axis])
         self.rank = comm.rank()
         self.dims = {}          # parameter name -> its sharded dimension
-        self.params = []        # the live parameter Tensors it shards
-        self.optimizer = None   # the base optimizer it shards the states of
+        self.named = {}         # parameter name -> the Tensor it cut
+        self.params = []        # the live parameter Tensors it cuts
+        self.optimizer = None   # the base optimizer it cuts the states of
         self._held = None       # inside gathered(): id -> (param, shard)
 
     def local(self, full, dim):
@@ -363,93 +413,111 @@ class ShardedLayout:
         along ``dim``."""
         return _local(full, dim, self.rank, self.world)
 
-    def full(self, t):
-        """The full tensor of the sharded Tensor ``t``: an all-gather (a
-        collective: every rank calls it)."""
+    def gather(self, part, dim, name=None):
+        """The ranks' ``part`` concatenated along ``dim``: an all-gather
+        (a collective: every rank calls it)."""
         if self.world > 1 and not self.comm.active():
             raise RuntimeError(
-                f"{t.name}: a shard of {self.world} ranks is gathered over "
+                f"{name}: a shard of {self.world} ranks is gathered over "
                 "their process group, which is no longer initialised")
-        return self.comm.all_gather(t.data.detach(), t.sharding[0])
+        return self.comm.all_gather(part, dim)
+
+    def _dim(self, t):
+        return next(d for lay, d in cuts_of(t) if lay is self)
+
+    def full(self, t):
+        """``t`` with this layout's cut gathered (collective)."""
+        return self.gather(t.data.detach(), self._dim(t), t.name)
 
     def _cut(self, t, dim):
-        """Replace ``t``'s full data by this rank's slice."""
-        shape = tuple(t.shape)
+        """Replace ``t``'s data by this rank's slice along ``dim``."""
+        cuts, shape = t.sharding if t.sharding else ((), tuple(t.shape))
         param = t.data.requires_grad
         t.data = self.local(t.data.detach(), dim)
         if param:
             register_param(t)
-        t.sharding = (dim, shape)
+        t.sharding = (cuts + ((self, dim),), shape)
 
     def _join(self, t):
-        """Replace ``t``'s shard by the full tensor (collective)."""
+        """Undo this layout's cut of ``t``, its outermost (collective)."""
+        cuts, shape = t.sharding
+        if cuts[-1][0] is not self:
+            raise RuntimeError(f"{t.name}: another layout's cut is on top")
         param = t.data.requires_grad
         t.data = self.full(t)
         if param:
             register_param(t)
-        t.sharding = None
+        t.sharding = (cuts[:-1], shape) if len(cuts) > 1 else None
+
+    def _rule_dim(self, t):
+        """The dimension this layout cuts ``t`` along, or None."""
+        shape = t.sharding[1] if t.sharding else tuple(t.shape)
+        if self.by_spec:
+            spec = fit_state_spec(t.spec, shape, self.sizes)
+            return list(spec).index(self.axis) if self.axis in spec \
+                else None
+        # ZeRO/FSDP: the first dimension the degree divides among those no
+        # other layout cut (as before the layers announced specs, where
+        # none did); a tensor already cut over this axis holds distinct
+        # blocks on its ranks, not replicas, and stays as it is
+        taken = {d: lay.axis for lay, d in cuts_of(t)}
+        if self.axis in taken.values():
+            return None
+        return fsdp_dim(P(*[taken.get(d) for d in range(len(shape))]),
+                        shape, self.sizes, self.axis)
 
     def shard(self, named_params):
-        """Shard each parameter of ``{name: Tensor}`` that the layout's rule
-        shards (:func:`fsdp_dim`); returns self."""
+        """Cut each parameter of ``{name: Tensor}`` that the layout's rule
+        cuts; returns self."""
         for name, t in named_params.items():
-            if self.by_spec:
-                spec = fit_state_spec(t.spec, tuple(t.shape), self.sizes)
-                dim = list(spec).index(self.axis) \
-                    if self.axis in spec else None
-            else:
-                # ZeRO/FSDP as before the layers announced specs: the
-                # first dimension the degree divides
-                dim = fsdp_dim(None, tuple(t.shape), self.sizes, self.axis)
+            dim = self._rule_dim(t)
             if dim is None:
                 continue
             self.dims[name] = dim
+            self.named[name] = t
             self.params.append(t)
             self._cut(t, dim)
         return self
 
     def adopt(self, optimizer, comm):
-        """Shard the states of ``optimizer`` (a plain, guarded or
-        ``DistOpt`` one) that mirror a sharded parameter, and make its
-        later ones shards too (``Optimizer.layout``); gather and scatter
-        through ``comm`` (the step's, over the same ranks) from now on."""
-        self.comm = comm
+        """Cut the states of ``optimizer`` (a plain, guarded or ``DistOpt``
+        one) that mirror a parameter this layout cuts, and make its later
+        ones cut too (``Optimizer.layouts``); gather and scatter through
+        ``comm`` (the step's, over the same ranks) from now on when it
+        runs over this layout's axis."""
+        if comm.axis_name == self.axis:
+            self.comm = comm
         base = base_optimizer(optimizer)
-        if base is self.optimizer:
-            return
-        if self.optimizer is not None:
-            self.optimizer.layout = None
+        if self.optimizer is not None and self.optimizer is not base:
+            self.optimizer.layouts.remove(self)
         self.optimizer = base
-        base.layout = self
+        if self not in base.layouts:
+            base.layouts.append(self)
         for key, t in base._aux.items():
             dim = self.dims.get(key.rpartition(":")[0])
-            if dim is not None and t.sharding is None:
+            if dim is not None and \
+                    not any(lay is self for lay, _ in cuts_of(t)):
                 self._cut(t, dim)
 
     def unshard(self):
-        """Every sharded parameter and optimizer state back to its full
-        tensor (collective); the layout is done."""
+        """Every parameter and optimizer state this layout cut back to what
+        it was before the cut (collective); the layout is done."""
         for t in self.params:
             self._join(t)
         if self.optimizer is not None:
             for t in self.optimizer._aux.values():
-                if t.sharding is not None:
+                if any(lay is self for lay, _ in cuts_of(t)):
                     self._join(t)
-            self.optimizer.layout = None
-        self.params, self.dims, self.optimizer = [], {}, None
-
-    def full_tensor(self, t):
-        """A new Tensor holding the full value of ``t`` (collective)."""
-        return Tensor(data=self.full(t), device=t.device, name=t.name,
-                      requires_grad=t.requires_grad,
-                      stores_grad=t.stores_grad)
+            self.optimizer.layouts.remove(self)
+        self.params, self.dims, self.named = [], {}, {}
+        self.optimizer = None
 
     @contextlib.contextmanager
     def gathered(self):
-        """Every sharded parameter's full tensor as its data (a parameter
-        leaf) within; its shard again after. A gradient reduced by
-        :meth:`reduce_mean` within puts its parameter's shard back at
-        once, so the update writes the shard."""
+        """Every parameter this layout cuts with its cut gathered as its
+        data (a parameter leaf) within; its shard again after. A gradient
+        reduced by :meth:`reduce_mean` within puts its parameter's shard
+        back at once, so the update writes the shard."""
         if self._held is not None:
             yield
             return
@@ -469,11 +537,13 @@ class ShardedLayout:
 
     def reduce_mean(self, pairs, dist, wire=None):
         """Backward's ``(param, grad)`` pairs averaged over the ranks: a
-        sharded parameter's gradient reduce-scattered into this rank's
-        slice (on the ``wire`` dtype, as ``dist``'s reduction sends it)
-        and the parameter's shard put back; every other gradient through
-        ``dist.grad_reduce_stream``; then ``dist._mean``, the one division
-        by the world. Returns the pairs in their order."""
+        gradient of a parameter gathered for the step reduce-scattered into
+        this rank's slice (on the ``wire`` dtype, as ``dist``'s reduction
+        sends it; a slice without a sum where ``axis`` is not one ``dist``
+        sums over) and summed over ``dist``'s other reduce axes but the
+        parameter's own shard axes, its shard put back; every other
+        gradient through ``dist.grad_reduce_stream``; then ``dist._mean``,
+        the one division by the world. Returns the pairs in their order."""
         pairs = list(pairs)
         if wire is None:
             wire = dist._policy_wire()
@@ -483,9 +553,15 @@ class ShardedLayout:
         for p, g in pairs:
             if id(p) not in held:
                 continue
+            own = dist._shard_axes(p)
             eff = wire if wire is not None else g.data.dtype
             send = g.data if g.data.dtype == eff else g.data.to(eff)
-            part = self.comm.reduce_scatter(send, p.sharding[0])
+            if self.axis in dist.communicator.reduce_axes and \
+                    self.axis not in own:
+                part = self.comm.reduce_scatter(send, self._dim(p))
+            else:
+                part = self.local(send, self._dim(p))
+            part = dist.all_reduce(part, exclude=own + (self.axis,))
             g.data = dist._wire_cast_back(part, g.data.dtype, wire)
             p.data = held[id(p)][1]
         return dist._mean(pairs)

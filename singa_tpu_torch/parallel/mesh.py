@@ -9,8 +9,8 @@ over the ranks of the initialised process group
 other axis whose degree is above 1, in the JAX package's axis order and
 rank layout (row-major, ``model`` innermost: rank r holds the shard that
 JAX device r holds, so weights carry across shard for shard). The
-``data``, ``seq`` and ``model`` axes run; an ``expert`` or ``pipe`` degree
-above 1 raises (ROADMAP.md: MoE and pipeline stages). :func:`axis_sizes`
+``data``, ``expert``, ``seq`` and ``model`` axes run; a ``pipe`` degree
+above 1 raises (ROADMAP.md: pipeline stages, slice E). :func:`axis_sizes`
 reads a mesh as the JAX package's axis table, the absent axes at degree
 1, as the JAX package keeps them; :func:`axis_rank` is a rank's
 coordinate on an axis and :func:`axes_group` the process group of the
@@ -73,17 +73,15 @@ def make_mesh(device_type=None, config: MeshConfig | None = None):
     ``data`` axis and each other axis of degree above 1, in
     :attr:`MeshConfig.axis_order` (a data-only config gives the one-axis
     mesh named ``data``). ``device_type`` defaults to ``"cuda"`` under
-    NCCL and ``"cpu"`` otherwise. An ``expert`` or ``pipe`` degree above
-    1 raises."""
+    NCCL and ``"cpu"`` otherwise. A ``pipe`` degree above 1 raises."""
     from torch.distributed.device_mesh import init_device_mesh
     cfg = config or MeshConfig()
     deg = cfg.degrees(_world())
-    unported = {a: deg[a] for a in ("expert", "pipe") if deg[a] > 1}
-    if unported:
+    if deg["pipe"] > 1:
         raise NotImplementedError(
-            f"mesh axes {unported}: the data, seq and model axes are "
-            "ported; expert parallelism (parallel/moe.py, slice C2) and "
-            "pipeline stages (slice E) are not (ROADMAP.md)")
+            f"mesh axis pipe={deg['pipe']}: pipeline stages "
+            "(parallel/pipeline.py) are not ported yet (ROADMAP.md: slice "
+            "E)")
     names = tuple(a for a in cfg.axis_order if a == "data" or deg[a] > 1)
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
@@ -134,7 +132,8 @@ def axes_group(mesh, axes):
     collectives over an axis tuple are. One axis is ``mesh.get_group``;
     several are made once per mesh, by every rank in the same order
     (``torch.distributed.new_subgroups_by_enumeration``); none is the
-    first axis's group of one rank."""
+    first axis's group (of one rank only when that axis's degree is 1:
+    the caller checks the degrees)."""
     names = tuple(mesh.mesh_dim_names)
     sizes = dict(zip(names, mesh.mesh.shape))
     live = tuple(a for a in names if a in axes and sizes[a] > 1)

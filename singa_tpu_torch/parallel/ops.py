@@ -13,6 +13,7 @@ pairs):
     AllGather        fwd gather         bwd take-own-shard
     ReduceScatter    fwd psum_scatter   bwd all_gather
     PMean            fwd pmean          bwd / axis size
+    PMeanAxes        fwd pmean          bwd pmean           (axis tuple)
     AllToAll         fwd all_to_all     bwd the reverse exchange
     Shift            fwd ring shift +k  bwd ring shift -k (ring attention)
 
@@ -42,13 +43,15 @@ import torch.distributed as dist
 
 from ..autograd_base import Operator, _OperatorFunction
 from ..tensor import Tensor
-from .communicator import (active_axis, axis_group, axis_index, axis_size,
-                           gather_over, scatter_sum_over)
+from .communicator import (active_axis, axes_group_of, axis_group,
+                           axis_index, axis_size, gather_over,
+                           scatter_sum_over)
 
 __all__ = ["AllReduce", "CopyToParallel", "AllGather", "ReduceScatter",
-           "PMean", "AllToAll", "Shift", "all_reduce", "copy_to_parallel",
-           "all_gather", "reduce_scatter", "pmean", "all_to_all",
-           "ring_shift", "psum", "pmax", "gather", "psum_scatter",
+           "PMean", "PMeanAxes", "AllToAll", "Shift", "all_reduce",
+           "copy_to_parallel", "all_gather", "reduce_scatter", "pmean",
+           "pmean_axes", "all_to_all", "ring_shift", "psum", "pmax",
+           "gather", "psum_scatter",
            "exchange", "shift", "counts", "host_staged", "reset_counts"]
 
 KINDS = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all",
@@ -79,16 +82,27 @@ def _stages(x, group):
 
 # -- the raw collectives (torch tensors) ----------------------------------------
 
-def psum(x, axis_name, op=None):
-    """The sum (or ``op``) of ``x`` over ``axis_name``'s ranks: a new
-    tensor; ``x`` itself when the axis is not active."""
-    if not _live(axis_name):
+def psum(x, axes, op=None):
+    """The sum (or ``op``) of ``x`` over the ranks of ``axes``, a mesh
+    axis's name or a tuple of names (one all-reduce over the group that
+    spans their active ones): a new tensor; ``x`` itself when they span
+    one rank."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    if _ranks(axes) == 1:
         return x
     out = x.contiguous().clone()
     dist.all_reduce(out, op=op or dist.ReduceOp.SUM,
-                    group=axis_group(axis_name))
+                    group=axes_group_of(axes))
     counts["all_reduce"] += 1
     return out
+
+
+def _ranks(axes):
+    """The ranks the active axes among ``axes`` span together."""
+    n = 1
+    for a in axes:
+        n *= axis_size(a)
+    return n
 
 
 def pmax(x, axis_name):
@@ -249,6 +263,27 @@ class PMean(Operator):
         return dy / axis_size(self.axis_name)
 
 
+class PMeanAxes(Operator):
+    """pmean over a tuple of mesh axes (the batch axes of an average that
+    must be global, as the MoE aux loss's token means are). Backward is
+    the JAX package's transpose of ``lax.pmean``: the pmean of the
+    cotangent over the same axes."""
+
+    def __init__(self, axes=("data",)):
+        super().__init__()
+        self.axes = tuple(axes)
+
+    def _mean(self, x):
+        n = _ranks(self.axes)
+        return x if n == 1 else psum(x, self.axes) / n
+
+    def forward(self, x):
+        return self._mean(x)
+
+    def backward(self, dy):
+        return self._mean(dy)
+
+
 class AllToAll(Operator):
     """Tiled all-to-all over a mesh axis (split ``split_axis`` across the
     axis peers, concatenate what each sends back along ``concat_axis``).
@@ -313,6 +348,10 @@ def reduce_scatter(x, axis_name="model", scatter_axis=-1):
 
 def pmean(x, axis_name="data"):
     return _apply(PMean(axis_name), x)
+
+
+def pmean_axes(x, axes=("data",)):
+    return _apply(PMeanAxes(axes), x)
 
 
 def all_to_all(x, axis_name="expert", split_axis=0, concat_axis=1):

@@ -36,10 +36,12 @@ loss verdict is summed over the ranks, so a NaN on one rank skips the step
 on every rank. Its half, partial and sparse drivers pass through
 unguarded, as in the JAX package. In the train step of a model compiled
 with a mesh (``parallel.gspmd``) a plain inner optimizer's gradients are
-averaged the same way, through the step's ``DistOpt``. Under ZeRO/FSDP a
-sharded parameter's gradient is this rank's shard: the global squared
-norm is the sum of the replicated gradients' and the all-reduced sum of
-the shards', so every rank reaches the same verdict.
+averaged the same way, through the step's ``DistOpt``. A parameter cut
+over mesh axes (ZeRO/FSDP, a tensor-parallel ``model`` or an
+expert-parallel ``expert`` layout) has its gradient as this rank's block:
+the global squared norm is the whole gradients' plus, per set of cut
+axes, the blocks' summed over those axes' ranks, so every rank reaches
+the same verdict.
 
 The host reads them only in :meth:`GuardedOptimizer.stats`,
 :meth:`~GuardedOptimizer.bad_streak_value` and the checkpoint routes.
@@ -288,20 +290,33 @@ class GuardedOptimizer:
 
     @staticmethod
     def _norm_sq(pairs, g32, zero):
-        """The global squared norm of the unscaled gradients ``g32``: under
-        ZeRO/FSDP the replicated ones' plus the all-reduced sum of this
-        rank's shards' (``Tensor.sharding`` of the parameter)."""
-        from ..parallel.gspmd import active_layout
+        """The global squared norm of the unscaled gradients ``g32``. A
+        gradient of a parameter cut over mesh axes (``gspmd.cuts_of``:
+        ZeRO/FSDP's axis, a tensor-parallel layout's ``model``, an expert
+        layout's ``expert``) is this rank's block of it, so the squares of
+        the gradients cut over the same axes are summed over those axes'
+        ranks (one all-reduce per set of axes, in the same order on every
+        rank) and added to the whole gradients' own: every rank reaches the
+        same verdict."""
+        from ..parallel.communicator import Communicator
+        from ..parallel.gspmd import cuts_of
 
         def sq(ts):
             return torch.sum(torch.stack(torch._foreach_norm(ts)).square()) \
                 if ts else zero
-        layout = active_layout()
-        if layout is None:
-            return sq(g32)
-        shards = [a for (p, _), a in zip(pairs, g32) if p.sharding]
-        whole = [a for (p, _), a in zip(pairs, g32) if not p.sharding]
-        return sq(whole) + layout.comm.all_reduce(sq(shards).clone())
+        by_axes = {}
+        for (p, _), a in zip(pairs, g32):
+            cuts = cuts_of(p)
+            axes = tuple(sorted({lay.axis for lay, _ in cuts}))
+            by_axes.setdefault(axes, (cuts[0][0] if cuts else None, []))[
+                1].append(a)
+        total = sq(by_axes.pop((), (None, []))[1])
+        for axes in sorted(by_axes):
+            lay, ts = by_axes[axes]
+            comm = lay.comm if axes == (lay.axis,) else Communicator(
+                axis_name=lay.axis, mesh=lay.comm.mesh, reduce_axes=axes)
+            total = total + comm.all_reduce(sq(ts).clone())
+        return total
 
     def _restore_shadows(self, ok):
         """Forward-mutated state: its last good value on a bad step; the

@@ -140,17 +140,22 @@ REFUSED = [["--dist"], ["--mesh", "2x1"], ["--fsdp"], ["--bucket-mb", "4"],
 def test_refused_flags_name_the_roadmap(example, flag):
     """Each flag is refused naming ROADMAP.md, except the data-parallel
     ones ported since (``--dist``, ``--bucket-mb``, ``--no-overlap``,
-    ``--mesh Dx1``, ``--fsdp``), which ``_refuse`` lets through (their
-    runs are ``tests/test_torch_dist_example.py``); ``--mesh DxM`` with
-    M > 1 (tensor parallelism) names slice C2."""
+    ``--mesh DxM``, ``--fsdp``), which ``_refuse`` lets through (their
+    runs are ``tests/test_torch_dist_example.py``, ``--mesh 2x2`` among
+    them); one process cannot tile a 2 x 2 mesh, which declines naming
+    the devices it has."""
     if flag[0] in ("--dist", "--bucket-mb", "--no-overlap", "--mesh",
                    "--fsdp"):
         assert example._refuse(example.build_parser().parse_args(
             ["cnn"] + flag + ["--cpu"])) is None
         if flag[0] != "--mesh":
             return
-        flag = ["--mesh", "2x2"]
+        assert example._refuse(example.build_parser().parse_args(
+            ["cnn", "--mesh", "2x2", "--cpu"])) is None
+        from singa_tpu_torch.parallel.gspmd import ShardingDecline
+        with pytest.raises(ShardingDecline, match="cannot tile the 1"):
+            example.main(["cnn", "--mesh", "2x2", "--cpu"])
+        return
     with pytest.raises(SystemExit, match="ROADMAP.md") as e:
         example.main(["cnn"] + flag + ["--cpu"])
-    part = "slice C2" if flag[0] == "--mesh" else "slice E"
-    assert part in str(e.value) and flag[0] in str(e.value)
+    assert "slice E" in str(e.value) and flag[0] in str(e.value)

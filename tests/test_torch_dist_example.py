@@ -11,7 +11,10 @@ world-1 run within rtol 1e-5 (the mean of two half-batch means against
 the full batch's mean differs by rounding only). ``--mesh 2x1 --fsdp``
 (a plain SGD, no ``--dist``) runs the same two ranks through the train
 mesh and ZeRO/FSDP: bitwise the ``--dist`` run (two ranks sum a + b
-exactly, and the update is elementwise).
+exactly, and the update is elementwise). ``--mesh 2x2 --fsdp`` at four
+ranks: the two model ranks of each data coordinate train replicas on the
+same rows (the MLP announces no tensor-parallel spec), bitwise the
+``--dist`` run too.
 """
 
 import numpy as np
@@ -84,3 +87,19 @@ def test_two_ranks_under_the_mesh_and_fsdp(runs, tmp_path_factory, npz):
             np.testing.assert_array_equal(_states(o)[k], v, err_msg=k)
     assert "GSPMD train mesh=data2xmodel1 fsdp=data" in logs[0]
     assert "Evaluation accuracy" in logs[0] and "Training loss" not in logs[1]
+
+
+def test_four_ranks_under_a_2x2_mesh(runs, tmp_path_factory, npz):
+    argv = [a for a in ARGV if a != "--dist"] + [
+        "--mesh", "2x2", "--fsdp", "--npz", str(npz)]
+    outs, logs = ranks.launch("example", 4, {"argv": np.asarray(argv)},
+                              tmp_path_factory.mktemp("example_2x2"),
+                              torchrun_env=True)
+    (dist, _), _ = runs
+    want = _states(dist[0])
+    for o in outs:
+        np.testing.assert_array_equal(o["losses"], dist[0]["losses"])
+        assert sorted(_states(o)) == sorted(want)
+        for k, v in want.items():
+            np.testing.assert_array_equal(_states(o)[k], v, err_msg=k)
+    assert "GSPMD train mesh=data2xmodel2 fsdp=data" in logs[0]

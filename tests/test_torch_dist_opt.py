@@ -205,10 +205,14 @@ def test_communicator_primitives_and_mesh(ranked):
         assert int(o["mesh/size"]) == WORLD
         np.testing.assert_array_equal(o["mesh/all_reduce"],
                                       np.full(2, WORLD))
-        # the model axis is ported; the expert axis waits for MoE
+        # the model and expert axes are ported: each a group of its own
+        # over every rank, in the JAX rank layout
         assert o["mesh/model"].tolist() == [str(("data", "model")),
                                             str((1, WORLD))]
-        assert "ROADMAP" in str(o["mesh/expert_refused"])
+        assert o["mesh/expert"].tolist() == [str(("data", "expert")),
+                                             str((1, WORLD))]
+        np.testing.assert_array_equal(o["mesh/expert_group"],
+                                      [WORLD, r, r])
         assert not bool(o["fingerprint/differs"])
         # DistOpt's world is the group's; a world that disagrees raises
         np.testing.assert_array_equal(o["comm/dist_world"], [WORLD, r])

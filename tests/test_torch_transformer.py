@@ -304,17 +304,14 @@ def _tiny_pair(**kw):
 @pytest.mark.parametrize("kw", [dict(remat=True), dict(moe=2),
                                 dict(seq_axis="seq")], ids=str)
 def test_what_is_not_ported_names_the_roadmap(kw):
-    """``moe`` is still refused naming ROADMAP.md. Ported since:
-    ``remat`` (its training runs: ``tests/test_torch_remat.py``) and
+    """Each of these was once refused naming ROADMAP.md and is ported now:
+    ``remat`` (its training runs: ``tests/test_torch_remat.py``),
     ``seq_axis`` (``tests/test_torch_lm_sp.py``, ring and Ulysses over a
-    mesh); each of these cases is a tiny eval forward against the JAX
+    mesh) and ``moe`` (``tests/test_torch_lm_moe.py``: the MoE FFN of
+    ``parallel/moe.py``); each case is a tiny eval forward against the JAX
     package's model of the same settings and weights (outside an active
-    mesh axis ``seq_axis`` is plain flash attention in both), within
-    ``LOGIT_TOL`` of the largest |logit|."""
-    if "moe" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttransformer.TransformerLM(VOCAB, **kw)
-        return
+    mesh axis ``seq_axis`` is plain flash attention in both, and the MoE
+    FFN the dense one), within ``LOGIT_TOL`` of the largest |logit|."""
     tm, jm, tx, jx = _tiny_pair(**kw)
     got, want = tm(tx).to_numpy(), np.asarray(jm(jx).data)
     assert got.shape == (B, S, VOCAB)
@@ -360,33 +357,31 @@ def test_example_trains_on_the_cpu(example, capsys, extra):
                                   ["--ep", "2"], ["--moe", "2"],
                                   ["--generate", "4"]], ids=str)
 def test_example_refuses_what_is_not_ported(example, argv, capsys):
-    """``--ep`` and ``--moe`` are still refused naming ROADMAP.md. Ported
-    since: ``--tp`` and ``--sp``, which ``_refuse`` lets through and which
-    take torchrun's ranks (their runs at two gloo ranks:
-    ``tests/test_torch_lm_tp.py``, ``tests/test_torch_lm_sp.py``; one
-    process exits naming torchrun), and ``--generate``, which decodes
-    greedily after training (here on the CPU, the tokens those of the
-    JAX package's ``generate`` from the trained weights)."""
-    if argv[0] in ("--ep", "--moe"):
-        with pytest.raises(SystemExit, match="ROADMAP"):
-            example.main(argv + ["--cpu"])
-        return
-    assert example._refuse(example.build_parser().parse_args(
-        argv + ["--cpu"])) is None
-    if argv[0] != "--generate":
+    """Each of these flags was once refused naming ROADMAP.md and is
+    ported now. ``--tp``, ``--sp`` and ``--ep`` take torchrun's ranks
+    (their runs at two gloo ranks: ``tests/test_torch_lm_tp.py``,
+    ``tests/test_torch_lm_sp.py``, ``tests/test_torch_lm_moe.py``; one
+    process exits naming torchrun). ``--generate`` decodes greedily after
+    training, and ``--moe`` trains the MoE LM (here with ``--generate``
+    too): on the CPU the tokens are those of the JAX package's
+    ``generate`` from the trained weights."""
+    if argv[0] in ("--tp", "--sp", "--ep"):
         with pytest.raises(SystemExit, match="torchrun"):
             example.main(argv + ["--cpu"])
         return
-    model = example.main(argv + ["--cpu", "--bs", "2", "--seq", "8",
-                                 "--d-model", "32", "--heads", "2",
-                                 "--layers", "1", "--vocab", "48",
-                                 "--steps", "2"])
+    moe = argv if argv[0] == "--moe" else []
+    extra = ["--generate", "4"] if moe else argv
+    model = example.main(moe + extra + [
+        "--cpu", "--bs", "2", "--seq", "8", "--d-model", "32", "--heads",
+        "2", "--layers", "1", "--vocab", "48", "--steps", "2"])
     out = capsys.readouterr().out
     line = [x for x in out.splitlines() if x.startswith("generated:")]
     assert len(line) == 1
     got = [int(t) for t in line[0].split("[")[1].rstrip("]").split(",")]
+    assert float(model.optimizer.get_states()["step_counter"]) == 3
     jm = jtransformer.TransformerLM(48, d_model=32, n_heads=2, n_layers=1,
-                                    max_len=12, tp=False)
+                                    max_len=12, tp=False,
+                                    moe=int(moe[1]) if moe else None)
     ids = np.random.RandomState(0).randint(0, 48, (2, 8)).astype(np.float32)
     jm(jtensor.Tensor(data=ids, device=jdevice.create_cpu_device(),
                       requires_grad=False))

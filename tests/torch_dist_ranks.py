@@ -57,7 +57,35 @@ LM_RUNS = {
     "tp_v32_fused": dict(model=2, vocab=32, fused_head_chunk=8),
     "tp_sp": dict(model=2, seq=2, vocab=31, seq_axis="seq",
                   seq_mode="ring", remat=True),
+    # the MoE LM (tests/test_moe.py's: 4 experts) on an expert mesh; the
+    # capacity is drop-free (cf = E) so that a rank's capacity, from its
+    # local tokens, drops what the dense run's drops: nothing
+    "moe_ep2": dict(expert=2, vocab=31, moe=4, moe_capacity_factor=4.0,
+                    d_model=16),
+    "moe_ep2_fused": dict(expert=2, vocab=31, moe=4,
+                          moe_capacity_factor=4.0, d_model=16,
+                          fused_head_chunk=8),
 }
+# the runs whose archive is restored into a fresh model of the mesh:
+# name -> the archive's file name
+ARCHIVE_RUNS = {"tp_v32_fused": "tp.zip", "moe_ep2_fused": "moe.zip"}
+# the MoE net of tests/test_moe.py::MoENet on expert meshes, by world:
+# name -> the mesh's degrees; "zero" adds ZeRO/FSDP over data on top of the
+# expert cut, its DistOpt summing over ("data", "expert", "seq") (seq of
+# degree 1: an expert bank's FSDP shard then sums over no axis at all);
+# "fsdp" shards over that axis instead (compile(fsdp_axis=)): over
+# "expert" the router is cut and the banks, cut over it already, are not
+MOE_RUNS = {2: {"ep2": dict(expert=2)},
+            4: {"ep4": dict(expert=4), "ep2_dp2": dict(expert=2),
+                "ep2_dp2_zero": dict(expert=2, zero=True),
+                "ep2_dp2_fsdp_expert": dict(expert=2, fsdp="expert")}}
+MOE_STEPS = 4
+# tensor parallelism under ZeRO/FSDP: train_mesh(data=2, model=2), the TP
+# LM of vocab 32 (its ends shard) without FSDP, with compile(fsdp_axis=)
+# and with DistOpt(zero=True), and with FSDP over "model" (the weights
+# replicated over it cut there, their gradients no sum over it)
+TP_FSDP_RUNS = ("tp", "tp_fsdp", "tp_zero", "tp_fsdp_model")
+TP_FSDP_STEPS = LM_STEPS
 # the mesh whose rank layout is read, by world
 MESH_LAYOUTS = {2: dict(model=2), 4: dict(seq=2, model=2)}
 # the collectives of parallel/ops.py: name -> (op, its arguments)
@@ -204,6 +232,33 @@ def gspmd_mlp():
             return out, loss
 
     return MLP()
+
+
+def moe_net(n_experts=4, d_ff=16, top_k=2, capacity_factor=8.0):
+    """The port's counterpart of ``tests/test_moe.py::MoENet``: x ->
+    ``MoEFFN`` -> mean-square loss against targets, plus 0.01 of the aux
+    loss."""
+    from singa_tpu_torch import autograd, layer, model
+    from singa_tpu_torch.parallel import moe
+
+    class MoENet(model.Model):
+        def __init__(self):
+            super().__init__()
+            self.ffn = moe.MoEFFN(n_experts, d_ff, top_k=top_k,
+                                  capacity_factor=capacity_factor)
+            self.loss_fn = layer.MeanSquareError()
+
+        def forward(self, x):
+            return self.ffn(x)
+
+        def train_one_batch(self, x, y):
+            out = self.forward(x)
+            loss = self.loss_fn(out, y)
+            loss = autograd.add(loss, autograd.mul(self.ffn.aux_loss, 0.01))
+            self.optimizer(loss)
+            return out, loss
+
+    return MoENet()
 
 
 def drop_bn_model():
@@ -387,11 +442,14 @@ def case_dist_opt(rank, world, dev, inputs):
     tp_mesh = M.make_mesh(config=M.MeshConfig(model=world))
     out["mesh/model"] = np.asarray([str(tp_mesh.mesh_dim_names),
                                     str(tuple(tp_mesh.mesh.shape))])
-    try:
-        M.make_mesh(config=M.MeshConfig(expert=world))
-        out["mesh/expert_refused"] = np.asarray("")
-    except NotImplementedError as e:
-        out["mesh/expert_refused"] = np.asarray(str(e))
+    import torch.distributed as dist
+    ep_mesh = M.make_mesh(config=M.MeshConfig(expert=world))
+    out["mesh/expert"] = np.asarray([str(ep_mesh.mesh_dim_names),
+                                     str(tuple(ep_mesh.mesh.shape))])
+    group = ep_mesh.get_group("expert")
+    out["mesh/expert_group"] = np.asarray(
+        [dist.get_world_size(group), dist.get_rank(group),
+         M.axis_rank(ep_mesh, "expert")])
     out["fingerprint/differs"] = np.asarray(bool(C.replica_fingerprint(
         [torch.full((3,), float(rank))], comm)[1]))
     return out
@@ -557,8 +615,10 @@ def case_gspmd(rank, world, dev, inputs):
     for name, kw in (("model", {"model": 2}), ("stage", {"stage": 2}),
                      ("subset", {"data": 1})):
         try:
-            gspmd.train_mesh(**kw)
+            msh = gspmd.train_mesh(**kw)
             out[f"decline/{name}"] = np.asarray("")
+            out[f"mesh/{name}"] = np.asarray(
+                [str(msh.mesh_dim_names), str(tuple(msh.mesh.shape))])
         except (NotImplementedError, gspmd.ShardingDecline) as e:
             out[f"decline/{name}"] = np.asarray(f"{type(e).__name__}: {e}")
 
@@ -656,7 +716,13 @@ def case_example(rank, world, dev, inputs):
 
 def _lm_model(vocab, **kw):
     from singa_tpu_torch.models import transformer
-    return transformer.TransformerLM(vocab, **LM_KW, **kw)
+    return transformer.TransformerLM(vocab, **dict(LM_KW, **kw))
+
+
+def init_prefix(run):
+    """The prefix of an ``LM_RUNS`` entry's seeded weights in the
+    inputs: by vocab, and apart for a MoE model (other states)."""
+    return f"init{run['vocab']}{'moe' if run.get('moe') else ''}/"
 
 
 def _lm_compiled(dev, inputs, run):
@@ -670,11 +736,14 @@ def _lm_compiled(dev, inputs, run):
     from singa_tpu_torch.parallel.gspmd import P
     cfg = dict(run)
     vocab = cfg.pop("vocab")
-    degrees = {a: cfg.pop(a) for a in ("model", "seq") if a in cfg}
+    degrees = {a: cfg.pop(a) for a in ("model", "seq", "expert")
+               if a in cfg}
     seq = "seq_axis" in cfg
+    ep = "expert" in degrees
     m = _lm_model(vocab, tp=True, **cfg)
     d = opt.DistOpt(opt.SGD(lr=0.3, momentum=0.9),
-                    reduce_axes=("data", "seq") if seq else None)
+                    reduce_axes=("data", "seq") if seq else
+                    ("data", "expert") if ep else None)
     mesh = M.make_mesh(config=M.MeshConfig(**degrees))
     d.communicator.mesh = mesh
     set_mesh(mesh)
@@ -682,9 +751,11 @@ def _lm_compiled(dev, inputs, run):
     if seq:
         m.input_specs = [P("data", "seq"), P("data", "seq")]
         m.output_specs = [P("data", "seq"), P()]
+    if ep:
+        m.input_specs = [P(("data", "expert")), P(("data", "expert"))]
     tx = tensor.Tensor(data=inputs[f"ids{vocab}"], device=dev)
     m.compile([tx], is_train=True, use_graph=True)
-    load_numpy_states(m, _init(inputs, f"init{vocab}/"))
+    load_numpy_states(m, _init(inputs, init_prefix(run)))
     return m, tx, tensor.Tensor(data=inputs[f"tgt{vocab}"], device=dev)
 
 
@@ -717,9 +788,9 @@ def case_lm_mesh(rank, world, dev, inputs):
         out[f"{name}/local/q"] = np.asarray(
             m.blocks[0].attn.q_proj.W.shape)
         _states(m, name, out)
-        if name != "tp_v32_fused":
+        if name not in ARCHIVE_RUNS:
             continue
-        zpath = os.path.join(work, "tp.zip")
+        zpath = os.path.join(work, ARCHIVE_RUNS[name])
         m.save_states(zpath)
         out[f"{name}/next_loss"] = np.asarray(
             float(m(tx, ty)[1].data.detach()))
@@ -728,6 +799,11 @@ def case_lm_mesh(rank, world, dev, inputs):
         gen = m2.generate(tx, max_new_tokens=4, temperature=0)
         out[f"{name}/generated"] = gen
         m2.eval()
+        out[f"{name}/restored_eval"] = np.array(m2(tx).data)
+        out[f"{name}/restored_local/w1" if run.get("moe") else
+            f"{name}/restored_local/q"] = np.asarray(
+            m2.blocks[0].mlp.w1.shape if run.get("moe") else
+            m2.blocks[0].attn.q_proj.W.shape)
         cur = gen[:, :-4]
         want = []
         for _ in range(4):
@@ -804,10 +880,163 @@ def case_mesh_ops(rank, world, dev, inputs):
     return out
 
 
+def case_moe(rank, world, dev, inputs):
+    """``moe_net`` on each ``MOE_RUNS[world]`` mesh, as
+    ``tests/test_moe.py::TestExpertParallel`` trains it: a ``DistOpt``
+    over ``("data", "expert")``, every rank given the global batch and
+    taking its block over both axes; the losses, the all-to-alls of a
+    step, the expert bank a rank holds, the gathered states, then an eval
+    forward that stays sharded; and the error of 3 experts over the
+    expert axis."""
+    from singa_tpu_torch import opt, tensor
+    from singa_tpu_torch.model import load_numpy_states
+    from singa_tpu_torch.parallel import mesh as M
+    from singa_tpu_torch.parallel import ops as collective
+    from singa_tpu_torch.parallel.communicator import set_mesh
+    from singa_tpu_torch.parallel.gspmd import P
+    out = {}
+    tx = tensor.Tensor(data=inputs["x"], device=dev)
+    ty = tensor.Tensor(data=inputs["y"], device=dev)
+
+    def on_mesh(m, degrees, policy=None):
+        degrees = dict(degrees)
+        zero = degrees.pop("zero", False)
+        fsdp = degrees.pop("fsdp", None)
+        d = opt.DistOpt(opt.SGD(lr=0.1), zero=zero,
+                        reduce_axes=("data", "expert", "seq") if zero else
+                        ("data", "expert"))
+        mesh = M.make_mesh(config=M.MeshConfig(**degrees))
+        d.communicator.mesh = mesh
+        set_mesh(mesh)
+        m.set_optimizer(d)
+        m.input_specs = [P(("data", "expert")), P(("data", "expert"))]
+        m.compile([tx], is_train=True, use_graph=True, fsdp_axis=fsdp,
+                  policy=policy)
+        return m
+
+    for name, degrees in MOE_RUNS[world].items():
+        m = on_mesh(moe_net(), degrees)
+        load_numpy_states(m, _init(inputs, "init/"))
+        losses, a2a = [], []
+        for _ in range(MOE_STEPS):
+            collective.reset_counts()
+            losses.append(float(m(tx, ty)[1].data.detach()))
+            a2a.append(collective.counts["all_to_all"])
+        out[f"{name}/losses"] = np.asarray(losses)
+        out[f"{name}/all_to_all"] = np.asarray(a2a)
+        out[f"{name}/local/w1"] = np.asarray(m.ffn.w1.shape)
+        out[f"{name}/local/wg"] = np.asarray(m.ffn.wg.shape)
+        _states(m, name, out)
+        m.eval()
+        out[f"{name}/eval"] = np.array(m(tx).to_numpy())
+        out[f"{name}/eval_local/w1"] = np.asarray(m.ffn.w1.shape)
+        set_mesh(None)
+    if world == 2:
+        m = on_mesh(moe_net(), dict(expert=2), policy="bf16_mixed")
+        load_numpy_states(m, _init(inputs, "init/"))
+        # the expert bank w1, cut over "expert"
+        _guard_skip(m, m.ffn.w1, rank, tx, ty, out, "guard")
+        set_mesh(None)
+    m = on_mesh(moe_net(n_experts=3, top_k=1), dict(expert=world))
+    try:
+        m(tx, ty)
+        out["indivisible"] = np.asarray("")
+    except ValueError as e:
+        out["indivisible"] = np.asarray(str(e))
+    set_mesh(None)
+    return out
+
+
+def _guard_skip(m, param, rank, tx, ty, out, prefix):
+    """Under ``bf16_mixed``: a clean step, then a step whose ``param`` has
+    an infinite gradient on rank 1 alone (after the reduction, so only
+    that rank's block of the global norm sees it). The guard's global norm
+    sums each cut gradient's blocks over its cut axes: every rank skips
+    the step. Out: how far the states moved at each step, the loss scale
+    and ``skipped_total`` after each."""
+    dist = m.optimizer.inner
+    reduce = dist.reduced_mean
+    poison = []
+
+    def reduced_mean(pairs, *args, **kw):
+        pairs = list(reduce(pairs, *args, **kw))
+        if poison and rank == 1:
+            for p, g in pairs:
+                if p is param:
+                    g.data.fill_(float("inf"))
+        return pairs
+
+    dist.reduced_mean = reduced_mean
+    before = {k: np.array(v.to_numpy()) for k, v in m.get_states().items()}
+    moved, scales, skipped = [], [], []
+    for step in range(2):
+        poison[:] = [True] * step
+        m(tx, ty)
+        after = {k: np.array(v.to_numpy())
+                 for k, v in m.get_states().items()}
+        moved.append(max(float(np.abs(after[k] - v).max())
+                         for k, v in before.items()))
+        stats = m.optimizer.stats()
+        scales.append(stats["loss_scale"])
+        skipped.append(stats["skipped_total"])
+        before = after
+    out[f"{prefix}/moved"] = np.asarray(moved)
+    out[f"{prefix}/loss_scale"] = np.asarray(scales)
+    out[f"{prefix}/skipped_total"] = np.asarray(skipped)
+
+
+def case_lm_fsdp(rank, world, dev, inputs):
+    """The TP LM (vocab 32) on ``train_mesh(data=2, model=2)``, every rank
+    given the global batch (``input_specs`` over ``data``), under each
+    ``TP_FSDP_RUNS`` spelling: the losses, the gathered states, the shape
+    of every state a rank holds and its state bytes."""
+    from singa_tpu_torch import opt, tensor
+    from singa_tpu_torch.model import load_numpy_states
+    from singa_tpu_torch.parallel import gspmd
+    from singa_tpu_torch.parallel.gspmd import P
+    out = {}
+    tx = tensor.Tensor(data=inputs["ids32"], device=dev)
+    ty = tensor.Tensor(data=inputs["tgt32"], device=dev)
+    for name in TP_FSDP_RUNS:
+        m = _lm_model(32, tp=True)
+        m.set_optimizer(opt.DistOpt(opt.SGD(lr=0.3, momentum=0.9),
+                                    zero=name == "tp_zero"))
+        m.input_specs = [P("data"), P("data")]
+        m.compile([tx], is_train=True, use_graph=True,
+                  mesh=gspmd.train_mesh(data=2, model=2),
+                  fsdp_axis={"tp_fsdp": "data",
+                             "tp_fsdp_model": "model"}.get(name))
+        load_numpy_states(m, _init(inputs, "init32/"))
+        out[f"{name}/losses"] = np.asarray(
+            [float(m(tx, ty)[1].data.detach())
+             for _ in range(TP_FSDP_STEPS)])
+        for k, t in m._live_states().items():
+            out[f"{name}/local/{k}"] = np.asarray(t.shape)
+        out[f"{name}/bytes"] = np.asarray(
+            gspmd.Partitioner.per_device_bytes(m._state_tensors()))
+        _states(m, name, out)
+    # the guard over both cut axes: a weight cut over "model" and then
+    # over "data" by FSDP, its gradient poisoned on rank 1 alone
+    m = _lm_model(32, tp=True)
+    m.set_optimizer(opt.DistOpt(opt.SGD(lr=0.3, momentum=0.9)))
+    m.input_specs = [P("data"), P("data")]
+    m.compile([tx], is_train=True, use_graph=True,
+              mesh=gspmd.train_mesh(data=2, model=2), fsdp_axis="data",
+              policy="bf16_mixed")
+    load_numpy_states(m, _init(inputs, "init32/"))
+    both = [p for p in m.get_params().values()
+            if {lay.axis for lay, _ in gspmd.cuts_of(p)} ==
+            {"data", "model"}]
+    out["guard/cut_over_both"] = np.asarray(len(both))
+    _guard_skip(m, both[0], rank, tx, ty, out, "guard")
+    return out
+
+
 CASES = {"dist_opt": case_dist_opt, "sync_bn": case_sync_bn,
          "guard": case_guard, "example": case_example,
          "gspmd": case_gspmd, "lm_mesh": case_lm_mesh,
-         "mesh_ops": case_mesh_ops}
+         "mesh_ops": case_mesh_ops, "moe": case_moe,
+         "lm_fsdp": case_lm_fsdp}
 
 
 def main(argv):

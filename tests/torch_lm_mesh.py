@@ -30,11 +30,12 @@ def lm_data(vocab, B=8, S=16, seed=0):
     return ids, np.roll(ids, -1, axis=1)
 
 
-def seeded(vocab, seed=11):
-    """Every state of the LM of ``vocab``, by name, from a numpy seed."""
+def seeded(vocab, seed=11, **kw):
+    """Every state of the LM of ``vocab`` (and ``kw``: ``moe``,
+    ``d_model``), by name, from a numpy seed."""
     from singa_tpu_torch import device, tensor
     dev = device.create_cpu_device()
-    m = ranks._lm_model(vocab)
+    m = ranks._lm_model(vocab, **kw)
     m(tensor.Tensor(data=lm_data(vocab)[0], device=dev))
     rng = np.random.RandomState(seed)
     out = {}
@@ -56,15 +57,26 @@ def inputs(runs, workdir):
     out = {"workdir": np.asarray(str(workdir)), "runs": np.asarray(runs)}
     for v in VOCABS:
         out[f"ids{v}"], out[f"tgt{v}"] = lm_data(v)
-        for k, a in seeded(v).items():
-            out[f"init{v}/{k}"] = a
+    for name in runs:
+        run = ranks.LM_RUNS[name]
+        prefix = ranks.init_prefix(run)
+        if not any(k.startswith(prefix) for k in out):
+            for k, a in seeded(run["vocab"], **_model_kw(run)).items():
+                out[f"{prefix}{k}"] = a
     return out
+
+
+def _model_kw(run):
+    """The settings of ``run`` that make other states: the experts and
+    the width."""
+    return {k: run[k] for k in ("moe", "d_model") if k in run}
 
 
 def _cfg(name):
     cfg = dict(ranks.LM_RUNS[name])
     vocab = cfg.pop("vocab")
-    degrees = {a: cfg.pop(a) for a in ("model", "seq") if a in cfg}
+    degrees = {a: cfg.pop(a) for a in ("model", "seq", "expert")
+               if a in cfg}
     return vocab, degrees, cfg
 
 
@@ -86,14 +98,17 @@ def jax_run(name):
     # Queue 3), so its run of a remat mesh is the plain one
     cfg.pop("remat", None)
     seq = "seq_axis" in cfg
+    ep = "expert" in degrees
     dev = device.create_cpu_device()
     dev.SetRandSeed(5)
     ids, tgt = lm_data(vocab)
     tx = tensor.Tensor(data=ids, device=dev, requires_grad=False)
     ty = tensor.Tensor(data=tgt, device=dev, requires_grad=False)
-    m = transformer.TransformerLM(vocab, tp=True, **ranks.LM_KW, **cfg)
+    m = transformer.TransformerLM(vocab, tp=True,
+                                  **dict(ranks.LM_KW, **cfg))
     d = opt.DistOpt(opt.SGD(lr=0.3, momentum=0.9),
-                    reduce_axes=("data", "seq") if seq else None)
+                    reduce_axes=("data", "seq") if seq else
+                    ("data", "expert") if ep else None)
     msh = mesh_mod.make_mesh(jax.devices("cpu"),
                              mesh_mod.MeshConfig(**degrees))
     d.communicator.mesh = msh
@@ -102,10 +117,12 @@ def jax_run(name):
     if seq:
         m.input_specs = [JP("data", "seq"), JP("data", "seq")]
         m.output_specs = [JP("data", "seq"), JP()]
+    if ep:
+        m.input_specs = [JP(("data", "expert")), JP(("data", "expert"))]
     try:
         m.compile([tx], is_train=True, use_graph=True)
         live = m.get_states()
-        for k, v in seeded(vocab).items():
+        for k, v in seeded(vocab, **_model_kw(cfg)).items():
             live[k].copy_from_numpy(v)
         losses = [float(np.asarray(m(tx, ty)[1].data)) for _ in range(STEPS)]
         states = {k: np.asarray(v.data) for k, v in m.get_states().items()}
@@ -136,7 +153,7 @@ def dense_run(name):
     m = ranks._lm_model(vocab, **cfg)
     m.set_optimizer(opt.SGD(lr=0.3, momentum=0.9))
     m.compile([tx], is_train=True, use_graph=True)
-    load_numpy_states(m, seeded(vocab))
+    load_numpy_states(m, seeded(vocab, **_model_kw(cfg)))
     losses = [float(m(tx, ty)[1].data.detach()) for _ in range(STEPS)]
     states = {k: np.array(v.to_numpy()) for k, v in m.get_states().items()}
     m.eval()
