@@ -352,6 +352,39 @@ failure exits nonzero:
    same TP run without FSDP at the same bounds; a rank's state bytes
    against the TP run's, at most ``TP_FSDP_SHARE`` of them.
 
+23. "lm serve": the Transformer LM at ``LM_SHAPE`` (seeded weights)
+   served through ``Model.compile_serving(slots=16, max_len=1024,
+   prefill_len=512, prefill_batch=4)`` -> ``ServingEngine``, 64 seeded
+   requests (prompts of 16-512 tokens, 32-128 new tokens; 48 greedy, 16
+   sampled at temperature 0.8 and top-k 50; 16 of the greedy prompts
+   share a 256-token prefix), all queued before the engine starts. (a)
+   The ring, f32, each program captured into a CUDA graph: every future
+   resolves once; each program captured once; every greedy token
+   teacher-forced against the uncached eval forward (through K3) on its
+   own history, the forward's argmax or within ``SERVE_TOL`` of the
+   largest |logit| of its position (near ties counted), and each
+   request's first-token logits within that of the forward's; a trace of
+   ``SERVE_TRACED_TICKS`` decode ticks holds one ``cudaGraphLaunch`` per
+   tick (every tick after a program's first replays it). (b) The same
+   requests (the same request ids, so the same draws) through an engine
+   with ``use_graph=False``: every tick's logits bitwise those of (a).
+   (c) The paged layout (16-token blocks, the default 1024-block pool)
+   with ``speculative_k=4``: (a)'s gates; the prefix hits and tokens of
+   each prefill batch are those the shared prefix implies (each sharer
+   admitted after another was released shares its 16 blocks); all
+   blocks free of references after the drain. (d) ``bf16_mixed`` on the
+   ring, teacher-forced against the f32 forward within
+   ``SERVE_TOL["bf16_mixed"]``. (e) The MoE LM of phase 22 (8 experts,
+   top-2, drop-free capacity in the engine and the forward) on the ring,
+   16 greedy requests, teacher-forced. The serving path runs none of the
+   port's kernels (the JAX serving path reaches no Pallas kernel), which
+   the host counters confirm. Readings, printed beside the card's name
+   and power limit: TTFT p50/p99, decode tick p50/p99, generated tokens
+   per second, prefill tick, the (16, 32000) logits copy, a traced decode
+   tick's busy ms, idle share and top device kinds, peak memory, and
+   ``TransformerLM.generate``'s ms per token on the same weights, with a
+   traced decode step of it (wall, busy, device ops).
+
 Rows of kernels that a graph replays (K2, K1-multi with and without the
 flag, K5-multi with the flag, K3/K4) carry ``replays`` and
 ``launches_per_replay`` beside ``launches``, both from the trace of a
@@ -7119,6 +7152,469 @@ def moe_phase(dev):
             "tp_fsdp": fsdp, "seconds": seconds}
 
 
+# phase 23: the LM served through the continuous-batching ServingEngine
+SERVE = dict(slots=16, max_len=1024, prefill_len=512, prefill_batch=4)
+SERVE_BLOCK = 16            # paged: 16-token blocks, the default pool
+SERVE_REQUESTS = 64         # 48 greedy, 16 sampled
+SERVE_SAMPLED = 16
+SERVE_SHARERS = 16          # greedy prompts that share SERVE_PREFIX tokens
+SERVE_PREFIX = 256
+SERVE_PROMPT = (16, 512)
+SERVE_NEW = (32, 128)
+SERVE_SAMPLE = dict(temperature=0.8, top_k=50)
+SERVE_SPEC_K = 4
+SERVE_MOE_REQUESTS = 16
+SERVE_TRACED_TICKS = 8
+SERVE_GEN = (16, 256, 64)   # generate: batch, prompt, new tokens
+# a served token against the uncached eval forward on the same history, as
+# a fraction of the largest |logit| of its position: f32 differs only in
+# the order of sums (plain attention against K3); bf16_mixed rounds the
+# stack to bf16 and is held to the f32 forward
+SERVE_TOL = {"float32": 1e-4, "bf16_mixed": 5e-2}
+SERVE_KINDS = (
+    ("matmul", ("gemm", "cutlass", "gemv", "xmma", "sm90_", "nvjet")),
+    ("softmax", ("softmax",)),
+    ("index", ("index", "scatter", "gather", "embedding")),
+    ("reduction", ("reduce",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+    ("copy", ("memcpy", "memset")),
+)
+
+
+def serve_traffic(seed=SEED + 23):
+    """The phase's 64 requests in submission order: ``{"prompt", "new",
+    "sample", "shared"}``; the kinds shuffled from a numpy seed."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    V = LM["vocab"]
+    prefix = rng.integers(0, V, SERVE_PREFIX)
+    kinds = (["sampled"] * SERVE_SAMPLED + ["shared"] * SERVE_SHARERS
+             + ["greedy"] * (SERVE_REQUESTS - SERVE_SAMPLED
+                             - SERVE_SHARERS))
+    out = []
+    for kind in rng.permutation(kinds):
+        if kind == "shared":
+            tail = rng.integers(0, V, int(rng.integers(
+                1, SERVE_PROMPT[1] - SERVE_PREFIX + 1)))
+            prompt = np.concatenate([prefix, tail])
+        else:
+            prompt = rng.integers(0, V, int(rng.integers(
+                SERVE_PROMPT[0], SERVE_PROMPT[1] + 1)))
+        out.append({"prompt": prompt.astype(np.int32),
+                    "new": int(rng.integers(SERVE_NEW[0], SERVE_NEW[1] + 1)),
+                    "sample": dict(SERVE_SAMPLE) if kind == "sampled"
+                    else {"temperature": 0.0},
+                    "shared": kind == "shared"})
+    return out
+
+
+def serve_run(eng, traffic, id_start, background):
+    """Every request of ``traffic`` queued (request ids from
+    ``id_start``), then served: by the engine's loop thread
+    (``background``) or by synchronous ticks. Returns the tokens, the
+    digest of every tick's logits, each request's first-token logits, the
+    event log (prefill batches with the prefix counters' deltas, and
+    releases), the prefill tick ms and the wall seconds of the run."""
+    import hashlib
+    import itertools
+    import numpy as np
+    from singa_tpu_torch.serving import scheduler
+    log = {"digests": [], "first": {}, "events": [], "prefill_ms": []}
+    paged = eng.kv_layout == "paged"
+    count = [0, 0]
+
+    def on_logits(kind, out, rows):
+        log["digests"].append(hashlib.sha1(out.tobytes()).hexdigest())
+        if kind == "prefill":
+            for b, req in enumerate(rows):
+                log["first"][req.id - id_start] = np.array(out[b])
+            hits = (eng._prefix_hits.total(), eng._prefix_tokens.total()) \
+                if paged else (0, 0)
+            log["events"].append(("prefill", [r.id - id_start for r in rows],
+                                  hits[0] - count[0], hits[1] - count[1]))
+            count[:] = hits
+    finish = eng._finish_slot
+
+    def on_finish(i, status="completed"):
+        log["events"].append(("release", eng._slots[i]["req"].id - id_start))
+        return finish(i, status)
+    prefill = eng._run_prefill
+
+    def timed_prefill(batch, free):
+        t0 = time.perf_counter()
+        prefill(batch, free)
+        log["prefill_ms"].append((time.perf_counter() - t0) * 1e3)
+    eng._on_logits = on_logits
+    eng._finish_slot = on_finish
+    eng._run_prefill = timed_prefill
+    scheduler.Request._ids = itertools.count(id_start)
+    futs = [eng.submit(r["prompt"], max_new_tokens=r["new"], seed=SEED,
+                       **r["sample"]) for r in traffic]
+    t0 = time.perf_counter()
+    if background:
+        eng.start()
+        results = [f.result(timeout=600) for f in futs]
+        check(eng.drain(timeout=60), "the engine did not drain")
+        eng.stop()
+    else:
+        eng.run_until_idle()
+        results = [f.result(timeout=5) for f in futs]
+    wall = time.perf_counter() - t0
+    check(all(f.deliveries == 1 for f in futs),
+          "a future was fulfilled more than once")
+    check(all(len(r["tokens"]) == t["new"]
+              for r, t in zip(results, traffic)),
+          "a request did not get its max_new_tokens")
+    eng._on_logits = None
+    del eng._finish_slot, eng._run_prefill
+    log.update(tokens=[r["tokens"] for r in results], wall_s=wall,
+               ttft=eng.ttft_stats(), tick=eng.tick_stats())
+    return log
+
+
+def teacher_forced(m, dev, traffic, log, indices, tol, what):
+    """Each request of ``indices``: the uncached eval forward of the
+    model (through K3) over its prompt and its served tokens; each served
+    token must be the forward's argmax at its position, or within ``tol``
+    of that position's largest |logit| (a near tie, counted), and the
+    first-token logits within ``tol`` of the forward's. Returns the near
+    ties and the worst first-token error (x max |logit|)."""
+    import numpy as np
+    import torch
+    from singa_tpu_torch.tensor import Tensor
+    near, worst = 0, 0.0
+    for i in indices:
+        prompt, toks = traffic[i]["prompt"], log["tokens"][i]
+        seq = np.concatenate([prompt, np.asarray(toks[:-1], np.int32)])
+        with torch.no_grad():
+            ref = m(Tensor(data=seq[None].astype(np.float32), device=dev)
+                    ).data[0, len(prompt) - 1:].float()
+        scale = ref.abs().max(-1).values
+        got = torch.as_tensor(toks, device=ref.device)
+        gap = ref.max(-1).values - ref.gather(1, got[:, None])[:, 0]
+        bad = (gap > tol * scale).nonzero()
+        check(len(bad) == 0,
+              f"{what}: request {i} token {bad[:1].tolist()} is "
+              f"{gap.max().item()} under the forward's largest logit "
+              f"(tolerance {tol} x max |logit|)")
+        near += int((gap > 0).sum().item())
+        first = torch.as_tensor(log["first"][i], device=ref.device)
+        err = ((first - ref[0]).abs().max() / scale[0]).item()
+        check(err <= tol, f"{what}: request {i}'s first-token logits are "
+              f"{err} x max |logit| off the forward's (tolerance {tol})")
+        worst = max(worst, err)
+    return near, worst
+
+
+def traced_decode(m, traffic, what, attempts=3, **kw):
+    """An engine of the leg's settings (``kw``) with 16 greedy requests in
+    flight and none queued, then ``SERVE_TRACED_TICKS`` decode ticks under
+    ``torch.profiler`` (each tick one replay of the decode program, no
+    admission): the trace must hold one ``cudaGraphLaunch`` per tick.
+    Readings per tick: wall ms, device busy ms, idle share, device ops,
+    host kernel launches, device ms by kind; and the copy of the decode
+    program's logits to pinned host memory, timed with CUDA events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from singa_tpu_torch.observability.metrics import Registry
+    eng = m.compile_serving(registry=Registry(), **SERVE, **kw)
+    greedy = [r for r in traffic if r["sample"]["temperature"] == 0]
+    for r in greedy[:eng.slots]:
+        eng.submit(r["prompt"], max_new_tokens=SERVE_NEW[1])
+    while len(eng.queue) or eng.active_slots() < eng.slots:
+        eng.step()
+    eng.step()
+    n = SERVE_TRACED_TICKS
+    for attempt in range(attempts):
+        replays = eng._decode.n_replays
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                eng.step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        check(eng._decode.n_replays - replays == n,
+              f"{what}: {eng._decode.n_replays - replays} of {n} traced "
+              "ticks replayed the decode program")
+        graphs = launches = ops = 0
+        busy, kinds = 0.0, {}
+        for e in prof.events():
+            graphs += e.name == "cudaGraphLaunch"
+            launches += e.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                                   "cudaLaunchKernelExC")
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            ms = e.time_range.elapsed_us() / 1e3
+            busy += ms
+            ops += 1
+            low = e.name.lower()
+            kind = next((k for k, keys in SERVE_KINDS
+                         if any(x in low for x in keys)), "other")
+            kinds[kind] = kinds.get(kind, 0.0) + ms / n
+        if graphs == n and ops:
+            break
+        print(f"{what}: profiler session {attempt + 1} held {graphs} graph "
+              f"launches and {ops} device ops for {n} ticks", flush=True)
+    check(graphs == n, f"{what}: the trace of {n} decode ticks holds "
+          f"{graphs} cudaGraphLaunch")
+    out = eng._decode._outs[0]
+    buf = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    copy_ms = time_ms(lambda: buf.copy_(out, non_blocking=True))
+    eng.stop()
+    top = sorted(kinds.items(), key=lambda kv: -kv[1])
+    return {"ticks": n, "wall_ms": wall / n, "busy_ms": busy / n,
+            "idle_share": 1.0 - busy / wall, "device_ops": ops / n,
+            "graph_launches": graphs / n, "host_kernel_launches": launches / n,
+            "kinds_ms": dict(top), "logits_copy_ms": copy_ms,
+            "logits_shape": list(out.shape)}
+
+
+def serve_leg(m, dev, traffic, what, id_start, tol, policy=None, **kw):
+    """One engine over ``traffic``, served by its loop thread, its gates
+    and readings; returns the record and the engine (stopped)."""
+    import torch
+    from singa_tpu_torch.observability.metrics import Registry
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    eng = m.compile_serving(registry=Registry(), queue_capacity=128,
+                            policy=policy, **SERVE, **kw)
+    zero_counts()
+    log = serve_run(eng, traffic, id_start, background=True)
+    host = host_launches()
+    check(not host, f"{what}: the serving path launched the port's "
+          f"kernels {host}")
+    info = eng.compiled_step_info()
+    check(info["n_traces"] == 1 and info["prefill_n_traces"] == 1,
+          f"{what}: {info['n_traces']} decode and "
+          f"{info['prefill_n_traces']} prefill captures")
+    check(eng._decode.n_replays == eng._decode.n_calls - 1 and
+          eng._prefill.n_replays == eng._prefill.n_calls - 1,
+          f"{what}: a call after a program's first did not replay it")
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    greedy = [i for i, r in enumerate(traffic)
+              if r["sample"]["temperature"] == 0]
+    near, worst = teacher_forced(m, dev, traffic, log, greedy, tol, what)
+    generated = sum(len(t) for t in log["tokens"])
+    rec = {"requests": len(traffic), "generated_tokens": generated,
+           "wall_s": log["wall_s"], "tokens_per_s": generated / log["wall_s"],
+           "ttft_p50_s": log["ttft"]["p50_s"],
+           "ttft_p99_s": log["ttft"]["p99_s"],
+           "decode_tick_p50_ms": log["tick"]["p50_s"] * 1e3,
+           "decode_tick_p99_ms": log["tick"]["p99_s"] * 1e3,
+           "decode_ticks": log["tick"]["count"],
+           "prefill_ticks": len(log["prefill_ms"]),
+           "prefill_tick_p50_ms": quantiles(log["prefill_ms"])["p50_ms"],
+           "teacher_forced_requests": len(greedy), "near_ties": near,
+           "first_logits_max_rel_err": worst, "tolerance": tol,
+           "peak_mib_above_start": peak, "compiled": info}
+    return rec, eng, log
+
+
+def serve_line(what, rec, card):
+    print(f"{what} [{card}]: {rec['requests']} requests, "
+          f"{rec['generated_tokens']} tokens in {rec['wall_s']:.3f} s "
+          f"({rec['tokens_per_s']:.0f} tokens/s); TTFT p50 "
+          f"{rec['ttft_p50_s'] * 1e3:.2f} ms p99 "
+          f"{rec['ttft_p99_s'] * 1e3:.2f} ms; decode tick p50 "
+          f"{rec['decode_tick_p50_ms']:.3f} ms p99 "
+          f"{rec['decode_tick_p99_ms']:.3f} ms over "
+          f"{rec['decode_ticks']} ticks; prefill tick p50 "
+          f"{rec['prefill_tick_p50_ms']:.2f} ms over "
+          f"{rec['prefill_ticks']}; peak {rec['peak_mib_above_start']:.0f} "
+          f"MiB; {rec['teacher_forced_requests']} greedy requests "
+          f"teacher-forced, {rec['near_ties']} near ties, first-token "
+          f"logits within {rec['first_logits_max_rel_err']:.3g} x max "
+          f"|logit| (tolerance {rec['tolerance']})", flush=True)
+
+
+def expected_prefix_hits(traffic, events):
+    """Per prefill batch, the prefix hits the shared prefix implies: each
+    sharer admitted after another sharer was released (its 16 prefix
+    blocks then sit in the cache, live or recently used)."""
+    released, out = False, []
+    for ev in events:
+        if ev[0] == "release":
+            released = released or traffic[ev[1]]["shared"]
+        else:
+            out.append(sum(released and traffic[i]["shared"]
+                           for i in ev[1]))
+    return out
+
+
+def generate_ms(m, dev, traced_steps=16):
+    """``TransformerLM.generate``'s greedy ms per token on the same
+    weights (``SERVE_GEN``: batch, prompt, new tokens), p50 over the
+    steps after the prefill, CUDA events; and one decode step's wall ms,
+    device busy ms and device ops, from the difference of two traced
+    decodes ``traced_steps`` tokens apart."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from singa_tpu_torch.models import transformer
+    B, S0, n = SERVE_GEN
+    prompt = np.random.default_rng(SEED + 24).integers(
+        0, LM["vocab"], (B, S0)).astype(np.int32)
+    marks = [torch.cuda.Event(enable_timing=True)]
+
+    def mark(_logits):
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+    transformer._decode(m, prompt, 4, temperature=0)
+    torch.cuda.synchronize()
+    marks[0].record()
+    transformer._decode(m, prompt, n, temperature=0, on_token=mark)
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+
+    def traced(new):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            transformer._decode(m, prompt, new, temperature=0)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        dev_ev = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        return wall, sum(e.time_range.elapsed_us() for e in dev_ev) / 1e3, \
+            len(dev_ev)
+    (w1, b1, o1), (w2, b2, o2) = traced(2), traced(2 + traced_steps)
+    step = {"wall_ms": (w2 - w1) / traced_steps,
+            "busy_ms": (b2 - b1) / traced_steps,
+            "device_ops": (o2 - o1) / traced_steps}
+    step["idle_share"] = 1.0 - step["busy_ms"] / step["wall_ms"]
+    return {"batch": B, "prompt": S0, "new": n, "prefill_ms": ms[0],
+            "token_p50_ms": quantiles(ms[1:])["p50_ms"],
+            "traced_step": step}
+
+
+def lm_serve_phase(dev):
+    """Phase 23, "lm serve": the LM served through the ServingEngine, (a)
+    the ring graphed, (b) eager against (a) bitwise, (c) paged with
+    speculative decoding, (d) bf16_mixed, (e) the MoE LM. Returns the
+    phase's record."""
+    import torch
+    from singa_tpu_torch.model import load_numpy_states
+    from singa_tpu_torch.observability.metrics import Registry
+    t0 = time.perf_counter()
+    card = card_line()
+    tx, _ = lm_data(dev)
+    m = lm_model(dev, tx, train=False)
+    load_numpy_states(m, lm_states(m, SEED + 23))
+    m.eval()
+    traffic = serve_traffic()
+    rec = {}
+    ring, eng, graphed = serve_leg(m, dev, traffic, "lm serve ring",
+                                   10_000, SERVE_TOL["float32"])
+    del eng
+    ring["traced_decode"] = traced_decode(m, traffic, "lm serve ring")
+    rec["ring"] = ring
+    serve_line("lm serve (a) ring f32 graphed", ring, card)
+    t = ring["traced_decode"]
+    print(f"lm serve (a) traced decode tick [{card}]: wall "
+          f"{t['wall_ms']:.3f} ms, busy {t['busy_ms']:.3f} ms, idle share "
+          f"{t['idle_share']:.3f}, {t['device_ops']:.0f} device ops, "
+          f"{t['graph_launches']:.0f} graph launch, "
+          f"{t['host_kernel_launches']:.0f} host kernel launches; by kind "
+          + ", ".join(f"{k} {v:.3f}" for k, v in t["kinds_ms"].items())
+          + f" ms; the {tuple(t['logits_shape'])} f32 logits copy to "
+          f"pinned host memory {t['logits_copy_ms']:.4f} ms", flush=True)
+
+    # (b) the same requests and ids through eager ticks: bitwise
+    eager = m.compile_serving(use_graph=False, queue_capacity=128,
+                              registry=Registry(), **SERVE)
+    elog = serve_run(eager, traffic, 10_000, background=False)
+    same = elog["digests"] == graphed["digests"]
+    check(same and elog["tokens"] == graphed["tokens"],
+          f"lm serve (b): eager ticks' logits differ from the graphed "
+          f"ones ({len(elog['digests'])} against "
+          f"{len(graphed['digests'])} ticks)")
+    rec["eager_bitwise"] = {"ticks": len(elog["digests"]), "equal": same}
+    print(f"lm serve (b) eager against graphed [{card}]: "
+          f"{len(elog['digests'])} ticks, logits bitwise equal", flush=True)
+    del eager
+    torch.cuda.empty_cache()
+
+    # (c) paged, speculative
+    paged, eng, plog = serve_leg(
+        m, dev, traffic, "lm serve paged", 20_000, SERVE_TOL["float32"],
+        kv_layout="paged", kv_block_size=SERVE_BLOCK,
+        speculative_k=SERVE_SPEC_K)
+    want = expected_prefix_hits(traffic, plog["events"])
+    got = [ev[2] for ev in plog["events"] if ev[0] == "prefill"]
+    tokens = [ev[3] for ev in plog["events"] if ev[0] == "prefill"]
+    check(got == want and tokens == [SERVE_PREFIX * n for n in want],
+          f"lm serve (c): prefix hits per prefill batch {got}, tokens "
+          f"{tokens}; the shared prefix implies {want}")
+    check(sum(want) >= 1, "lm serve (c): no sharer was admitted after "
+          "another was released (the traffic does not test the cache)")
+    check(eng._mgr.blocks_live() == 0 and
+          eng._reg.get("kv_blocks_in_use").value() == 0,
+          "lm serve (c): blocks still referenced after the drain")
+    paged["prefix_hits"] = sum(want)
+    paged["prefix_tokens"] = SERVE_PREFIX * sum(want)
+    paged["speculative_accepted_ratio"] = \
+        eng._reg.get("speculative_accepted_ratio").value()
+    paged["speculative_proposed"] = \
+        eng._reg.get("speculative_proposed_total").total()
+    del eng
+    torch.cuda.empty_cache()
+    paged["traced_decode"] = traced_decode(
+        m, traffic, "lm serve paged", kv_layout="paged",
+        kv_block_size=SERVE_BLOCK, speculative_k=SERVE_SPEC_K)
+    rec["paged_speculative"] = paged
+    serve_line("lm serve (c) paged speculative_k=4", paged, card)
+    print(f"lm serve (c): prefix hits {paged['prefix_hits']} "
+          f"({paged['prefix_tokens']} tokens), speculative accepted ratio "
+          f"{paged['speculative_accepted_ratio']:.4f} of "
+          f"{paged['speculative_proposed']} drafts; traced decode tick busy "
+          f"{paged['traced_decode']['busy_ms']:.3f} ms, idle share "
+          f"{paged['traced_decode']['idle_share']:.3f}", flush=True)
+
+    # (d) bf16_mixed on the ring, held to the f32 forward
+    mixed, eng, _ = serve_leg(m, dev, traffic, "lm serve bf16_mixed",
+                              30_000, SERVE_TOL["bf16_mixed"],
+                              policy="bf16_mixed")
+    check(eng._cache[0]["k"].dtype == torch.bfloat16,
+          "lm serve (d): the cache is not bf16")
+    rec["bf16_mixed"] = mixed
+    del eng
+    serve_line("lm serve (d) ring bf16_mixed", mixed, card)
+    rec["generate"] = generate_ms(m, dev)
+    print(f"lm serve: TransformerLM.generate B{SERVE_GEN[0]} prompt "
+          f"{SERVE_GEN[1]} + {SERVE_GEN[2]} [{card}]: prefill "
+          f"{rec['generate']['prefill_ms']:.2f} ms, per token p50 "
+          f"{rec['generate']['token_p50_ms']:.3f} ms; a traced decode "
+          f"step: wall {rec['generate']['traced_step']['wall_ms']:.3f} ms, "
+          f"busy {rec['generate']['traced_step']['busy_ms']:.3f} ms, "
+          f"{rec['generate']['traced_step']['device_ops']:.0f} device ops, "
+          f"idle share {rec['generate']['traced_step']['idle_share']:.3f}",
+          flush=True)
+    del m
+    torch.cuda.empty_cache()
+
+    # (e) the MoE LM, drop-free in the engine and in the forward
+    mm = moe_model(dev, tx, train=False)
+    load_numpy_states(mm, lm_states(mm, SEED + 22))
+    mm.eval()
+    for blk in mm.blocks:
+        blk.mlp.capacity_factor = float(blk.mlp.n_experts)
+    greedy = [r for r in traffic if r["sample"]["temperature"] == 0]
+    moe, eng, _ = serve_leg(mm, dev, greedy[:SERVE_MOE_REQUESTS],
+                            "lm serve moe", 40_000, SERVE_TOL["float32"])
+    rec["moe"] = moe
+    del eng, mm
+    torch.cuda.empty_cache()
+    serve_line("lm serve (e) MoE ring", moe, card)
+    rec["card"] = card
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"lm serve phase: {rec['seconds']:.1f} s", flush=True)
+    return rec
+
+
 def transformer_lm(dev, tx, moe=False):
     """An eval LM of ``MOE_RANK_LAYERS`` blocks at ``LM_SHAPE``'s width
     (with ``MOE``'s experts when ``moe``), for the rank legs' seeded
@@ -7228,6 +7724,9 @@ def main():
     torch.cuda.empty_cache()
     # the MoE LM, expert parallelism, TP with FSDP (phase 22)
     moe = moe_phase(dev)
+    torch.cuda.empty_cache()
+    # the LM served by the continuous-batching engine (phase 23)
+    lm_serve = lm_serve_phase(dev)
 
     # one line per kernel: its f32 case at main-path shapes, launches from
     # the f32 run of its layout
@@ -7411,7 +7910,8 @@ def main():
               "xception_serve": xception_serve, "s2d": s2d,
               "imagenet_zoo": imagenet,
               "dist": dist, "fsdp": fsdp, "image_files": image_files,
-              "lm_mesh": lm_mesh, "moe": moe, "kernels": kernels}
+              "lm_mesh": lm_mesh, "moe": moe, "lm_serve": lm_serve,
+              "kernels": kernels}
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

@@ -45,13 +45,15 @@ signature's next call captures again).
 
 from __future__ import annotations
 
+import contextlib
 import gc
 
 import torch
 
 from .tensor import Tensor
 
-__all__ = ["StepGraph", "epoch", "resources", "signature", "in_step"]
+__all__ = ["StepGraph", "epoch", "resources", "signature", "in_step",
+           "stepping"]
 
 _epoch = 0
 _in_step = 0
@@ -72,6 +74,18 @@ def in_step() -> bool:
     output shape depends on values (``autograd.nonzero``) refuses to run
     then: it would read the device back to the host."""
     return _in_step > 0
+
+
+@contextlib.contextmanager
+def stepping():
+    """Mark a step as running for :func:`in_step` (a :class:`StepGraph`
+    call, or a capture its owner makes itself)."""
+    global _in_step
+    _in_step += 1
+    try:
+        yield
+    finally:
+        _in_step -= 1
 
 
 def _tick():
@@ -153,17 +167,13 @@ class StepGraph:
         self._graph = None
 
     def __call__(self, *args):
-        global _in_step
-        _in_step += 1
-        try:
+        with stepping():
             if self.n_calls == 0:
                 out = self._on_side_stream(lambda: self.fn(*args))
             elif self._static is None:
                 out = self._capture(args)
             else:
                 out = self._replay(args)
-        finally:
-            _in_step -= 1
         self.n_calls += 1
         return out
 
@@ -194,6 +204,16 @@ class StepGraph:
                 else buf for a, buf in zip(args, static)]
 
     def _capture(self, args):
+        self._record(args)
+        if self._graph is not None:
+            self._graph.replay()
+        _tick()
+        self.n_replays += 1
+        return self._cloned()
+
+    def _record(self, args):
+        """Copy ``args`` into static buffers and capture ``fn`` on them (on
+        the CPU: run it there); nothing runs on the card."""
         static = [_data(a).detach().to(self.device.torch_device, copy=True)
                   if isinstance(_data(a), torch.Tensor) else None
                   for a in args]
@@ -230,11 +250,6 @@ class StepGraph:
         self._keep(out)
         self._static, self._graph = static, graph
         self.n_captures += 1
-        if graph is not None:
-            graph.replay()
-        _tick()
-        self.n_replays += 1
-        return self._cloned()
 
     def _recover_from_capture(self):
         """A capture that fails stops before its end: the generators it

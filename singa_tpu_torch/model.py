@@ -716,12 +716,19 @@ class Model(Layer):
         return out
 
     def compile_serving(self, policy=None, **kw):
-        """Build this model's inference engine (``serving.build_engine``):
-        a fixed-width :class:`~.serving.BatchServingEngine` for a
-        stateless model (pass ``input_shape=`` per sample, ``batch=``
-        width, optionally ``device=``). ``policy`` is a precision policy
-        or its name (``"bf16_mixed"``). The engine is returned unstarted:
-        call ``.start()`` or drive ``step()``/``run_until_idle()``."""
+        """Build this model's inference engine (``serving.build_engine``).
+        A model with a ``decode_adapter`` (the Transformer LM) gets a
+        continuous-batching :class:`~.serving.ServingEngine` on its own
+        device (``slots``, ``max_len``, ``prefill_len``,
+        ``prefill_batch``, ``kv_layout`` ``"ring"`` or ``"paged"``,
+        ``kv_block_size``, ``kv_blocks``, ``speculative_k``,
+        ``use_graph``); any other model a fixed-width
+        :class:`~.serving.BatchServingEngine` (pass ``input_shape=`` per
+        sample, ``batch=`` width, optionally ``device=``). ``policy`` is a
+        precision policy or its name (``"bf16_mixed"``), by default the
+        one this model was compiled with. The engine is returned
+        unstarted: call ``.start()`` or drive
+        ``step()``/``run_until_idle()``."""
         from . import mixed_precision as mp
         from .serving import build_engine
         pol = mp.resolve(policy) if policy is not None else self._policy

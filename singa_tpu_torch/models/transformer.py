@@ -38,8 +38,13 @@ the JAX package (``:405-433``), which runs no Pallas kernel there; a MoE
 block decodes through the same MoE op with the expert axis inactive and
 a drop-free capacity (cf = E, ``:374-392``).
 
-Not ported yet, raising ``NotImplementedError`` naming ROADMAP.md:
-``decode_adapter`` (LM serving, slice D).
+:meth:`TransformerLM.decode_adapter` is the serving engine's half of the
+model (``singa_tpu/models/transformer.py:488-912``): :class:`_LMServeAdapter`
+holds the fixed-shape prefill and decode programs over the ring cache and
+the paged block pool (``serving/kv_cache.py``) that
+``Model.compile_serving`` captures into CUDA graphs. Its sharded
+(``sharding_specs``, ``greedy_*``) and quantized programs are not ported
+yet and raise ``NotImplementedError`` naming ROADMAP.md (slice D2).
 """
 
 from __future__ import annotations
@@ -251,8 +256,12 @@ class TransformerLM(model.Model):
         models only; the prompt and the new tokens must fit ``max_len``."""
         return _decode(self, ids, max_new_tokens, temperature, top_k, seed)
 
-    def decode_adapter(self, *args, **kwargs):
-        raise _not_ported("decode_adapter (LM serving, slice D)")
+    def decode_adapter(self, policy=None):
+        """The serving engine's entry point (``Model.compile_serving``
+        routes a model with this method to ``serving.ServingEngine``): an
+        :class:`_LMServeAdapter` over this model's weights as they are
+        now."""
+        return _LMServeAdapter(self, policy=policy)
 
 
 def _decode_weights(m):
@@ -403,6 +412,291 @@ def _decode(m, ids, max_new_tokens, temperature=1.0, top_k=None, seed=0,
         toks.append(draw(x))
     new = torch.stack(toks, 1).to(torch.int32).cpu().numpy()
     return np.concatenate([prompt_np, new], axis=1)
+
+
+def _ln_serve(x, s, b, eps=1e-5):
+    """The serve programs' LayerNorm (``singa_tpu/models/transformer.py:
+    310-316``): statistics and the affine in f32, the result cast back to
+    ``x``'s dtype (bf16 under a bf16 policy)."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, unbiased=False, keepdim=True)
+    return ((xf - mean) * torch.rsqrt(var + eps) * s + b).to(x.dtype)
+
+
+class _LMServeAdapter:
+    """Ring-cache and paged prefill/decode programs: the TransformerLM half
+    of the ``serving.ServingEngine`` contract
+    (``singa_tpu/models/transformer.py:488-903``).
+
+    Each program is a function of the weights ``P`` (:meth:`params`), the
+    KV state (a list of one level per block, updated in place) and fixed
+    shape device tensors, and returns f32 logits:
+
+    - ``prefill_fn``: ``(P, cache, tokens (B, S), lengths, slot_ids,
+      valid) -> (B, V)``: one causal forward of a padded prompt batch,
+      each prompt's k/v rows written into its slot of the ring
+      (``valid=False`` rows are batch padding, written to the spare slot);
+    - ``decode_fn``: ``(P, cache, tokens (W,), positions (W,), active)
+      -> (W, V)``: one token for every slot, its k/v written at ``pos %
+      max_len``, attention over the ring;
+    - ``paged_prefill_fn``: ``(P, pool, tables (B, n_pages), tokens (B,
+      S) suffix tokens, starts (B,) prefix-hit lengths, lengths, valid)
+      -> (B, V)``;
+    - ``paged_decode_fn``: ``(P, pool, tables (W, n_pages), tokens (W,
+      K), positions (W,), counts (W,)) -> (W, K, V)``: ``K > 1`` scores a
+      speculative draft in one tick, ``logits[:, i]`` the next-token
+      distribution after token ``i``.
+
+    A freed slot needs no cleaning: its rows sit at ring indices the
+    position mask reaches only after the next occupant has overwritten
+    them, and a rejected draft's rows lie past ``pos``, which the paged
+    mask never admits.
+
+    Precision follows the JAX adapter: the block weights and the cache are
+    in the compute dtype (the policy's, else the model's
+    ``compute_dtype``, else f32); the embeddings, the LayerNorm parameters
+    and the head stay f32; LayerNorm computes in f32; the attention softmax
+    and the logits are f32. A MoE block runs ``parallel/moe.py``'s op
+    with the expert axis inactive and drop-free capacity (cf = E), its
+    experts in the wider of the compute dtype and their own."""
+
+    supports_weight_quant = False
+    supports_cache_quant = False
+    supports_paged = True
+
+    def __init__(self, m, policy=None):
+        self.m = m
+        self.policy = policy
+        at = m.blocks[0].attn
+        if not at.causal:
+            raise NotImplementedError(
+                "serving needs a causal model; this TransformerLM was "
+                "built with causal=False")
+        self.n_heads = at.n_heads
+        self.head_dim = m.d_model // self.n_heads
+        self.scale = 1.0 / math.sqrt(self.head_dim)
+        self.vocab_size = m.vocab_size
+        self.device = m.tok_emb.W.device
+
+    def _compute_dtype(self):
+        if self.policy is not None and \
+                self.policy.compute_dtype is not None:
+            return self.policy.compute_dtype
+        return self.m.compute_dtype or torch.float32
+
+    def params(self):
+        """A copy of the model's weights (a sharded one's gathered), as the
+        programs read them; the engine serves the weights of its build."""
+        from ..parallel.gspmd import full_data
+        cdt = self._compute_dtype()
+
+        def w(t, dtype=torch.float32):
+            return full_data(t).detach().to(dtype, copy=True)
+
+        blocks = []
+        for blk in self.m.blocks:
+            at, mlp = blk.attn, blk.mlp
+            p = dict(ln1_s=w(blk.ln1.scale), ln1_b=w(blk.ln1.bias),
+                     ln2_s=w(blk.ln2.scale), ln2_b=w(blk.ln2.bias))
+            for name, lin in (("q", at.q_proj), ("k", at.k_proj),
+                              ("v", at.v_proj), ("o", at.proj)):
+                p[f"w{name}"] = w(lin.W, cdt)
+                p[f"b{name}"] = w(lin.b, cdt)
+            if hasattr(mlp, "up"):
+                p.update(w_up=w(mlp.up.W, cdt), b_up=w(mlp.up.b, cdt),
+                         w_dn=w(mlp.down.W, cdt), b_dn=w(mlp.down.b, cdt))
+            else:
+                # the JAX adapter hands the expert banks over uncast, so
+                # its products promote to the wider dtype; the router f32
+                et = torch.promote_types(cdt, mlp.w1.dtype)
+                p["wg"] = w(mlp.wg)
+                p.update({k: w(getattr(mlp, k), et)
+                          for k in ("w1", "b1", "w2", "b2")})
+            blocks.append(p)
+        return dict(tok=w(self.m.tok_emb.W), pos=w(self.m.pos_emb.W),
+                    lnf_s=w(self.m.ln_f.scale), lnf_b=w(self.m.ln_f.bias),
+                    head_w=w(self.m.head.W), head_b=w(self.m.head.b),
+                    blocks=blocks)
+
+    def validate(self, prefill_len, max_len):
+        """A prompt longer than the positional table would fail the first
+        prefill; fail here, typed."""
+        table = int(self.m.pos_emb.input_dim)
+        if int(prefill_len) > table:
+            raise ValueError(
+                f"prefill_len {prefill_len} exceeds this model's "
+                f"positional-embedding table ({table} rows): rebuild "
+                f"the model with max_len >= {prefill_len} or lower "
+                "prefill_len")
+
+    def init_cache(self, slots, max_len):
+        from ..serving import kv_cache
+        return [kv_cache.init_cache(slots, self.n_heads, max_len,
+                                    self.head_dim, self._compute_dtype(),
+                                    self.device.torch_device)
+                for _ in self.m.blocks]
+
+    def init_pool(self, n_blocks, block_size):
+        from ..serving import kv_cache
+        return [kv_cache.init_pool(n_blocks, self.n_heads, block_size,
+                                   self.head_dim, self._compute_dtype(),
+                                   self.device.torch_device)
+                for _ in self.m.blocks]
+
+    def _block(self):
+        """The one block body every program shares (LN, QKV, attend,
+        out-projection, LN, MLP); ``attend(q, k, v, level) -> merged
+        output`` is the part that differs, and writes the level."""
+        n_heads = self.n_heads
+        moe_op = None
+        if self.m.moe:
+            from ..parallel.moe import _MoEFFN
+            mlp0 = self.m.blocks[0].mlp
+            moe_op = _MoEFFN(mlp0.n_experts, mlp0.top_k,
+                             float(mlp0.n_experts), None, ())
+
+        def mlp(p, h2):
+            if "wg" in p:
+                x2 = h2.reshape(-1, h2.shape[-1]).to(p["w1"].dtype)
+                y, _aux = moe_op.forward(x2, p["wg"], p["w1"], p["b1"],
+                                         p["w2"], p["b2"])
+                return y.reshape(h2.shape).to(h2.dtype)
+            up = torch.nn.functional.gelu(h2 @ p["w_up"] + p["b_up"],
+                                          approximate="tanh")
+            return up @ p["w_dn"] + p["b_dn"]
+
+        def block(p, x, level, attend):
+            h = _ln_serve(x, p["ln1_s"], p["ln1_b"])
+            q, k, v = [_split_heads(h @ p[f"w{c}"] + p[f"b{c}"], n_heads)
+                       for c in "qkv"]
+            o = attend(q, k, v, level)
+            x = x + (o.to(x.dtype) @ p["wo"] + p["bo"])
+            return x + mlp(p, _ln_serve(x, p["ln2_s"], p["ln2_b"]))
+
+        return block
+
+    def _run(self, P, levels, x, attend):
+        """Every block over ``x``, then the final LayerNorm."""
+        block = self._block()
+        for p, level in zip(P["blocks"], levels):
+            x = block(p, x, level, attend)
+        return _ln_serve(x, P["lnf_s"], P["lnf_b"])
+
+    @staticmethod
+    def _head(P, h):
+        return h.float() @ P["head_w"] + P["head_b"]
+
+    def prefill_fn(self):
+        from ..serving import kv_cache
+        scale, cdt = self.scale, self._compute_dtype()
+
+        def fn(P, cache, tokens, lengths, slot_ids, valid):
+            B, S = tokens.shape
+            x = (P["tok"][tokens.long()] + P["pos"][:S][None]).to(cdt)
+            q_pos = torch.arange(S, device=x.device)[None].expand(B, S)
+
+            def attend(q, k, v, level):
+                # the prompt's rows go in first and the queries attend them
+                # in the ring, at their positions: the JAX program's causal
+                # softmax over the fresh rows (rows past the prompt are
+                # masked), in the paged programs' shapes
+                for b in range(B):
+                    kv_cache.write_prompt(level, slot_ids[b], k[b], v[b],
+                                          valid[b])
+                rows = torch.where(valid, slot_ids.long(),
+                                   level["k"].shape[0] - 1)
+                return _merge_heads(kv_cache.attend_positions(
+                    q, level["k"][rows], level["v"][rows], q_pos, scale))
+
+            hN = self._run(P, cache, x, attend)
+            last = (lengths.long() - 1).clamp(min=0)
+            return self._head(P, hN[torch.arange(B, device=x.device),
+                                    last])
+
+        return fn
+
+    def decode_fn(self):
+        from ..serving import kv_cache
+        scale, cdt = self.scale, self._compute_dtype()
+
+        def fn(P, cache, tokens, positions, active):
+            positions = positions.long()
+            # past the learned table a sequence holds its last embedding
+            # (the ring is sliding-window attention by then)
+            pos_ids = positions.clamp(max=P["pos"].shape[0] - 1)
+            x = (P["tok"][tokens.long()]
+                 + P["pos"][pos_ids])[:, None, :].to(cdt)
+
+            def attend(q, k, v, level):
+                kv_cache.write_token(level, k[:, :, 0], v[:, :, 0],
+                                     positions)
+                return _merge_heads(kv_cache.attend(q, level, positions,
+                                                    scale))
+
+            return self._head(P, self._run(P, cache, x, attend)[:, 0])
+
+        return fn
+
+    def _paged_core(self):
+        """The one paged pass both paged programs share: ``(R, Q)`` tokens
+        at absolute positions ``pos_abs``, each layer's fresh k/v written
+        through the block tables (``wmask`` drops padding), position-exact
+        attention; returns the final-LN hidden states. Chunked prefill and
+        the K-token verify are the same math at different (R, Q)."""
+        from ..serving import kv_cache
+        scale, cdt = self.scale, self._compute_dtype()
+
+        def core(P, pool, tables, tokens, pos_abs, wmask):
+            pos_ids = pos_abs.clamp(max=P["pos"].shape[0] - 1)
+            x = (P["tok"][tokens.long()] + P["pos"][pos_ids]).to(cdt)
+
+            def attend(q, k, v, level):
+                kv_cache.write_rows(level, tables, k, v, pos_abs, wmask)
+                return _merge_heads(kv_cache.attend_pages(
+                    q, level, tables, pos_abs, scale))
+
+            return self._run(P, pool, x, attend)
+
+        return core
+
+    def paged_prefill_fn(self):
+        core = self._paged_core()
+
+        def fn(P, pool, tables, tokens, starts, lengths, valid):
+            B, S = tokens.shape
+            ar = torch.arange(S, device=tokens.device)
+            pos_abs = starts.long()[:, None] + ar[None, :]
+            wmask = (ar[None, :] < lengths.long()[:, None]) & valid[:, None]
+            hN = core(P, pool, tables, tokens, pos_abs, wmask)
+            last = (lengths.long() - 1).clamp(min=0)
+            return self._head(P, hN[torch.arange(B, device=hN.device),
+                                    last])
+
+        return fn
+
+    def paged_decode_fn(self):
+        core = self._paged_core()
+
+        def fn(P, pool, tables, tokens, positions, counts):
+            W, K = tokens.shape
+            ar = torch.arange(K, device=tokens.device)
+            pos_abs = positions.long()[:, None] + ar[None, :]
+            wmask = ar[None, :] < counts.long()[:, None]
+            return self._head(P, core(P, pool, tables, tokens, pos_abs,
+                                      wmask))
+
+        return fn
+
+    def sharding_specs(self, *args, **kwargs):
+        raise _not_ported("sharded serving (ROADMAP.md: slice D2, the "
+                          "serving half of parallel/gspmd.py)")
+
+    def greedy_prefill_fn(self):
+        return self.sharding_specs()
+
+    greedy_decode_fn = greedy_paged_prefill_fn = greedy_paged_decode_fn = \
+        greedy_prefill_fn
 
 
 def create_model(vocab_size=256, **kwargs):

@@ -2,9 +2,10 @@
 histograms with quantiles.
 
 A small copy of the part of ``singa_tpu/observability/metrics.py`` the
-stateless serving engine uses (request outcomes, queue depth, TTFT and
-per-tick latency). Export formats, label cardinality guards and the
-build-info document are not ported.
+serving engines use (request outcomes, queue depth, TTFT, per-tick
+latency, the slot, token, KV block, prefix-cache and speculative
+counters). Export formats, label cardinality guards and the build-info
+document are not ported.
 """
 
 from __future__ import annotations
@@ -29,6 +30,11 @@ class Counter:
         key = tuple(labels.get(k) for k in self.labels)
         with self._lock:
             return self._values.get(key, 0)
+
+    def total(self):
+        """The sum over every label set."""
+        with self._lock:
+            return sum(self._values.values())
 
 
 class Gauge:
@@ -100,6 +106,11 @@ class Registry:
 
     def histogram(self, name, help_text=""):
         return self._get(Histogram, name, help_text)
+
+    def get(self, name):
+        """The metric registered under ``name``, or None."""
+        with self._lock:
+            return self._metrics.get(name)
 
 
 _default = Registry()

@@ -51,8 +51,8 @@ FSDP shard's gradient sums it over the data ranks and, through the
 axes.
 
 Not ported: pipeline stages (``stage`` > 1, slice E) and the serving half
-of the module (the serving mesh, partitioner and rule tables, slice D);
-each raises naming ROADMAP.md.
+of the module (the serving mesh, partitioner and rule tables, sharded
+serving: slice D2); each raises naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -273,13 +273,13 @@ def train_mesh(data=-1, model=1, stage=1, device_type=None):
         data=deg["data"], model=deg["model"], pipe=deg["pipe"]))
 
 
-# -- the serving half: slice D --------------------------------------------------
+# -- the serving half: slice D2 -------------------------------------------------
 
 def _serving(name):
     def refused(*args, **kwargs):
         raise NotImplementedError(
             f"gspmd.{name}: sharded serving is not ported yet (ROADMAP.md: "
-            "slice D, LM serving)")
+            "slice D2, sharded LM serving)")
     refused.__name__ = name
     return refused
 
@@ -293,7 +293,7 @@ serving_arg_specs = _serving("serving_arg_specs")
 
 
 class Partitioner:
-    """The JAX package's serving partitioner (slice D: constructing one
+    """The JAX package's serving partitioner (slice D2: constructing one
     raises) and its byte accounting, which training uses."""
 
     def __init__(self, *args, **kwargs):

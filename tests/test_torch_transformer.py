@@ -320,16 +320,35 @@ def test_what_is_not_ported_names_the_roadmap(kw):
 
 
 def test_generate_and_decode_adapter_name_the_roadmap():
-    """``decode_adapter`` (LM serving, slice D) is still refused naming
-    ROADMAP.md. ``generate`` is ported (``tests/test_torch_decode.py``):
-    here a tiny greedy decode equals the JAX package's from the same
-    weights."""
+    """``generate`` is ported (``tests/test_torch_decode.py``): here a tiny
+    greedy decode equals the JAX package's from the same weights.
+    ``decode_adapter`` (LM serving, slice D1) is ported too
+    (``tests/test_torch_lm_serving.py``): its ``decode_fn`` gives the JAX
+    adapter's logits, within ``LOGIT_TOL`` of the largest |logit|, on the
+    same weights, ring cache and tokens; what it leaves to slice D2
+    (sharded serving) still names ROADMAP.md."""
     tm, jm, _, _ = _tiny_pair()
     prompt = _data()[0][:, :6]
     np.testing.assert_array_equal(tm.generate(prompt, 3, temperature=0),
                                   jm.generate(prompt, 3, temperature=0))
+    ta, ja = tm.decode_adapter(), jm.decode_adapter()
+    tokens = _data()[0][:, 6].astype(np.int32)
+    positions = np.array([0, 5], np.int32)
+    active = np.ones(B, bool)
+    _, want = ja.decode_fn()(ja.params(), ja.init_cache(B, 8),
+                             jnp.asarray(tokens), jnp.asarray(positions),
+                             jnp.asarray(active))
+    with torch.inference_mode():
+        got = ta.decode_fn()(ta.params(), ta.init_cache(B, 8),
+                             torch.from_numpy(tokens.astype(np.int64)),
+                             torch.from_numpy(positions.astype(np.int64)),
+                             torch.from_numpy(active))
+    want = np.asarray(want)
+    assert got.shape == want.shape == (B, VOCAB)
+    scale = float(np.abs(want).max())
+    assert float(np.abs(got.numpy() - want).max()) <= LOGIT_TOL * scale
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.decode_adapter()
+        ta.sharding_specs()
 
 
 @pytest.fixture
